@@ -1,0 +1,139 @@
+"""Build and bind the port's CUDA kernels.
+
+Each ``csrc/<name>.cu`` has a plain ``extern "C"`` interface. It is compiled
+at first use with ``nvcc`` into a shared library under ``_build/`` (listed in
+``.gitignore``), named by a hash of its source and flags so that an edit
+rebuilds it, and loaded with ``ctypes``. Kernels launch on PyTorch's current
+stream. There is no fallback: a missing ``nvcc``, a failed build or a
+refused launch raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+import torch
+
+PKG_DIR = Path(__file__).resolve().parents[2]
+CSRC_DIR = PKG_DIR / "csrc"
+BUILD_DIR = PKG_DIR / "_build"
+KERNELS = ("megakernel_v4",)
+# -fmad=false: no contraction of a*b+c into one FMA, so the kernel rounds
+# op for op as its plain PyTorch version does on the card (whose elementwise
+# ops are separate kernels); path-tracing near-ties otherwise flip paths.
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+# A block's shared memory on Hopper (232,448 bytes with the opt-in).
+MAX_SMEM_BYTES = 232448
+
+_LOCK = threading.Lock()
+_LIBS: dict[str, ctypes.CDLL] = {}
+BUILD_LOGS: dict[str, str] = {}
+
+
+def nvcc_path() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError(
+            "nvcc not found: the port's CUDA kernels are compiled with the CUDA "
+            "toolkit's nvcc at first use")
+    return path
+
+
+def library_path(name: str) -> Path:
+    src = (CSRC_DIR / f"{name}.cu").read_bytes()
+    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"lib{name}-{tag}.so"
+
+
+def build_all(names=KERNELS) -> dict[str, Path]:
+    """Compile every kernel that is not built yet, one ``nvcc`` per source,
+    all started together. Returns name → library path."""
+    paths = {name: library_path(name) for name in names}
+    todo = {name: p for name, p in paths.items() if not p.exists()}
+    if not todo:
+        return paths
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = nvcc_path()
+    procs = {}
+    for name, out in todo.items():
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True), tmp)
+    failed = []
+    for name, (proc, tmp) in procs.items():
+        log, _ = proc.communicate()
+        BUILD_LOGS[name] = log
+        if proc.returncode:
+            failed.append(f"{name} (nvcc exit {proc.returncode}):\n{log}")
+        else:
+            os.replace(tmp, todo[name])
+    if failed:
+        raise RuntimeError("kernel build failed: " + "\n".join(failed))
+    return paths
+
+
+def _bind_megakernel_v4(lib: ctypes.CDLL) -> None:
+    i, p = ctypes.c_int, ctypes.c_void_p
+    lib.megakernel_v4_launch.argtypes = [i, p, i, p, p, i, i, i, i, i, i, i, i, i, i, p, p]
+    lib.megakernel_v4_launch.restype = i
+    lib.megakernel_v4_smem_bytes.argtypes = [i] * 6
+    lib.megakernel_v4_smem_bytes.restype = i
+    lib.megakernel_v4_error_string.argtypes = [i]
+    lib.megakernel_v4_error_string.restype = ctypes.c_char_p
+
+
+_BINDERS = {"megakernel_v4": _bind_megakernel_v4}
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The kernel's library, built and bound at first use."""
+    with _LOCK:
+        if name not in _LIBS:
+            path = build_all((name,))[name]
+            lib = ctypes.CDLL(str(path))
+            _BINDERS[name](lib)
+            _LIBS[name] = lib
+        return _LIBS[name]
+
+
+def _require_cuda(**tensors) -> torch.device:
+    device = None
+    for name, t in tensors.items():
+        if not t.is_cuda or not t.is_contiguous() or t.dtype != torch.float32:
+            raise ValueError(f"{name} must be a contiguous float32 CUDA tensor")
+        if device is not None and t.device != device:
+            raise ValueError(f"{name} is on {t.device}, expected {device}")
+        device = t.device
+    return device
+
+
+def launch_megakernel_v4(camv, seed: int, background, packed, out, *, n_pix,
+                         max_depth, sizes, checker_depth, has_noise) -> None:
+    """Launch ``megakernel_v4`` writing ``out`` [n_pix, 3]; raises on a
+    refused launch."""
+    device = _require_cuda(camv=camv, background=background, packed=packed, out=out)
+    if out.numel() != 3 * n_pix:
+        raise ValueError("out must hold n_pix x 3 floats")
+    lib = load("megakernel_v4")
+    n_sph, n_quad, n_mat, n_tex, n_med, n_box = (int(x) for x in sizes)
+    smem = lib.megakernel_v4_smem_bytes(n_sph, n_quad, n_mat, n_tex, n_med, n_box)
+    if smem > MAX_SMEM_BYTES:
+        raise ValueError(f"scene tables need {smem} B of shared memory, "
+                         f"above the {MAX_SMEM_BYTES} B a block can have")
+    stream = torch.cuda.current_stream(device).cuda_stream
+    err = lib.megakernel_v4_launch(
+        device.index, camv.data_ptr(), int(seed), background.data_ptr(),
+        packed.data_ptr(), n_sph, n_quad, n_mat, n_tex, n_med, n_box,
+        int(n_pix), int(max_depth), int(checker_depth), int(bool(has_noise)),
+        out.data_ptr(), stream)
+    if err:
+        msg = lib.megakernel_v4_error_string(err).decode()
+        raise RuntimeError(f"megakernel_v4 launch failed: {msg} (cudaError {err})")

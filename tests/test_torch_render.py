@@ -1,0 +1,137 @@
+"""The slice end to end on the CPU: the port's Renderer against the JAX
+package's render_progressive on the same murmur streams, progressive
+accumulation, and the CLI (JSON → PNG)."""
+
+import dataclasses
+import json
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from raytrace2_tpu.ops import integrator as jax_integrator
+from raytrace2_tpu.scene import loader as jax_loader
+from raytrace2_tpu.scene import schema as jax_schema
+from raytrace2_tpu_torch import app
+from raytrace2_tpu_torch.io import compare, image
+from raytrace2_tpu_torch.render import Renderer, display_image
+from raytrace2_tpu_torch.scene import loader
+from test_torch_scenes import write_scene
+
+
+@pytest.mark.parametrize("name", ["cornell", "cornell_volume"])
+def test_renderer_matches_jax_murmur_path(tmp_path, name):
+    """Port Renderer at 48², 4 spp (sqrt_spp 2), depth 8 vs the JAX XLA path
+    with rng_impl="murmur": the same paths, up to f32 rounding.
+
+    Rounding can flip a path where it meets a surface at a near-tie (XLA
+    fuses multiply-adds, torch on the CPU does not), and one flipped pixel
+    costs several dB of whole-image PSNR at this size: the JAX package's own
+    v4 kernel scores 43.7 dB (Cornell) and 41.4 dB (volume) against its XLA
+    path, with 3 and 4 of 2304 pixels flipped; the port scores 41.8 and
+    38.9 dB with 3 and 4. So the gate separates the two effects: mean within
+    1e-3, at most 0.5% of pixels differing by more than 1e-4 (flipped
+    paths), and PSNR ≥ 60 dB over the other pixels (the same paths)."""
+    path = write_scene(tmp_path, name)
+    w = h = 48
+    spp, depth = 4, 8
+    jhost, _ = jax_loader.load_scene(path)
+    feat = dict(jhost.features(), use_megakernel=False, rng_impl="murmur")
+    ref = np.asarray(jax_integrator.render_progressive(
+        jax_schema.to_device(jhost), feat, w, h, jnp.int32(0), jnp.int32(spp), 0,
+        depth, 2)) / spp
+
+    scene, _ = loader.load_scene(path)
+    r = Renderer(scene, w, h, num_samples=spp, max_depth=depth, device="cpu")
+    assert r.sqrt_spp == 2
+    ours = r.render(batch=spp)
+    assert ours.shape == (h, w, 3) and np.isfinite(ours).all()
+    assert abs(ours.mean() - ref.mean()) < 1e-3
+    flipped = np.abs(ours - ref).max(-1) > 1e-4
+    assert flipped.mean() <= 0.005, flipped.sum()
+    assert compare.psnr(ours[~flipped], ref[~flipped]) >= 60.0
+
+
+def test_batch_split_invariance(tmp_path):
+    """update(2) twice equals update(4): streams are pure functions of
+    (pixel, sample)."""
+    scene, _ = loader.load_scene(write_scene(tmp_path, "cornell"))
+    a = Renderer(scene, 16, 16, num_samples=4, max_depth=6, device="cpu")
+    a.update(4)
+    b = Renderer(scene, 16, 16, num_samples=4, max_depth=6, device="cpu")
+    b.update(2)
+    b.update(2)
+    assert a.frame_idx == b.frame_idx == 4
+    np.testing.assert_allclose(a.linear_pixels(), b.linear_pixels(), rtol=1e-5, atol=1e-6)
+
+
+def test_cli_writes_display_image(tmp_path):
+    path = write_scene(tmp_path, "feature")
+    out = tmp_path / "out.png"
+    metrics = tmp_path / "m.jsonl"
+    rc = app.main([path, str(out), "--device", "cpu", "--samples", "2", "--depth", "3",
+                   "--width", "20", "--height", "12", "--seed", "5", "--quiet",
+                   "--metrics", str(metrics)])
+    assert rc == 0
+    scene, _ = loader.load_scene(path, seed=5)
+    r = Renderer(scene, 20, 12, num_samples=2, max_depth=3, seed=5, device="cpu")
+    r.update(2)
+    want = display_image(r.state).numpy()[::-1]  # the PNG's rows run top-down
+    np.testing.assert_array_equal(image.decode_png(out.read_bytes()), want)
+    done = [json.loads(line) for line in metrics.read_text().splitlines()][-1]
+    assert done["event"] == "done" and done["samples"] == 2 and done["device"] == "cpu"
+    np.testing.assert_allclose(done["mean_linear"], r.linear_pixels().mean(), rtol=1e-6)
+
+
+def test_cli_camera_override(tmp_path):
+    """--camera replaces the scene's camera with a standalone camera file."""
+    cam = tmp_path / "cam.json"
+    cam.write_text(json.dumps({"fov": 30, "center": [0, 6, 9], "look_at": [0, 0, 0]}))
+    path = write_scene(tmp_path, "feature")
+    out = tmp_path / "out.png"
+    rc = app.main([path, str(out), "--device", "cpu", "--samples", "1", "--depth", "2",
+                   "--width", "10", "--height", "8", "--quiet", "--camera", str(cam)])
+    assert rc == 0
+    scene, _ = loader.load_scene(path)
+    scene = dataclasses.replace(scene, camera=loader.load_camera_file(str(cam)))
+    r = Renderer(scene, 10, 8, num_samples=1, max_depth=2, device="cpu")
+    r.update(1)
+    png = image.decode_png(out.read_bytes())
+    np.testing.assert_array_equal(png, display_image(r.state).numpy()[::-1])
+    own = Renderer(loader.load_scene(path)[0], 10, 8, num_samples=1, max_depth=2,
+                   device="cpu")
+    own.update(1)
+    assert not np.array_equal(png, display_image(own.state).numpy()[::-1])
+    assert app.main([path, str(out), "--device", "cpu", "--quiet",
+                     "--camera", str(tmp_path / "missing.json")]) == 1
+
+
+def test_cli_errors(tmp_path, monkeypatch):
+    assert app.main([str(tmp_path / "missing.json"), "--device", "cpu", "--quiet"]) == 1
+    assert app.main([write_scene(tmp_path, "cornell"), "--device", "cpu", "--quiet",
+                     "--live"]) == 2
+    assert app.main([write_scene(tmp_path, "book2"), "--device", "cpu", "--quiet"]) == 1
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert app.main([write_scene(tmp_path, "cornell"), "--quiet"]) == 1
+
+
+def test_renderer_refuses_what_is_not_ported(tmp_path, monkeypatch):
+    scene, _ = loader.load_scene(write_scene(tmp_path, "cornell"))
+    for backend in ("xla", "bvh", "pallas", "wavefront"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            Renderer(scene, 8, 8, backend=backend, device="cpu")
+    big, _ = loader.load_scene(write_scene(tmp_path, "book2"))
+    with pytest.raises(NotImplementedError, match="wavefront"):
+        Renderer(big, 8, 8, device="cpu")
+    p = tmp_path / "ellipsoid.json"
+    p.write_text(json.dumps({
+        "materials": [{"type": "lambertian", "albedo": [0.5, 0.5, 0.5]}],
+        "primitives": [{"type": "sphere", "radius": 1, "material": 0}],
+        "scene": [{"transform": {"scale": [1, 2, 1]}, "primitive": 0}]}))
+    ell, _ = loader.load_scene(str(p))
+    with pytest.raises(NotImplementedError, match="non-kernel"):
+        Renderer(ell, 8, 8, device="cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Renderer(scene, 8, 8, device="cuda")
