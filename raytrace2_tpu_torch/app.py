@@ -76,7 +76,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "summary record")
     p.add_argument("--backend", default="auto",
                    choices=["auto", "xla", "bvh", "pallas", "mega", "wavefront"],
-                   help="auto/mega: the v4 kernel path; the others are not ported yet")
+                   help="auto/mega: the kernel path (the v4 kernel, or the sorted "
+                        "wavefront above 256 records); wavefront: force the sorted "
+                        "wavefront; xla/bvh/pallas are not ported yet")
     p.add_argument("--device", default="cuda",
                    help="render device: cuda (the Hopper kernel; default) or cpu "
                         "(the kernel's plain PyTorch version)")
@@ -102,6 +104,7 @@ def main(argv=None) -> int:
     import torch
 
     from raytrace2_tpu_torch.io import image as image_io
+    from raytrace2_tpu_torch.ops.kernels import megakernel, wavefront
     from raytrace2_tpu_torch.render import Renderer, resolve_device
     from raytrace2_tpu_torch.scene import loader
 
@@ -170,6 +173,9 @@ def main(argv=None) -> int:
         if device.type == "cuda":
             torch.cuda.synchronize(device)
 
+    counters = {"megakernel_v4": megakernel, "wavefront_step": wavefront}
+    module = counters[renderer.kernel]
+    launches0, sorts0 = module.LAUNCHES, wavefront.SORTS
     t0 = time.perf_counter()
     while renderer.frame_idx < total:
         renderer.update(min(batch, total - renderer.frame_idx))
@@ -191,9 +197,14 @@ def main(argv=None) -> int:
     lin = renderer.linear_pixels()
     if args.metrics:
         dt = time.perf_counter() - t0
+        # Kernel launches on the card; 0 where the plain version ran (CPU).
+        kernel = {"kernel": renderer.kernel, "launches": module.LAUNCHES - launches0}
+        if renderer.kernel == "wavefront_step":
+            kernel["sorts"] = wavefront.SORTS - sorts0
         with open(args.metrics, "a") as f:
             f.write(json.dumps({
                 "event": "done", "samples": renderer.frame_idx, "total": total,
+                **kernel,
                 "elapsed_s": round(dt, 4),
                 "mpaths_per_s": round(renderer.frame_idx * rays_per_sample
                                       / max(dt, 1e-9) / 1e6, 4),

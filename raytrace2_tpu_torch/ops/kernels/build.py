@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` has a plain ``extern "C"`` interface. It is compiled
 at first use with ``nvcc`` into a shared library under ``_build/`` (listed in
-``.gitignore``), named by a hash of its source and flags so that an edit
-rebuilds it, and loaded with ``ctypes``. Kernels launch on PyTorch's current
+``.gitignore``), named by a hash of its source, the ``csrc/*.cuh`` headers it
+includes and the flags, so that an edit of any of them rebuilds it, and
+loaded with ``ctypes``. Kernels launch on PyTorch's current
 stream. There is no fallback: a missing ``nvcc``, a failed build or a
 refused launch raises.
 """
@@ -13,6 +14,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -23,7 +25,7 @@ import torch
 PKG_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
-KERNELS = ("megakernel_v4",)
+KERNELS = ("megakernel_v4", "wavefront_step")
 # -fmad=false: no contraction of a*b+c into one FMA, so the kernel rounds
 # op for op as its plain PyTorch version does on the card (whose elementwise
 # ops are separate kernels); path-tracing near-ties otherwise flip paths.
@@ -46,10 +48,24 @@ def nvcc_path() -> str:
     return path
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def _sources(path: Path, seen: dict) -> dict:
+    """``path`` and every file under ``csrc/`` it includes with quotes,
+    transitively: path → bytes."""
+    if path not in seen:
+        seen[path] = path.read_bytes()
+        for inc in _INCLUDE.findall(seen[path]):
+            _sources(path.parent / inc.decode(), seen)
+    return seen
+
+
 def library_path(name: str) -> Path:
-    src = (CSRC_DIR / f"{name}.cu").read_bytes()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{tag}.so"
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path, src in sorted(_sources(CSRC_DIR / f"{name}.cu", {}).items()):
+        h.update(path.name.encode() + b"\0" + src)
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build_all(names=KERNELS) -> dict[str, Path]:
@@ -90,7 +106,19 @@ def _bind_megakernel_v4(lib: ctypes.CDLL) -> None:
     lib.megakernel_v4_error_string.restype = ctypes.c_char_p
 
 
-_BINDERS = {"megakernel_v4": _bind_megakernel_v4}
+def _bind_wavefront_step(lib: ctypes.CDLL) -> None:
+    i, p = ctypes.c_int, ctypes.c_void_p
+    lib.wavefront_step_launch.argtypes = [i, p, i, p, p, i, i, i, i, i, i, p, i, i, i, i, i, p]
+    lib.wavefront_step_launch.restype = i
+    lib.wavefront_step_smem_bytes.argtypes = [i] * 6
+    lib.wavefront_step_smem_bytes.restype = i
+    lib.wavefront_step_state_cols.argtypes = []
+    lib.wavefront_step_state_cols.restype = i
+    lib.wavefront_step_error_string.argtypes = [i]
+    lib.wavefront_step_error_string.restype = ctypes.c_char_p
+
+
+_BINDERS = {"megakernel_v4": _bind_megakernel_v4, "wavefront_step": _bind_wavefront_step}
 
 
 def load(name: str) -> ctypes.CDLL:
@@ -115,6 +143,12 @@ def _require_cuda(**tensors) -> torch.device:
     return device
 
 
+def _check_smem(smem: int) -> None:
+    if smem > MAX_SMEM_BYTES:
+        raise ValueError(f"scene tables need {smem} B of shared memory, "
+                         f"above the {MAX_SMEM_BYTES} B a block can have")
+
+
 def launch_megakernel_v4(camv, seed: int, background, packed, out, *, n_pix,
                          max_depth, sizes, checker_depth, has_noise) -> None:
     """Launch ``megakernel_v4`` writing ``out`` [n_pix, 3]; raises on a
@@ -124,10 +158,7 @@ def launch_megakernel_v4(camv, seed: int, background, packed, out, *, n_pix,
         raise ValueError("out must hold n_pix x 3 floats")
     lib = load("megakernel_v4")
     n_sph, n_quad, n_mat, n_tex, n_med, n_box = (int(x) for x in sizes)
-    smem = lib.megakernel_v4_smem_bytes(n_sph, n_quad, n_mat, n_tex, n_med, n_box)
-    if smem > MAX_SMEM_BYTES:
-        raise ValueError(f"scene tables need {smem} B of shared memory, "
-                         f"above the {MAX_SMEM_BYTES} B a block can have")
+    _check_smem(lib.megakernel_v4_smem_bytes(n_sph, n_quad, n_mat, n_tex, n_med, n_box))
     stream = torch.cuda.current_stream(device).cuda_stream
     err = lib.megakernel_v4_launch(
         device.index, camv.data_ptr(), int(seed), background.data_ptr(),
@@ -137,3 +168,25 @@ def launch_megakernel_v4(camv, seed: int, background, packed, out, *, n_pix,
     if err:
         msg = lib.megakernel_v4_error_string(err).decode()
         raise RuntimeError(f"megakernel_v4 launch failed: {msg} (cudaError {err})")
+
+
+def launch_wavefront_step(camv, seed: int, background, packed, state, *, n_slots,
+                          k_bounces, max_depth, sizes, checker_depth, has_noise) -> None:
+    """Launch ``wavefront_step``, advancing ``state`` [17, n_slots] in place
+    by up to ``k_bounces`` steps per slot; raises on a refused launch."""
+    device = _require_cuda(camv=camv, background=background, packed=packed, state=state)
+    lib = load("wavefront_step")
+    if state.dim() != 2 or tuple(state.shape) != (lib.wavefront_step_state_cols(), n_slots):
+        raise ValueError(f"state must be [{lib.wavefront_step_state_cols()}, n_slots], "
+                         f"got {tuple(state.shape)}")
+    n_sph, n_quad, n_mat, n_tex, n_med, n_box = (int(x) for x in sizes)
+    _check_smem(lib.wavefront_step_smem_bytes(n_sph, n_quad, n_mat, n_tex, n_med, n_box))
+    stream = torch.cuda.current_stream(device).cuda_stream
+    err = lib.wavefront_step_launch(
+        device.index, camv.data_ptr(), int(seed), background.data_ptr(),
+        packed.data_ptr(), n_sph, n_quad, n_mat, n_tex, n_med, n_box,
+        state.data_ptr(), int(n_slots), int(k_bounces), int(max_depth),
+        int(checker_depth), int(bool(has_noise)), stream)
+    if err:
+        msg = lib.wavefront_step_error_string(err).decode()
+        raise RuntimeError(f"wavefront_step launch failed: {msg} (cudaError {err})")

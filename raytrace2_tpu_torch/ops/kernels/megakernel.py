@@ -550,6 +550,28 @@ def make_bounce(packed, background, *, max_depth, sizes, has_checker, has_noise)
     return bounce
 
 
+def regenerate(cv, seed, pix, s_lane, tm, carry, in_grid):
+    """Regeneration step of the kernel's loop: every dead lane with samples
+    left takes the camera ray of its next sample. ``pix`` is (xx, yy,
+    pid_u) of each lane; ``carry`` the 14 bounce columns. Returns (s_lane,
+    key, tm, carry), with ``key`` the lane's sample key for the bounce."""
+    xx, yy, pid_u = pix
+    s0, n_samples, sqrt_spp = cv[21], cv[22], cv[23]
+    (bn, al, ox, oy, oz, dx, dy, dz, tpr, tpg, tpb, rr, rg, rb) = carry
+    need = (al <= 0.0) & (s_lane < n_samples - 1.0) & in_grid
+    s_lane = s_lane + torch.where(need, 1.0, 0.0)
+    key = rng.v4_sample_key(seed, pid_u, s0 + s_lane)
+    cox, coy, coz, cdx, cdy, cdz, ctm = camera.camera_ray(
+        cv, xx, yy, sqrt_spp, s0 + s_lane, key)
+    ox, oy, oz = torch.where(need, cox, ox), torch.where(need, coy, oy), torch.where(need, coz, oz)
+    dx, dy, dz = torch.where(need, cdx, dx), torch.where(need, cdy, dy), torch.where(need, cdz, dz)
+    tm = torch.where(need, ctm, tm)
+    bn = torch.where(need, 0.0, bn)
+    al = torch.where(need, 1.0, al)
+    tpr, tpg, tpb = torch.where(need, 1.0, tpr), torch.where(need, 1.0, tpg), torch.where(need, 1.0, tpb)
+    return s_lane, key, tm, (bn, al, ox, oy, oz, dx, dy, dz, tpr, tpg, tpb, rr, rg, rb)
+
+
 def trace_plain(camv, seed, packed, background, *, n_pix, max_depth, sizes,
                 has_checker, has_noise):
     """Plain PyTorch version of the v4 kernel: radiance summed over
@@ -564,31 +586,20 @@ def trace_plain(camv, seed, packed, background, *, n_pix, max_depth, sizes,
                          has_checker=has_checker, has_noise=has_noise)
     slot_i = torch.arange(n_pix, dtype=torch.int32, device=device) + int(cv[25])
     slot_f = slot_i.to(torch.float32)
-    s0, n_samples, sqrt_spp = cv[21], cv[22], cv[23]
     xx, yy, in_grid = camera.slot_to_pixel(slot_f, cv)
-    pid_u = rng.as_u32(yy * cv[19] + xx)
+    pix = (xx, yy, rng.as_u32(yy * cv[19] + xx))
     zero = torch.zeros(n_pix, dtype=torch.float32, device=device)
     s_lane = torch.full_like(zero, -1.0)
-    bn = al = ox = oy = oz = dx = dy = dz = tm = zero
-    tpr = tpg = tpb = rr = rg = rb = zero
+    tm = zero
+    carry = (zero,) * 14
     while True:
-        runnable = (al > 0.0) | ((s_lane < n_samples - 1.0) & in_grid)
+        al = carry[1]
+        runnable = (al > 0.0) | ((s_lane < cv[22] - 1.0) & in_grid)
         if not bool(runnable.any()):
             break
-        need = (al <= 0.0) & (s_lane < n_samples - 1.0) & in_grid
-        s_lane = s_lane + torch.where(need, 1.0, 0.0)
-        key = rng.v4_sample_key(seed, pid_u, s0 + s_lane)
-        cox, coy, coz, cdx, cdy, cdz, ctm = camera.camera_ray(
-            cv, xx, yy, sqrt_spp, s0 + s_lane, key)
-        ox, oy, oz = torch.where(need, cox, ox), torch.where(need, coy, oy), torch.where(need, coz, oz)
-        dx, dy, dz = torch.where(need, cdx, dx), torch.where(need, cdy, dy), torch.where(need, cdz, dz)
-        tm = torch.where(need, ctm, tm)
-        bn = torch.where(need, 0.0, bn)
-        al = torch.where(need, 1.0, al)
-        tpr, tpg, tpb = torch.where(need, 1.0, tpr), torch.where(need, 1.0, tpg), torch.where(need, 1.0, tpb)
-        (bn, al, ox, oy, oz, dx, dy, dz, tpr, tpg, tpb, rr, rg, rb) = bounce(
-            key, tm, (bn, al, ox, oy, oz, dx, dy, dz, tpr, tpg, tpb, rr, rg, rb))
-    return torch.stack([rr, rg, rb], dim=-1)
+        s_lane, key, tm, carry = regenerate(cv, seed, pix, s_lane, tm, carry, in_grid)
+        carry = bounce(key, tm, carry)
+    return torch.stack(carry[11:14], dim=-1)
 
 
 # ---------------------------------------------------------------------------
@@ -596,7 +607,7 @@ def trace_plain(camv, seed, packed, background, *, n_pix, max_depth, sizes,
 # ---------------------------------------------------------------------------
 
 
-def _check_inputs(camv, packed, background, n_pix, sizes):
+def check_inputs(camv, packed, background, n_pix, sizes):
     for name, t in (("camv", camv), ("packed", packed), ("background", background)):
         if t.dtype != torch.float32 or not t.is_contiguous() or t.dim() != 1:
             raise ValueError(f"{name} must be a contiguous 1-D float32 tensor")
@@ -621,7 +632,7 @@ def trace_megakernel_batch(camv, seed, packed, background, *, n_pix, max_depth,
     CUDA tensor it launches the Hopper kernel (built at first use) or
     raises."""
     global LAUNCHES
-    _check_inputs(camv, packed, background, n_pix, sizes)
+    check_inputs(camv, packed, background, n_pix, sizes)
     if packed.device.type == "cpu":
         return trace_plain(camv, seed, packed, background, n_pix=n_pix,
                            max_depth=max_depth, sizes=sizes,

@@ -23,8 +23,10 @@ _NOT_PORTED = {
     "xla": "ROADMAP queue A item 12 (non-kernel path)",
     "bvh": "ROADMAP queue A item 12 (non-kernel path, sphere BVH)",
     "pallas": "ROADMAP queue B item 5 (fused intersect kernel)",
-    "wavefront": "ROADMAP queue A item 10 / queue B item 2 (sorted wavefront)",
 }
+# Records whose tables the kernel path takes (JAX megakernel.MAX_SMEM_RECORDS);
+# the JAX package sends larger scenes to its XLA path.
+MAX_SMEM_RECORDS = 4096
 
 
 @dataclasses.dataclass
@@ -86,8 +88,12 @@ class Renderer:
     num_samples: int = 1
     max_depth: int = 50
     seed: int = 0
-    backend: str = "auto"  # 'auto' | 'mega' take the v4 kernel path
+    # 'auto' | 'mega' take the kernel path (v4, or the sorted wavefront above
+    # 256 records); 'wavefront' forces the wavefront for any scene.
+    backend: str = "auto"
     device: str | torch.device = "cuda"
+    # Most sweep records the kernel path takes (default MAX_SMEM_RECORDS).
+    max_records: int | None = None
     _features: dict = dataclasses.field(default_factory=dict)
     _state: RenderState | None = None
     _packed: torch.Tensor | None = None
@@ -96,14 +102,29 @@ class Renderer:
         if self.backend in _NOT_PORTED:
             raise NotImplementedError(
                 f"backend {self.backend!r} is not ported yet: {_NOT_PORTED[self.backend]}")
-        if self.backend not in ("auto", "mega"):
+        if self.backend not in ("auto", "mega", "wavefront"):
             raise ValueError(f"unknown backend {self.backend!r}")
         self.device = resolve_device(self.device)
         self._features = self.scene.features()
-        integrator.mega_schedule(self._features)
+        ceiling = MAX_SMEM_RECORDS if self.max_records is None else self.max_records
+        n_records = integrator.n_records(self._features)
+        if n_records > ceiling:
+            raise NotImplementedError(
+                f"scene has {n_records} sweep records, above the kernel path's "
+                f"{ceiling}: the non-kernel path is not ported yet (ROADMAP queue A "
+                "item 12)")
+        if self.backend == "wavefront":
+            self._features["mega_wavefront"] = True
         self.scene = schema.to_device(self.scene, self.device)
         self._packed = integrator.pack_scene(self.scene, self._features)
         self.reset()
+
+    @property
+    def kernel(self) -> str:
+        """The kernel this renderer's launches run: "wavefront_step" or
+        "megakernel_v4"."""
+        return "wavefront_step" if integrator.mega_schedule(self._features)[3] \
+            else "megakernel_v4"
 
     @property
     def sqrt_spp(self) -> int:

@@ -15,9 +15,21 @@ from raytrace2_tpu.scene import loader as jax_loader
 from raytrace2_tpu.scene import schema as jax_schema
 from raytrace2_tpu_torch import app
 from raytrace2_tpu_torch.io import compare, image
-from raytrace2_tpu_torch.render import Renderer, display_image
-from raytrace2_tpu_torch.scene import loader
+from raytrace2_tpu_torch.ops import integrator
+from raytrace2_tpu_torch.render import MAX_SMEM_RECORDS, Renderer, display_image
+from raytrace2_tpu_torch.scene import loader, schema
 from test_torch_scenes import write_scene
+
+
+def _many_spheres(tmp_path, n: int) -> str:
+    """A scene of ``n`` small spheres in a row, one material."""
+    p = tmp_path / f"spheres{n}.json"
+    p.write_text(json.dumps({
+        "camera": {"fov": 40, "center": [0, 0, 10], "look_at": [0, 0, 0]},
+        "materials": [{"type": "lambertian", "albedo": [0.5, 0.5, 0.5]}],
+        "primitives": [{"type": "sphere", "center": [0.01 * i, 0, 0], "radius": 0.1,
+                        "material": 0} for i in range(n)]}))
+    return str(p)
 
 
 @pytest.mark.parametrize("name", ["cornell", "cornell_volume"])
@@ -111,19 +123,30 @@ def test_cli_errors(tmp_path, monkeypatch):
     assert app.main([str(tmp_path / "missing.json"), "--device", "cpu", "--quiet"]) == 1
     assert app.main([write_scene(tmp_path, "cornell"), "--device", "cpu", "--quiet",
                      "--live"]) == 2
-    assert app.main([write_scene(tmp_path, "book2"), "--device", "cpu", "--quiet"]) == 1
+    # Above the kernel path's record ceiling (the non-kernel path is not ported).
+    assert app.main([_many_spheres(tmp_path, MAX_SMEM_RECORDS + 1), "--device", "cpu",
+                     "--quiet", "--width", "4", "--height", "4"]) == 1
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert app.main([write_scene(tmp_path, "cornell"), "--quiet"]) == 1
 
 
 def test_renderer_refuses_what_is_not_ported(tmp_path, monkeypatch):
     scene, _ = loader.load_scene(write_scene(tmp_path, "cornell"))
-    for backend in ("xla", "bvh", "pallas", "wavefront"):
+    for backend in ("xla", "bvh", "pallas"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             Renderer(scene, 8, 8, backend=backend, device="cpu")
+    # More records than the kernel path takes: the JAX package's XLA path.
+    huge, _ = loader.load_scene(_many_spheres(tmp_path, MAX_SMEM_RECORDS + 1))
+    with pytest.raises(NotImplementedError, match="queue A item 12"):
+        Renderer(huge, 8, 8, device="cpu")
     big, _ = loader.load_scene(write_scene(tmp_path, "book2"))
-    with pytest.raises(NotImplementedError, match="wavefront"):
-        Renderer(big, 8, 8, device="cpu")
+    with pytest.raises(NotImplementedError, match="queue A item 12"):
+        Renderer(big, 8, 8, device="cpu", max_records=1000)
+    # Table Perlin noise.
+    feats = dict(big.features(), noise_impl="table")
+    with pytest.raises(NotImplementedError, match="table"):
+        integrator.render_progressive(schema.to_device(big, "cpu"), feats, 4, 4, 0, 1, 0,
+                                      2, 1)
     p = tmp_path / "ellipsoid.json"
     p.write_text(json.dumps({
         "materials": [{"type": "lambertian", "albedo": [0.5, 0.5, 0.5]}],
@@ -135,3 +158,26 @@ def test_renderer_refuses_what_is_not_ported(tmp_path, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         Renderer(scene, 8, 8, device="cuda")
+
+
+def test_wavefront_backend_and_book2_cli(tmp_path):
+    """backend="wavefront" forces the sorted wavefront on a Cornell scene
+    (bitwise equal to the v4 route); book 2 takes it by default through the
+    CLI, whose done record names the kernel, its launches (0: the CPU runs
+    the plain version) and the sorts."""
+    scene, _ = loader.load_scene(write_scene(tmp_path, "cornell"))
+    v4 = Renderer(scene, 16, 8, num_samples=2, max_depth=4, device="cpu")
+    forced = Renderer(scene, 16, 8, num_samples=2, max_depth=4, backend="wavefront",
+                      device="cpu")
+    assert (v4.kernel, forced.kernel) == ("megakernel_v4", "wavefront_step")
+    np.testing.assert_array_equal(forced.render(batch=2), v4.render(batch=2))
+
+    out, metrics = tmp_path / "book2.png", tmp_path / "m.jsonl"
+    rc = app.main([write_scene(tmp_path, "book2"), str(out), "--device", "cpu",
+                   "--width", "8", "--height", "8", "--samples", "2", "--depth", "4",
+                   "--quiet", "--metrics", str(metrics)])
+    assert rc == 0
+    assert image.decode_png(out.read_bytes()).shape == (8, 8, 3)
+    done = [json.loads(line) for line in metrics.read_text().splitlines()][-1]
+    assert done["kernel"] == "wavefront_step" and done["launches"] == 0
+    assert done["sorts"] > 0

@@ -69,9 +69,45 @@ def feature_scene_json() -> dict:
     }
 
 
+def book1_final_json(rng_seed: int = 0) -> dict:
+    """The final scene of book 1 (Ray Tracing in One Weekend, §14.1) from a
+    seeded random stream: a ground sphere, a 22×22 grid of small random
+    diffuse, metal and glass spheres, and three large spheres, seen through
+    a defocused camera. About 485 spheres, so above the wavefront's
+    256-record threshold."""
+    rnd = np.random.RandomState(rng_seed)
+    scene = make_scene.SceneBuilder()
+    scene.add_sphere([0, -1000, 0], 1000, scene.add_lambertian([0.5, 0.5, 0.5]))
+    for a in range(-11, 11):
+        for b in range(-11, 11):
+            choose = rnd.uniform()
+            center = [a + 0.9 * rnd.uniform(), 0.2, b + 0.9 * rnd.uniform()]
+            if np.linalg.norm(np.subtract(center, [4, 0.2, 0])) <= 0.9:
+                continue
+            if choose < 0.8:
+                mat = scene.add_lambertian((rnd.uniform(size=3) * rnd.uniform(size=3)).tolist())
+            elif choose < 0.95:
+                mat = scene.add_metal(rnd.uniform(0.5, 1.0, size=3).tolist(),
+                                      float(rnd.uniform(0.0, 0.5)))
+            else:
+                mat = scene.add_dielectric(1.5)
+            scene.add_sphere(center, 0.2, mat)
+    scene.add_sphere([0, 1, 0], 1.0, scene.add_dielectric(1.5))
+    scene.add_sphere([-4, 1, 0], 1.0, scene.add_lambertian([0.4, 0.2, 0.1]))
+    scene.add_sphere([4, 1, 0], 1.0, scene.add_metal([0.7, 0.6, 0.5], 0.0))
+    for i in range(len(scene.primitives)):
+        scene.add_node(None, i)
+    scene.background_color = [0.7, 0.8, 1.0]
+    scene.camera = {"fov": 20, "center": [13, 2, 3], "look_at": [0, 0, 0],
+                    "defocus_angle": 0.6, "focus_distance": 10.0,
+                    "width": 600, "aspect_ratio": 1.0}
+    return scene.to_json()
+
+
 SCENES = {
     "cornell": lambda: make_scene.cornell_box_original().to_json(),
     "cornell_volume": lambda: make_scene.cornell_box_volume().to_json(),
+    "book1": book1_final_json,
     "book2": lambda: make_scene.book2_final(rng_seed=0).to_json(),
     "feature": feature_scene_json,
 }
