@@ -29,9 +29,24 @@ Phases, each printed on its own line:
      book 2 600x600, depth 50, 64 spp; wavefront launches and sorts > 0 and
      no v4 launch, PNG written, mean linear radiance checked against the
      16-spp render of phase 4;
-  7. one JSON line describing each kernel, with its bound (f32 operations
-     counted from csrc/path_common.cuh for the bounces this run's data took,
-     or bytes moved, over the card's peak rates).
+  7. the gradient kernel (B3) vs its plain PyTorch version (the replay
+     under torch.autograd), same inputs and radiance cotangent, gate
+     max|d| <= 1e-3 max|g_plain| + 1e-6 per leaf group (camv, background,
+     each table family): the three gradient-test scenes at 64x64, 2 spp,
+     depth 8, and Cornell 600x600 depth 50 at 2 spp (lanes chunked), where
+     both are timed and the replayed bounces must be the plain pre-pass's;
+     then B3 alone at the main path's launch (Cornell 600x600, depth 50,
+     64 spp), timed with CUDA events;
+  8. the gradient main path through grad.value_and_grad_scene: Cornell
+     600x600, depth 50, 64 spp, sqrt_spp 2, loss = mean (the JAX bench's
+     cornell600_fwdbwd_d50_paths_per_sec, with the forward/backward split);
+     book 2 600x600, depth 50, 4 spp through the wavefront forward and B3;
+  9. 5 Adam steps of python -m raytrace2_tpu_torch.tools.optimize_scene on
+     Cornell 600x600 (materials.albedo, 4 spp, depth 50): the loss falls;
+ 10. one JSON line describing each kernel, with its bound (f32 operations
+     counted from csrc/path_common.cuh and csrc/grad_adjoint.cuh for the
+     bounces this run's data took, or bytes moved, over the card's peak
+     rates).
 The last line is {"ok": true, "device": {...}}. Any failure exits non-zero
 before printing it, as does a machine without CUDA or a directory without
 the package.
@@ -39,6 +54,8 @@ the package.
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import os
 import shutil
@@ -68,6 +85,17 @@ PEAK_BYTES = 3.35e12
 # selects and the camera ray are not counted, so the bound is a low one.
 OPS_PER_RECORD = {"sph": 35, "quad": 46, "box": 28, "med": 85}
 OPS_SHADE = 120
+# The gradient kernel replays each bounce after its pre-pass (the forward's
+# sweep and shade): the winner's record test, the shade again, and the
+# adjoint — 60 f32 operations for a Lambertian quad hit, the cheapest case,
+# counted from csrc/grad_adjoint.cuh (bounce_adjoint, resolve_adjoint).
+OPS_ADJOINT = 60
+# Gate of B3 against its plain version, per leaf group: float atomics sum in
+# another order than autograd.
+GRAD_RTOL, GRAD_ATOL = 1e-3, 1e-6
+# The gradient main path (bench.py --grad): 64 samples per dispatch,
+# sqrt_spp 2, depth 50.
+GRAD_SPP, GRAD_SQRT_SPP, GRAD_DEPTH = 64, 2, 50
 
 
 def fail(msg: str) -> None:
@@ -99,14 +127,18 @@ def main() -> None:
         import make_scene
         from test_torch_scenes import feature_scene_json
 
-        from raytrace2_tpu_torch import app
+        from test_torch_scenes import GRAD_SCENES
+
+        from raytrace2_tpu_torch import app, grad
         from raytrace2_tpu_torch.io import compare, image
         from raytrace2_tpu_torch.ops import camera
         from raytrace2_tpu_torch.ops.kernels import build
         from raytrace2_tpu_torch.ops.kernels import megakernel as mk
+        from raytrace2_tpu_torch.ops.kernels import megakernel_grad as mkg
         from raytrace2_tpu_torch.ops.kernels import wavefront as wf
         from raytrace2_tpu_torch.render import Renderer
         from raytrace2_tpu_torch.scene import loader, schema
+        from raytrace2_tpu_torch.tools import optimize_scene
     except ImportError as e:
         fail(f"run from the root of a checkout of the repository: {e}")
     for name in ("jax", "raytrace2_tpu"):
@@ -458,9 +490,196 @@ def main() -> None:
         f"{wf_launches} wavefront launches, {wf_sorts} sorts, {v4_launches} v4 launches, "
         f"mean linear radiance {mean:.4f} (16 spp: {book2_mean16:.4f}), "
         f"{done['mpaths_per_s']:.2f} Mpaths/s over {done['elapsed_s']:.3f} s on {card}")
-    shutil.rmtree(work)
 
-    # ---- phase 7: the kernels ------------------------------------------------
+    # ---- phase 7: the gradient kernel vs its plain version ------------------
+    def grad_args(path, size, spp, depth, sqrt_spp=None):
+        (camv_, seed_, packed_, bg_), kw_ = prepare(path, size, size, spp, depth)
+        if sqrt_spp is not None:
+            camv_[23] = float(sqrt_spp)
+        g = torch.from_numpy(np.random.RandomState(5).uniform(
+            0.0, 1.0, (size * size, 3)).astype(np.float32)).to(dev)
+        return (camv_, seed_, packed_, bg_.to(torch.float32).contiguous(), g), kw_
+
+    def grad_gate(label, kern, plain, sizes):
+        """Per leaf group: camv, background, each table family."""
+        groups = [("camv", kern[0], plain[0]), ("background", kern[1], plain[1])]
+        ck, cp = mk.unpack_buffer(kern[2], sizes), mk.unpack_buffer(plain[2], sizes)
+        for fam, keys in mk.FAMILIES:
+            groups.append((fam, torch.cat([ck[fam][k] for k in keys]),
+                           torch.cat([cp[fam][k] for k in keys])))
+        worst, parts = 0.0, []
+        for name, a, b in groups:
+            a, b = a.cpu().numpy(), b.cpu().numpy()
+            check(np.isfinite(a).all(), f"{label}: B3 {name} cotangent not finite")
+            err, scale = float(np.abs(a - b).max()), float(np.abs(b).max())
+            check(err <= GRAD_RTOL * scale + GRAD_ATOL,
+                  f"{label}: B3 {name} cotangent max|d| {err:.3g} vs max|g| {scale:.3g}")
+            worst = max(worst, err)
+            if scale > 0.0:
+                parts.append(f"{name} {err:.3g}/{scale:.3g}")
+        return worst, ", ".join(parts)
+
+    def timed_grad(args, kw, reps):
+        mkg.grad_call(*args, **kw)  # warm-up
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        for _ in range(reps):
+            out = mkg.grad_call(*args, **kw)
+        end.record()
+        torch.cuda.synchronize()
+        return out, start.elapsed_time(end) / reps
+
+    for name in ("solid", "noise", "media"):
+        label = f"grad_{name} 64x64 2spp depth 8"
+        args, kw = grad_args(scene_file(f"grad_{name}", GRAD_SCENES[name]), 64, 2, 8)
+        kern, ms = timed_grad(args, kw, 3)
+        t0 = time.perf_counter()
+        plain = mkg.grad_plain(*args, **kw)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        _, detail = grad_gate(label, kern, plain, kw["sizes"])
+        say(f"phase 7 B3 vs plain, {label}: max|d|/max|g| per group: {detail} (gate "
+            f"{GRAD_RTOL:g} max|g| + {GRAD_ATOL:g}); kernel {ms:.3f} ms, plain {plain_ms:.1f} ms "
+            f"({card})")
+
+    def grad_bound(bounces, sizes):
+        ops = bounces * (ops_per_bounce(sizes) + OPS_PER_RECORD["quad"] + OPS_SHADE
+                         + OPS_ADJOINT)
+        return ops, ops / PEAK_F32_OPS * 1e3
+
+    # At the main path's width: Cornell 600x600 depth 50, 2 spp, lanes chunked.
+    label = "cornell 600x600 2spp depth 50"
+    args, kw = grad_args(cornell, 600, 2, GRAD_DEPTH, GRAD_SQRT_SPP)
+    count_k = torch.zeros(1, dtype=torch.int64, device=dev)
+    count_p = torch.zeros(1, dtype=torch.int64, device=dev)
+    mkg.grad_call(*args, **kw)  # warm-up
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    kern = mkg.grad_call(*args, bounces=count_k, **kw)
+    end.record()
+    torch.cuda.synchronize()
+    ms2 = start.elapsed_time(end)
+    t0 = time.perf_counter()
+    plain = mkg.grad_plain(*args, bounces=count_p, **kw)
+    torch.cuda.synchronize()
+    plain_ms2 = (time.perf_counter() - t0) * 1e3
+    b3_err, detail = grad_gate(label, kern, plain, kw["sizes"])
+    check(int(count_k) == int(count_p), f"{label}: B3 replayed {int(count_k)} bounces, the "
+                                        f"plain pre-pass {int(count_p)}")
+    say(f"phase 7 B3 vs plain at the main path's width, {label}: {detail}; replayed bounces "
+        f"{int(count_k)} (kernel) == {int(count_p)} (plain pre-pass); kernel {ms2:.3f} ms, "
+        f"plain {plain_ms2:.1f} ms ({card})")
+
+    # B3 alone at the main path's launch: 64 spp.
+    args, kw = grad_args(cornell, 600, GRAD_SPP, GRAD_DEPTH, GRAD_SQRT_SPP)
+    count_k.zero_()
+    mkg.grad_call(*args, bounces=count_k, **kw)
+    torch.cuda.synchronize()
+    b3_bounces = int(count_k)
+    _, b3_ms = timed_grad(args, kw, 3)
+    b3_ops, b3_bound_ms = grad_bound(b3_bounces, kw["sizes"])
+    b3_bytes = 12 * 360000 + 2 * args[2].numel() * 4 + 2 * 31 * 4
+    b3_bound_ms = max(b3_bound_ms, b3_bytes / PEAK_BYTES * 1e3)
+    say(f"phase 7 B3 at the main path's launch (cornell 600x600, {GRAD_SPP} spp, depth "
+        f"{GRAD_DEPTH}): {b3_ms:.3f} ms (mean of 3); {b3_bounces} replayed bounces "
+        f"({b3_bounces / (360000 * GRAD_SPP):.3f} per path) x "
+        f"{ops_per_bounce(kw['sizes']) + OPS_PER_RECORD['quad'] + OPS_SHADE + OPS_ADJOINT} "
+        f"f32 ops = {b3_ops:.4g} ops -> bound {b3_bound_ms:.4f} ms by operations "
+        f"(67 TFLOP/s f32) ({card})")
+
+    # ---- phase 8: the gradient main path ------------------------------------
+    def float_leaves(tree):
+        out = []
+        schema.map_leaves(tree, lambda x: out.append(x) if x is not None else None)
+        return out
+
+    host, _ = loader.load_scene(cornell)
+    feats = host.features()
+    scene = schema.to_device(host, dev)
+    render_kw = dict(width=600, height=600, n_samples=GRAD_SPP, max_depth=GRAD_DEPTH,
+                     sqrt_spp=GRAD_SQRT_SPP)
+    grad.value_and_grad_scene(torch.mean, scene, feats, 0, **render_kw)  # warm-up
+    torch.cuda.synchronize()
+    iters = 3
+    mk.LAUNCHES = wf.LAUNCHES = mkg.LAUNCHES = 0
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        loss, g = grad.value_and_grad_scene(torch.mean, scene, feats, 0, **render_kw)
+        albedo_g = g.materials.albedo.cpu()
+    dt = time.perf_counter() - t0
+    v4_grad_launches, b3_launches = mk.LAUNCHES, mkg.LAUNCHES
+    check(v4_grad_launches == iters and b3_launches == iters and wf.LAUNCHES == 0,
+          f"gradient main path launches: v4 {v4_grad_launches}, B3 {b3_launches}, "
+          f"wavefront {wf.LAUNCHES} over {iters} gradients")
+    lo, hi = CORNELL_MEAN_BAND
+    check(lo <= float(loss) <= hi, f"Cornell gradient loss (mean radiance) {float(loss):.4f} "
+                                   f"outside [{lo}, {hi}]")
+    check(all(bool(torch.isfinite(x).all()) for x in float_leaves(g)),
+          "Cornell gradient not finite")
+    check(float(albedo_g.abs().max()) > 0.0, "Cornell albedo gradient is zero")
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        for _ in range(iters):
+            float(torch.mean(grad.render_image(scene, feats, 0, **render_kw)))
+    fwd_s = (time.perf_counter() - t0) / iters
+    step_s = dt / iters
+    paths = GRAD_SPP * 600 * 600
+    say(f"phase 8 gradient main path: grad.value_and_grad_scene Cornell 600x600, {GRAD_SPP} "
+        f"spp, depth {GRAD_DEPTH}, sqrt_spp {GRAD_SQRT_SPP}, loss mean = {float(loss):.4f}; "
+        f"{iters} gradients, {v4_grad_launches} v4 + {b3_launches} B3 launches; fwd+bwd "
+        f"{step_s * 1e3:.1f} ms per gradient (forward {fwd_s * 1e3:.1f} ms, backward "
+        f"{(step_s - fwd_s) * 1e3:.1f} ms) on {card}")
+    say(json.dumps({"metric": f"cornell600_fwdbwd_d{GRAD_DEPTH}_paths_per_sec",
+                    "value": paths / step_s, "unit": "paths/s",
+                    "mpaths_per_s": paths / step_s / 1e6,
+                    "forward_ms": fwd_s * 1e3, "backward_ms": (step_s - fwd_s) * 1e3,
+                    "device": card}))
+
+    host, _ = loader.load_scene(book2)
+    feats = host.features()
+    scene = schema.to_device(host, dev)
+    book2_kw = dict(width=600, height=600, n_samples=4, max_depth=GRAD_DEPTH, sqrt_spp=2)
+    mk.LAUNCHES = wf.LAUNCHES = mkg.LAUNCHES = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss, g = grad.value_and_grad_scene(torch.mean, scene, feats, 0, **book2_kw)
+    leaves = float_leaves(g)
+    torch.cuda.synchronize()
+    book2_s = time.perf_counter() - t0
+    check(wf.LAUNCHES > 0 and mkg.LAUNCHES == 1 and mk.LAUNCHES == 0,
+          f"book-2 gradient launches: wavefront {wf.LAUNCHES}, B3 {mkg.LAUNCHES}, v4 "
+          f"{mk.LAUNCHES}")
+    check(all(bool(torch.isfinite(x).all()) for x in leaves), "book-2 gradient not finite")
+    check(float(g.spheres.center0.abs().max()) > 0.0,
+          "book-2 sphere-centre gradient is zero (its marble noise should give one)")
+    say(f"phase 8 book-2 gradient: grad.value_and_grad_scene book2 600x600, 4 spp, depth "
+        f"{GRAD_DEPTH}: loss {float(loss):.4f}, {wf.LAUNCHES} wavefront + {mkg.LAUNCHES} B3 "
+        f"launches, every leaf finite, max |d center0| {float(g.spheres.center0.abs().max()):.3g}, "
+        f"{book2_s * 1e3:.1f} ms ({card})")
+
+    # ---- phase 9: inverse rendering -----------------------------------------
+    out = io.StringIO()
+    mkg.LAUNCHES = 0
+    with contextlib.redirect_stdout(out):
+        rc = optimize_scene.main([cornell, "--leaves", "materials.albedo", "--steps", "5",
+                                  "--width", "600", "--height", "600", "--samples", "4",
+                                  "--depth", "50", "--lr", "0.05", "--device", "cuda"])
+    recs = [json.loads(line) for line in out.getvalue().splitlines()]
+    check(rc == 0 and recs and recs[-1].get("event") == "done", f"optimize_scene: rc {rc}")
+    losses = [r["loss"] for r in recs[:-1]]
+    check(mkg.LAUNCHES == 5, f"optimize_scene launched B3 {mkg.LAUNCHES} times for 5 steps")
+    check(losses[-1] < losses[0], f"optimize_scene loss did not fall: {losses}")
+    say(f"phase 9 optimize_scene Cornell 600x600 materials.albedo, 4 spp, depth 50, 5 Adam "
+        f"steps: loss {' -> '.join(f'{x:.3g}' for x in losses)} (improvement "
+        f"{recs[-1]['improvement']}), rel_err {recs[0]['rel_err[materials.albedo]']} -> "
+        f"{recs[-2]['rel_err[materials.albedo]']}")
+    shutil.rmtree(work)
+    for name in ("jax", "raytrace2_tpu"):
+        check(name not in sys.modules, f"{name} was imported")
+
+    # ---- phase 10: the kernels ------------------------------------------------
     main_shape = results[cases[2][0]]
     k2 = wf_launch["k2"]
     say(json.dumps({"kernels": [{
@@ -481,6 +700,18 @@ def main() -> None:
         "ms": k2["ms"], "plain_ms": k2["plain_ms"],
         "bound_ms": k2["bound_ms"], "bound_by": k2["bound_by"],
         "library_ms": None,
+    }, {
+        "name": "megakernel_grad", "route": "cuda",
+        "source": "raytrace2_tpu_torch/csrc/megakernel_grad.cu",
+        "replaces": "raytrace2_tpu/ops/pallas/megakernel_grad.py:350 (_grad_kernel)",
+        "launches": b3_launches,
+        "max_abs_err": b3_err,
+        "ms": b3_ms, "plain_ms": plain_ms2,
+        "bound_ms": b3_bound_ms, "bound_by": "operations",
+        "library_ms": None,
+        "shape": f"cornell 600x600, depth {GRAD_DEPTH}, {GRAD_SPP} spp (ms, bound_ms)",
+        "plain_shape": f"cornell 600x600, depth {GRAD_DEPTH}, 2 spp (plain_ms, max_abs_err; "
+                       f"the kernel there: {ms2:.3f} ms)",
     }]}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))
 

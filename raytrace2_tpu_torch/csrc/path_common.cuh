@@ -1,8 +1,9 @@
 // Device code shared by the port's path-tracing kernels (megakernel_v4.cu,
-// wavefront_step.cu): the packed-table views, the murmur RNG, hash-gradient
-// noise, the flat closest-hit sweep, one bounce of a live path, and the
-// camera ray of a regenerated sample. Both kernels include it, so a path
-// computes the same f32 sequence in either of them.
+// wavefront_step.cu, and the gradient kernel megakernel_grad.cu): the
+// packed-table views, the murmur RNG, hash-gradient noise, the flat
+// closest-hit sweep, one bounce of a live path, and the camera ray of a
+// regenerated sample. Every kernel includes it, so a path computes the same
+// f32 sequence in each of them.
 //
 // Semantics kept exactly as the JAX kernel has them: family order spheres ->
 // quads -> AA boxes -> media; comparisons sphere `root < best_t`, quad
@@ -183,75 +184,167 @@ struct Rec {
   float t, fam, mat, p0, p1, p2, aux;
 };
 
+// The sweep's winner, as the gradient replay pins it (JAX track_index): the
+// family id (0 sphere, 1 quad, 2 AA box, 3 medium; -1 on a miss; the
+// record's `fam` cannot tell a quad from a box) and the record index.
+struct Winner {
+  int fam, idx;
+};
+
+// One record test per family: true, with the record in `out`, when record
+// `p` is hit closer than `best_t`. The sweep and the gradient replay (which
+// resolves a pinned winner with best_t = kBig) run the same f32 sequence.
+__device__ __forceinline__ bool sphere_test(const Tables& T, int p, float tm, float ox,
+                                            float oy, float oz, float dx, float dy, float dz,
+                                            float a, float inv_a, float best_t, Rec& out) {
+  float cx = T.s(C0X, p) + tm * T.s(DPX, p);
+  float cy = T.s(C0Y, p) + tm * T.s(DPY, p);
+  float cz = T.s(C0Z, p) + tm * T.s(DPZ, p);
+  float ocx = cx - ox, ocy = cy - oy, ocz = cz - oz;
+  float h = dx * ocx + dy * ocy + dz * ocz;
+  float rad = T.s(RAD, p);
+  float cc = ocx * ocx + ocy * ocy + ocz * ocz - rad * rad;
+  float disc = h * h - a * cc;
+  bool has = disc >= 0.0f;
+  float sq = has ? sqrtf(disc) : 0.0f;
+  float root0 = (h - sq) * inv_a;
+  float root1 = (h + sq) * inv_a;
+  bool ok0 = (root0 > kTMin) && (root0 < best_t);
+  bool ok1 = (root1 > kTMin) && (root1 < best_t);
+  float root = ok0 ? root0 : root1;
+  if (has && (ok0 || ok1) && T.s(SACT, p) > 0.0f) {
+    out = Rec{root, 0.0f, T.s(SMAT, p), cx, cy, cz, rad};
+    return true;
+  }
+  return false;
+}
+
+__device__ __forceinline__ bool quad_test(const Tables& T, int p, float ox, float oy, float oz,
+                                          float dx, float dy, float dz, float best_t,
+                                          float aux, Rec& out) {
+  float nx = T.q(NX, p), ny = T.q(NY, p), nz = T.q(NZ, p);
+  float nd = dx * nx + dy * ny + dz * nz;
+  float no = ox * nx + oy * ny + oz * nz;
+  bool not_par = fabsf(nd) >= kQuadEps;
+  float t = (T.q(QD, p) - no) / (not_par ? nd : 1.0f);
+  float o_aa = ox * T.q(AAX, p) + oy * T.q(AAY, p) + oz * T.q(AAZ, p);
+  float d_aa = dx * T.q(AAX, p) + dy * T.q(AAY, p) + dz * T.q(AAZ, p);
+  float o_ab = ox * T.q(ABX, p) + oy * T.q(ABY, p) + oz * T.q(ABZ, p);
+  float d_ab = dx * T.q(ABX, p) + dy * T.q(ABY, p) + dz * T.q(ABZ, p);
+  float alpha = o_aa + t * d_aa - T.q(QAA, p);
+  float beta = o_ab + t * d_ab - T.q(QAB, p);
+  if (not_par && t >= kTMin && t <= best_t && alpha >= 0.0f && alpha <= 1.0f &&
+      beta >= 0.0f && beta <= 1.0f) {
+    out = Rec{t, 1.0f, T.q(QMAT, p), nx, ny, nz, aux};
+    return true;
+  }
+  return false;
+}
+
+// inv_d*: safe_inv of the ray direction, computed once per sweep.
+__device__ __forceinline__ bool box_test(const Tables& T, int bi, float ox, float oy, float oz,
+                                         float dx, float dy, float dz, float inv_dx,
+                                         float inv_dy, float inv_dz, float best_t, float aux,
+                                         Rec& out) {
+  float tax = (T.b(BX0, bi) - ox) * inv_dx;
+  float tbx = (T.b(BX1, bi) - ox) * inv_dx;
+  float tay = (T.b(BY0, bi) - oy) * inv_dy;
+  float tby = (T.b(BY1, bi) - oy) * inv_dy;
+  float taz = (T.b(BZ0, bi) - oz) * inv_dz;
+  float tbz = (T.b(BZ1, bi) - oz) * inv_dz;
+  float lox = fminf(tax, tbx), hix = fmaxf(tax, tbx);
+  float loy = fminf(tay, tby), hiy = fmaxf(tay, tby);
+  float loz = fminf(taz, tbz), hiz = fmaxf(taz, tbz);
+  float t0 = fmaxf(lox, fmaxf(loy, loz));
+  float t1 = fminf(hix, fminf(hiy, hiz));
+  bool enter = t0 >= kTMin;
+  float t = enter ? t0 : t1;
+  bool closer = (t1 > t0) && (t > kTMin) && (t < best_t) && (t1 > kTMin) &&
+                T.b(BACT, bi) > 0.0f;
+  if (closer) {
+    bool ax_x = enter ? (t0 == lox) : (t1 == hix);
+    bool ax_y = !ax_x && (enter ? (t0 == loy) : (t1 == hiy));
+    bool ax_z = !ax_x && !ax_y;
+    float sgn = enter ? -1.0f : 1.0f;
+    out = Rec{t, 1.0f, T.b(BMAT, bi), ax_x ? sgn * sign_of(dx) : 0.0f,
+              ax_y ? sgn * sign_of(dy) : 0.0f, ax_z ? sgn * sign_of(dz) : 0.0f, aux};
+  }
+  return closer;
+}
+
+// d_len = |d|; the free path draws counter bctr + 3 + m.
+__device__ __forceinline__ bool medium_test(const Tables& T, int m, uint32_t key, uint32_t bctr,
+                                            float tm, float ox, float oy, float oz, float dx,
+                                            float dy, float dz, float d_len, float best_t,
+                                            float aux, Rec& out) {
+  float omx = T.m(I00, m) * ox + T.m(I01, m) * oy + T.m(I02, m) * oz + T.m(I03, m);
+  float omy = T.m(I10, m) * ox + T.m(I11, m) * oy + T.m(I12, m) * oz + T.m(I13, m);
+  float omz = T.m(I20, m) * ox + T.m(I21, m) * oy + T.m(I22, m) * oz + T.m(I23, m);
+  float dmx_r = T.m(I00, m) * dx + T.m(I01, m) * dy + T.m(I02, m) * dz;
+  float dmy_r = T.m(I10, m) * dx + T.m(I11, m) * dy + T.m(I12, m) * dz;
+  float dmz_r = T.m(I20, m) * dx + T.m(I21, m) * dy + T.m(I22, m) * dz;
+  float dm_len = sqrtf(fmaxf(dmx_r * dmx_r + dmy_r * dmy_r + dmz_r * dmz_r, 1e-24f));
+  float dmx = dmx_r / dm_len, dmy = dmy_r / dm_len, dmz = dmz_r / dm_len;
+  float t0_, t1_;
+  bool v;
+  if (T.m(BTYPE, m) == kMediumBox) {
+    float ix = safe_inv(dmx), iy = safe_inv(dmy), iz = safe_inv(dmz);
+    float ax = (T.m(P0X, m) - omx) * ix, bx = (T.m(P1X, m) - omx) * ix;
+    float ay = (T.m(P0Y, m) - omy) * iy, by = (T.m(P1Y, m) - omy) * iy;
+    float az = (T.m(P0Z, m) - omz) * iz, bz = (T.m(P1Z, m) - omz) * iz;
+    t0_ = fmaxf(fminf(ax, bx), fmaxf(fminf(ay, by), fminf(az, bz)));
+    t1_ = fminf(fmaxf(ax, bx), fminf(fmaxf(ay, by), fmaxf(az, bz)));
+    v = t0_ < t1_;
+  } else {
+    float ocx = (T.m(P0X, m) + tm * T.m(DSPX, m)) - omx;
+    float ocy = (T.m(P0Y, m) + tm * T.m(DSPY, m)) - omy;
+    float ocz = (T.m(P0Z, m) + tm * T.m(DSPZ, m)) - omz;
+    float h = dmx * ocx + dmy * ocy + dmz * ocz;
+    float rr = T.m(P1X, m);
+    float cc = ocx * ocx + ocy * ocy + ocz * ocz - rr * rr;
+    float disc = h * h - cc;
+    v = disc > 0.0f;
+    float sq = v ? sqrtf(disc) : 0.0f;
+    t0_ = h - sq;
+    t1_ = h + sq;
+  }
+  v = v && (t1_ > t0_ + kMediumEps);
+  float scale = dm_len / d_len;
+  float e0 = fmaxf(fmaxf(t0_, kTMin * scale), 0.0f);
+  float e1 = fminf(t1_, best_t * scale);
+  v = v && (e0 < e1);
+  float u_m = draw(key, bctr + 3u + (uint32_t)m);
+  float hit_dist = T.m(NID, m) * logf(fmaxf(u_m, 1e-12f));
+  v = v && (hit_dist <= (e1 - e0));
+  if (v) out = Rec{(e0 + hit_dist) / scale, 2.0f, T.m(MMAT, m), 1.0f, 0.0f, 0.0f, aux};
+  return v;
+}
+
+// The flat sweep. With kTrack it also writes the winner to *win (the
+// forward kernels instantiate it without).
+template <bool kTrack = false>
 __device__ Rec closest_hit(const Tables& T, const Counts& c, uint32_t key, float bn,
                            float tm, float ox, float oy, float oz, float dx, float dy,
-                           float dz, float a, float inv_a) {
+                           float dz, float a, float inv_a, Winner* win = nullptr) {
   Rec r{kBig, -1.0f, 0.0f, 0.0f, 0.0f, 0.0f, 1.0f};
 
   for (int p = 0; p < c.n_sph; ++p) {
-    float cx = T.s(C0X, p) + tm * T.s(DPX, p);
-    float cy = T.s(C0Y, p) + tm * T.s(DPY, p);
-    float cz = T.s(C0Z, p) + tm * T.s(DPZ, p);
-    float ocx = cx - ox, ocy = cy - oy, ocz = cz - oz;
-    float h = dx * ocx + dy * ocy + dz * ocz;
-    float rad = T.s(RAD, p);
-    float cc = ocx * ocx + ocy * ocy + ocz * ocz - rad * rad;
-    float disc = h * h - a * cc;
-    bool has = disc >= 0.0f;
-    float sq = has ? sqrtf(disc) : 0.0f;
-    float root0 = (h - sq) * inv_a;
-    float root1 = (h + sq) * inv_a;
-    bool ok0 = (root0 > kTMin) && (root0 < r.t);
-    bool ok1 = (root1 > kTMin) && (root1 < r.t);
-    float root = ok0 ? root0 : root1;
-    if (has && (ok0 || ok1) && T.s(SACT, p) > 0.0f) {
-      r = Rec{root, 0.0f, T.s(SMAT, p), cx, cy, cz, rad};
+    if (sphere_test(T, p, tm, ox, oy, oz, dx, dy, dz, a, inv_a, r.t, r)) {
+      if constexpr (kTrack) *win = Winner{0, p};
     }
   }
 
   for (int p = 0; p < c.n_quad; ++p) {
-    float nx = T.q(NX, p), ny = T.q(NY, p), nz = T.q(NZ, p);
-    float nd = dx * nx + dy * ny + dz * nz;
-    float no = ox * nx + oy * ny + oz * nz;
-    bool not_par = fabsf(nd) >= kQuadEps;
-    float t = (T.q(QD, p) - no) / (not_par ? nd : 1.0f);
-    float o_aa = ox * T.q(AAX, p) + oy * T.q(AAY, p) + oz * T.q(AAZ, p);
-    float d_aa = dx * T.q(AAX, p) + dy * T.q(AAY, p) + dz * T.q(AAZ, p);
-    float o_ab = ox * T.q(ABX, p) + oy * T.q(ABY, p) + oz * T.q(ABZ, p);
-    float d_ab = dx * T.q(ABX, p) + dy * T.q(ABY, p) + dz * T.q(ABZ, p);
-    float alpha = o_aa + t * d_aa - T.q(QAA, p);
-    float beta = o_ab + t * d_ab - T.q(QAB, p);
-    if (not_par && t >= kTMin && t <= r.t && alpha >= 0.0f && alpha <= 1.0f &&
-        beta >= 0.0f && beta <= 1.0f) {
-      r = Rec{t, 1.0f, T.q(QMAT, p), nx, ny, nz, r.aux};
+    if (quad_test(T, p, ox, oy, oz, dx, dy, dz, r.t, r.aux, r)) {
+      if constexpr (kTrack) *win = Winner{1, p};
     }
   }
 
   if (c.n_box) {
     float inv_dx = safe_inv(dx), inv_dy = safe_inv(dy), inv_dz = safe_inv(dz);
     for (int bi = 0; bi < c.n_box; ++bi) {
-      float tax = (T.b(BX0, bi) - ox) * inv_dx;
-      float tbx = (T.b(BX1, bi) - ox) * inv_dx;
-      float tay = (T.b(BY0, bi) - oy) * inv_dy;
-      float tby = (T.b(BY1, bi) - oy) * inv_dy;
-      float taz = (T.b(BZ0, bi) - oz) * inv_dz;
-      float tbz = (T.b(BZ1, bi) - oz) * inv_dz;
-      float lox = fminf(tax, tbx), hix = fmaxf(tax, tbx);
-      float loy = fminf(tay, tby), hiy = fmaxf(tay, tby);
-      float loz = fminf(taz, tbz), hiz = fmaxf(taz, tbz);
-      float t0 = fmaxf(lox, fmaxf(loy, loz));
-      float t1 = fminf(hix, fminf(hiy, hiz));
-      bool enter = t0 >= kTMin;
-      float t = enter ? t0 : t1;
-      bool closer = (t1 > t0) && (t > kTMin) && (t < r.t) && (t1 > kTMin) &&
-                    T.b(BACT, bi) > 0.0f;
-      if (closer) {
-        bool ax_x = enter ? (t0 == lox) : (t1 == hix);
-        bool ax_y = !ax_x && (enter ? (t0 == loy) : (t1 == hiy));
-        bool ax_z = !ax_x && !ax_y;
-        float sgn = enter ? -1.0f : 1.0f;
-        r = Rec{t, 1.0f, T.b(BMAT, bi), ax_x ? sgn * sign_of(dx) : 0.0f,
-                ax_y ? sgn * sign_of(dy) : 0.0f, ax_z ? sgn * sign_of(dz) : 0.0f, r.aux};
+      if (box_test(T, bi, ox, oy, oz, dx, dy, dz, inv_dx, inv_dy, inv_dz, r.t, r.aux, r)) {
+        if constexpr (kTrack) *win = Winner{2, bi};
       }
     }
   }
@@ -260,46 +353,9 @@ __device__ Rec closest_hit(const Tables& T, const Counts& c, uint32_t key, float
     float d_len = sqrtf(fmaxf(a, 1e-24f));
     uint32_t bctr = (uint32_t)((int)bn * (3 + c.n_med));
     for (int m = 0; m < c.n_med; ++m) {
-      float omx = T.m(I00, m) * ox + T.m(I01, m) * oy + T.m(I02, m) * oz + T.m(I03, m);
-      float omy = T.m(I10, m) * ox + T.m(I11, m) * oy + T.m(I12, m) * oz + T.m(I13, m);
-      float omz = T.m(I20, m) * ox + T.m(I21, m) * oy + T.m(I22, m) * oz + T.m(I23, m);
-      float dmx_r = T.m(I00, m) * dx + T.m(I01, m) * dy + T.m(I02, m) * dz;
-      float dmy_r = T.m(I10, m) * dx + T.m(I11, m) * dy + T.m(I12, m) * dz;
-      float dmz_r = T.m(I20, m) * dx + T.m(I21, m) * dy + T.m(I22, m) * dz;
-      float dm_len = sqrtf(fmaxf(dmx_r * dmx_r + dmy_r * dmy_r + dmz_r * dmz_r, 1e-24f));
-      float dmx = dmx_r / dm_len, dmy = dmy_r / dm_len, dmz = dmz_r / dm_len;
-      float t0_, t1_;
-      bool v;
-      if (T.m(BTYPE, m) == kMediumBox) {
-        float ix = safe_inv(dmx), iy = safe_inv(dmy), iz = safe_inv(dmz);
-        float ax = (T.m(P0X, m) - omx) * ix, bx = (T.m(P1X, m) - omx) * ix;
-        float ay = (T.m(P0Y, m) - omy) * iy, by = (T.m(P1Y, m) - omy) * iy;
-        float az = (T.m(P0Z, m) - omz) * iz, bz = (T.m(P1Z, m) - omz) * iz;
-        t0_ = fmaxf(fminf(ax, bx), fmaxf(fminf(ay, by), fminf(az, bz)));
-        t1_ = fminf(fmaxf(ax, bx), fminf(fmaxf(ay, by), fmaxf(az, bz)));
-        v = t0_ < t1_;
-      } else {
-        float ocx = (T.m(P0X, m) + tm * T.m(DSPX, m)) - omx;
-        float ocy = (T.m(P0Y, m) + tm * T.m(DSPY, m)) - omy;
-        float ocz = (T.m(P0Z, m) + tm * T.m(DSPZ, m)) - omz;
-        float h = dmx * ocx + dmy * ocy + dmz * ocz;
-        float rr = T.m(P1X, m);
-        float cc = ocx * ocx + ocy * ocy + ocz * ocz - rr * rr;
-        float disc = h * h - cc;
-        v = disc > 0.0f;
-        float sq = v ? sqrtf(disc) : 0.0f;
-        t0_ = h - sq;
-        t1_ = h + sq;
+      if (medium_test(T, m, key, bctr, tm, ox, oy, oz, dx, dy, dz, d_len, r.t, r.aux, r)) {
+        if constexpr (kTrack) *win = Winner{3, m};
       }
-      v = v && (t1_ > t0_ + kMediumEps);
-      float scale = dm_len / d_len;
-      float e0 = fmaxf(fmaxf(t0_, kTMin * scale), 0.0f);
-      float e1 = fminf(t1_, r.t * scale);
-      v = v && (e0 < e1);
-      float u_m = draw(key, bctr + 3u + (uint32_t)m);
-      float hit_dist = T.m(NID, m) * logf(fmaxf(u_m, 1e-12f));
-      v = v && (hit_dist <= (e1 - e0));
-      if (v) r = Rec{(e0 + hit_dist) / scale, 2.0f, T.m(MMAT, m), 1.0f, 0.0f, 0.0f, r.aux};
     }
   }
   return r;
@@ -311,12 +367,15 @@ struct Path {
   float bn, alive, ox, oy, oz, dx, dy, dz, tpr, tpg, tpb, rr, rg, rb;
 };
 
-// One bounce of a live path (the kernel only calls it with alive > 0).
+// One bounce of a live path (the kernel only calls it with alive > 0). With
+// kTrack the sweep's winner is written to *win.
+template <bool kTrack = false>
 __device__ void bounce(Path& s, const Tables& T, const Counts& c, const float* bg,
                        uint32_t key, float tm, int max_depth, int checker_depth,
-                       bool has_noise) {
+                       bool has_noise, Winner* win = nullptr) {
   float a = s.dx * s.dx + s.dy * s.dy + s.dz * s.dz;
-  Rec r = closest_hit(T, c, key, s.bn, tm, s.ox, s.oy, s.oz, s.dx, s.dy, s.dz, a, 1.0f / a);
+  Rec r = closest_hit<kTrack>(T, c, key, s.bn, tm, s.ox, s.oy, s.oz, s.dx, s.dy, s.dz, a,
+                              1.0f / a, win);
   bool valid = r.fam >= 0.0f;
   bool is_sph = r.fam == 0.0f;
   bool is_med = r.fam == 2.0f;

@@ -76,7 +76,7 @@ def make_camv(cam, width: int, height: int, sample0: int, n_samples: int,
     slot0 (a shard's first pixel) is 0: one device renders every pixel."""
     frame = camera_frame(cam, width, height)
     tail = torch.tensor([
-        float(frame["defocus_angle"]), float(width), float(width * height),
+        float(frame["defocus_angle"].detach()), float(width), float(width * height),
         float(sample0), float(n_samples), float(sqrt_spp), float(seed),
         0.0, float(-(-width // _TILE_BLOCK)), float(height),
     ], dtype=torch.float32)
@@ -116,10 +116,13 @@ def camera_ray(cv, xx, yy, sqrt_spp, s_global_f, key):
     th = (2.0 * 3.14159265358979) * u3
     dkx = r * torch.cos(th)
     dky = r * torch.sin(th)
-    if float(cv[18]) > 0.0:
+    if (cv[18].item() if torch.is_tensor(cv) else cv[18]) > 0.0:
         ox = cv[9] + dkx * cv[12] + dky * cv[15]
         oy = cv[10] + dkx * cv[13] + dky * cv[16]
         oz = cv[11] + dkx * cv[14] + dky * cv[17]
+    elif torch.is_tensor(cv):
+        # A camv tensor (the gradient replay) keeps the center in the graph.
+        ox, oy, oz = cv[9].expand_as(pcx), cv[10].expand_as(pcx), cv[11].expand_as(pcx)
     else:
         ox = torch.full_like(pcx, float(cv[9]))
         oy = torch.full_like(pcx, float(cv[10]))

@@ -23,6 +23,7 @@ import torch
 
 from raytrace2_tpu_torch.ops import camera
 from raytrace2_tpu_torch.ops.kernels import megakernel as mk
+from raytrace2_tpu_torch.ops.kernels import megakernel_grad as mkg
 from raytrace2_tpu_torch.ops.kernels import wavefront as wf
 
 # JAX mega_schedule's threshold: above it, scenes go to the sorted
@@ -55,14 +56,19 @@ def _check_kernel_features(features) -> None:
     if features.get("noise_impl", "hash") != "hash":
         raise NotImplementedError(
             "table Perlin noise (noise_impl='table') is not ported yet "
-            "(ROADMAP queue B item 2)")
+            "(ROADMAP queue B item 5, B1's options)")
 
 
 def _render_batch_megakernel(scene, packed, features, width, height, sample0,
-                             n_samples, seed, max_depth, sqrt_spp):
+                             n_samples, seed, max_depth, sqrt_spp, differentiable=False):
     """Radiance SUM over samples [sample0, sample0 + n_samples), [H, W, 3],
     from one launch of the v4 kernel or one wavefront pass (a launch per K
-    bounces). ``scene`` and ``packed`` live on the render device."""
+    bounces). ``scene`` and ``packed`` live on the render device.
+
+    ``differentiable=True`` goes through ``megakernel_grad.DiffRender``
+    (JAX :407-436): the same forward, and a backward that launches the
+    replay kernel; ``camv`` and ``packed`` then carry the scene leaves'
+    graph."""
     wavefront = mega_schedule(features)[3]
     n_pix = width * height
     camv = camera.make_camv(scene.camera, width, height, sample0, n_samples,
@@ -71,9 +77,13 @@ def _render_batch_megakernel(scene, packed, features, width, height, sample0,
               has_checker=int(features.get("has_checker", 1)),
               has_noise=bool(features.get("has_noise", False)))
     background = scene.background.to(torch.float32).contiguous()
-    if wavefront:
-        radiance = wf.trace_wavefront_batch(
-            camv, int(seed), packed, background,
+
+    def forward(camv, seed, packed, background):
+        if not wavefront:
+            return mk.trace_megakernel_batch(camv, seed, packed, background,
+                                             n_pix=n_pix, **kw)
+        return wf.trace_wavefront_batch(
+            camv, seed, packed, background,
             n_rays=-(-n_pix // wf.SLOT_TILE) * wf.SLOT_TILE,
             sort_every=int(features.get("mega_sort_every", wf.SORT_EVERY)),
             k_bounces=int(features.get("mega_k_bounces", wf.K_BOUNCES)),
@@ -83,14 +93,18 @@ def _render_batch_megakernel(scene, packed, features, width, height, sample0,
             tail_compact=bool(features.get("mega_tail_compact", False)),
             sort_impl=str(features.get("mega_sort_impl", wf.SORT_IMPL)),
             **kw)[:n_pix]
+
+    if differentiable:
+        radiance = mkg.DiffRender.apply(camv, packed, background, int(seed), forward,
+                                        dict(n_pix=n_pix, **kw))
     else:
-        radiance = mk.trace_megakernel_batch(camv, int(seed), packed, background,
-                                             n_pix=n_pix, **kw)
+        radiance = forward(camv, int(seed), packed, background)
     return radiance.reshape(height, width, 3)
 
 
 def pack_scene(scene, features) -> torch.Tensor:
-    """The packed f32 table buffer of a device scene."""
+    """The packed f32 table buffer of a device scene (in the graph of its
+    leaves when they require grad)."""
     _check_kernel_features(features)
     sizes = tuple(features["mega_sizes"])
     return mk.pack_buffer(scene, sizes)
@@ -98,12 +112,15 @@ def pack_scene(scene, features) -> torch.Tensor:
 
 def render_progressive(scene, features, width: int, height: int, sample0: int,
                        n_samples: int, seed: int, max_depth: int, sqrt_spp: int,
-                       packed=None):
+                       packed=None, differentiable: bool = False):
     """Accumulate ``n_samples`` consecutive progressive samples in one kernel
     launch; returns the radiance sum [H, W, 3] on the scene's device.
-    ``packed`` (``pack_scene``) may be passed to reuse the table buffer."""
+    ``packed`` (``pack_scene``) may be passed to reuse the table buffer.
+    ``differentiable=True`` packs the scene inside the graph and returns a
+    sum that autograd differentiates through the replay kernel."""
     _check_kernel_features(features)
-    if packed is None:
+    if packed is None or differentiable:
         packed = pack_scene(scene, features)
     return _render_batch_megakernel(scene, packed, features, width, height,
-                                    sample0, n_samples, seed, max_depth, sqrt_spp)
+                                    sample0, n_samples, seed, max_depth, sqrt_spp,
+                                    differentiable=differentiable)

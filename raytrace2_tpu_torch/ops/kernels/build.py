@@ -25,7 +25,7 @@ import torch
 PKG_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
-KERNELS = ("megakernel_v4", "wavefront_step")
+KERNELS = ("megakernel_v4", "wavefront_step", "megakernel_grad")
 # -fmad=false: no contraction of a*b+c into one FMA, so the kernel rounds
 # op for op as its plain PyTorch version does on the card (whose elementwise
 # ops are separate kernels); path-tracing near-ties otherwise flip paths.
@@ -118,7 +118,19 @@ def _bind_wavefront_step(lib: ctypes.CDLL) -> None:
     lib.wavefront_step_error_string.restype = ctypes.c_char_p
 
 
-_BINDERS = {"megakernel_v4": _bind_megakernel_v4, "wavefront_step": _bind_wavefront_step}
+def _bind_megakernel_grad(lib: ctypes.CDLL) -> None:
+    i, p = ctypes.c_int, ctypes.c_void_p
+    lib.megakernel_grad_launch.argtypes = [i, p, i, p, p, i, i, i, i, i, i, i, i, i, i,
+                                           p, p, p, p, i, p, p]
+    lib.megakernel_grad_launch.restype = i
+    lib.megakernel_grad_smem_bytes.argtypes = [i] * 7
+    lib.megakernel_grad_smem_bytes.restype = i
+    lib.megakernel_grad_error_string.argtypes = [i]
+    lib.megakernel_grad_error_string.restype = ctypes.c_char_p
+
+
+_BINDERS = {"megakernel_v4": _bind_megakernel_v4, "wavefront_step": _bind_wavefront_step,
+            "megakernel_grad": _bind_megakernel_grad}
 
 
 def load(name: str) -> ctypes.CDLL:
@@ -190,3 +202,35 @@ def launch_wavefront_step(camv, seed: int, background, packed, state, *, n_slots
     if err:
         msg = lib.wavefront_step_error_string(err).decode()
         raise RuntimeError(f"wavefront_step launch failed: {msg} (cudaError {err})")
+
+
+def launch_megakernel_grad(camv, seed: int, background, packed, g, d_camv, d_bg, d_packed, *,
+                           n_pix, max_depth, sizes, checker_depth, has_noise,
+                           bounces=None) -> None:
+    """Launch ``megakernel_grad``, adding the render's vector-Jacobian product
+    with ``g`` [n_pix, 3] to ``d_camv`` [28], ``d_bg`` [3] and ``d_packed``
+    (zeroed by the caller); raises on a refused launch. The table cotangents
+    accumulate in shared memory where two copies of the tables fit, else in
+    device memory. ``bounces`` (an int64 [1] CUDA tensor, optional) gets the
+    number of replayed bounces added."""
+    device = _require_cuda(camv=camv, background=background, packed=packed, g=g,
+                           d_camv=d_camv, d_bg=d_bg, d_packed=d_packed)
+    if g.numel() != 3 * n_pix or d_camv.numel() != camv.numel() \
+            or d_bg.numel() != 3 or d_packed.numel() != packed.numel():
+        raise ValueError("g must hold n_pix x 3 floats and the outputs match their inputs")
+    if bounces is not None and (bounces.dtype != torch.int64 or bounces.device != device
+                                or bounces.numel() != 1):
+        raise ValueError("bounces must be an int64 [1] tensor on the tables' device")
+    lib = load("megakernel_grad")
+    counts = [int(x) for x in sizes]
+    shared_cot = int(lib.megakernel_grad_smem_bytes(*counts, 1) <= MAX_SMEM_BYTES)
+    _check_smem(lib.megakernel_grad_smem_bytes(*counts, shared_cot))
+    stream = torch.cuda.current_stream(device).cuda_stream
+    err = lib.megakernel_grad_launch(
+        device.index, camv.data_ptr(), int(seed), background.data_ptr(), packed.data_ptr(),
+        *counts, int(n_pix), int(max_depth), int(checker_depth), int(bool(has_noise)),
+        g.data_ptr(), d_camv.data_ptr(), d_bg.data_ptr(), d_packed.data_ptr(), shared_cot,
+        None if bounces is None else bounces.data_ptr(), stream)
+    if err:
+        msg = lib.megakernel_grad_error_string(err).decode()
+        raise RuntimeError(f"megakernel_grad launch failed: {msg} (cudaError {err})")

@@ -196,138 +196,184 @@ def _safe_inv(c):
                              torch.where(c < 0, -1e-12, 1e-12), c)
 
 
-def _closest_hit(tl, sizes, *, key, tm, ox, oy, oz, dx, dy, dz, a, inv_a, bn):
+def sph_body(g, *, tm, ox, oy, oz, dx, dy, dz, a, inv_a, best_t, aux, **_):
+    """Sphere test (JAX ``make_family_bodies.sph_body``). ``g`` maps each
+    ``SPH_KEYS`` column to the record's value: a float in the sweep, a
+    per-lane tensor in the gradient replay. Returns (closer, record)."""
+    t_min = float(defs.T_MIN)
+    cx = g["c0x"] + tm * g["dpx"]
+    cy = g["c0y"] + tm * g["dpy"]
+    cz = g["c0z"] + tm * g["dpz"]
+    ocx, ocy, ocz = cx - ox, cy - oy, cz - oz
+    h = dx * ocx + dy * ocy + dz * ocz
+    rad = g["rad"]
+    cc = ocx * ocx + ocy * ocy + ocz * ocz - rad * rad
+    disc = h * h - a * cc
+    has = disc >= 0.0
+    # Double where: the replay's backward meets no sqrt'(0) on masked lanes.
+    sq = torch.where(has, torch.sqrt(torch.where(has, disc, 1.0)), 0.0)
+    root0 = (h - sq) * inv_a
+    root1 = (h + sq) * inv_a
+    ok0 = (root0 > t_min) & (root0 < best_t)
+    ok1 = (root1 > t_min) & (root1 < best_t)
+    root = torch.where(ok0, root0, root1)
+    closer = has & (ok0 | ok1) & (g["act"] > 0)
+    return closer, (root, 0.0, g["mat"], cx, cy, cz, rad)
+
+
+def quad_body(g, *, ox, oy, oz, dx, dy, dz, best_t, aux, **_):
+    """Quad test (``quad_body``): plane t, then alpha/beta inside [0, 1]."""
+    t_min = float(defs.T_MIN)
+    nx, ny, nz = g["nx"], g["ny"], g["nz"]
+    nd = dx * nx + dy * ny + dz * nz
+    no = ox * nx + oy * ny + oz * nz
+    not_par = torch.abs(nd) >= float(defs.QUAD_EPS)
+    t = (g["d"] - no) / torch.where(not_par, nd, 1.0)
+    o_aa = ox * g["aax"] + oy * g["aay"] + oz * g["aaz"]
+    d_aa = dx * g["aax"] + dy * g["aay"] + dz * g["aaz"]
+    o_ab = ox * g["abx"] + oy * g["aby"] + oz * g["abz"]
+    d_ab = dx * g["abx"] + dy * g["aby"] + dz * g["abz"]
+    alpha = o_aa + t * d_aa - g["qaa"]
+    beta = o_ab + t * d_ab - g["qab"]
+    closer = (not_par & (t >= t_min) & (t <= best_t)
+              & (alpha >= 0.0) & (alpha <= 1.0)
+              & (beta >= 0.0) & (beta <= 1.0))
+    return closer, (t, 1.0, g["mat"], nx, ny, nz, aux)
+
+
+def box_body(g, *, ox, oy, oz, inv_d, sgn_d, best_t, aux, **_):
+    """AA box slab test (``box_body``): entry at t0 with the entering face's
+    normal, exit at t1 for a ray that starts inside. ``inv_d`` and
+    ``sgn_d`` are the ray's safe reciprocal and sign per axis."""
+    t_min = float(defs.T_MIN)
+    inv_dx, inv_dy, inv_dz = inv_d
+    tax = (g["x0"] - ox) * inv_dx
+    tbx = (g["x1"] - ox) * inv_dx
+    tay = (g["y0"] - oy) * inv_dy
+    tby = (g["y1"] - oy) * inv_dy
+    taz = (g["z0"] - oz) * inv_dz
+    tbz = (g["z1"] - oz) * inv_dz
+    lox, hix = torch.minimum(tax, tbx), torch.maximum(tax, tbx)
+    loy, hiy = torch.minimum(tay, tby), torch.maximum(tay, tby)
+    loz, hiz = torch.minimum(taz, tbz), torch.maximum(taz, tbz)
+    t0 = torch.maximum(lox, torch.maximum(loy, loz))
+    t1 = torch.minimum(hix, torch.minimum(hiy, hiz))
+    enter = t0 >= t_min
+    t = torch.where(enter, t0, t1)
+    closer = (t1 > t0) & (t > t_min) & (t < best_t) & (t1 > t_min)
+    ax_x = (enter & (t0 == lox)) | (~enter & (t1 == hix))
+    ax_y = ((enter & (t0 == loy)) | (~enter & (t1 == hiy))) & ~ax_x
+    ax_z = ~ax_x & ~ax_y
+    sgn = torch.where(enter, -1.0, 1.0)
+    nxb = torch.where(ax_x, sgn * sgn_d[0], 0.0)
+    nyb = torch.where(ax_y, sgn * sgn_d[1], 0.0)
+    nzb = torch.where(ax_z, sgn * sgn_d[2], 0.0)
+    closer = closer & (g["act"] > 0)
+    return closer, (t, 1.0, g["mat"], nxb, nyb, nzb, aux)
+
+
+def med_body(g, *, key, ctr, tm, ox, oy, oz, dx, dy, dz, d_len, best_t, aux, **_):
+    """Constant medium (``med_body``): boundary entry/exit in model space,
+    then an exponential free path drawn at counter ``ctr``. A float
+    ``btype`` (the sweep) takes its boundary's branch only; a per-lane one
+    (the replay) computes both and selects, as the JAX body does."""
+    t_min = float(defs.T_MIN)
+    omx = g["i00"] * ox + g["i01"] * oy + g["i02"] * oz + g["i03"]
+    omy = g["i10"] * ox + g["i11"] * oy + g["i12"] * oz + g["i13"]
+    omz = g["i20"] * ox + g["i21"] * oy + g["i22"] * oz + g["i23"]
+    dmx_r = g["i00"] * dx + g["i01"] * dy + g["i02"] * dz
+    dmy_r = g["i10"] * dx + g["i11"] * dy + g["i12"] * dz
+    dmz_r = g["i20"] * dx + g["i21"] * dy + g["i22"] * dz
+    dm_len = torch.sqrt(torch.clamp(dmx_r * dmx_r + dmy_r * dmy_r + dmz_r * dmz_r,
+                                    min=1e-24))
+    dmx, dmy, dmz = dmx_r / dm_len, dmy_r / dm_len, dmz_r / dm_len
+
+    def box():
+        # Box boundary (slabs, safe reciprocal).
+        ix, iy, iz = _safe_inv(dmx), _safe_inv(dmy), _safe_inv(dmz)
+        ax, bx = (g["p0x"] - omx) * ix, (g["p1x"] - omx) * ix
+        ay, by = (g["p0y"] - omy) * iy, (g["p1y"] - omy) * iy
+        az, bz = (g["p0z"] - omz) * iz, (g["p1z"] - omz) * iz
+        t0_ = torch.maximum(torch.minimum(ax, bx),
+                            torch.maximum(torch.minimum(ay, by), torch.minimum(az, bz)))
+        t1_ = torch.minimum(torch.maximum(ax, bx),
+                            torch.minimum(torch.maximum(ay, by), torch.maximum(az, bz)))
+        return t0_, t1_, t0_ < t1_
+
+    def sphere():
+        # Sphere boundary (moving center).
+        ocx = (g["p0x"] + tm * g["dspx"]) - omx
+        ocy = (g["p0y"] + tm * g["dspy"]) - omy
+        ocz = (g["p0z"] + tm * g["dspz"]) - omz
+        h = dmx * ocx + dmy * ocy + dmz * ocz
+        r = g["p1x"]
+        cc = ocx * ocx + ocy * ocy + ocz * ocz - r * r
+        disc = h * h - cc
+        v = disc > 0.0
+        sq = torch.where(v, torch.sqrt(torch.where(v, disc, 1.0)), 0.0)
+        return h - sq, h + sq, v
+
+    if isinstance(g["btype"], float):
+        t0_, t1_, v = box() if g["btype"] == float(defs.MEDIUM_BOX) else sphere()
+    else:
+        is_box = g["btype"] == float(defs.MEDIUM_BOX)
+        (b0, b1, bv), (s0, s1, sv) = box(), sphere()
+        t0_, t1_ = torch.where(is_box, b0, s0), torch.where(is_box, b1, s1)
+        v = torch.where(is_box, bv, sv)
+    v = v & (t1_ > t0_ + float(defs.MEDIUM_EPS))
+    scale = dm_len / d_len
+    e0 = torch.clamp(torch.maximum(t0_, t_min * scale), min=0.0)
+    e1 = torch.minimum(t1_, best_t * scale)
+    v = v & (e0 < e1)
+    u_m = rng.draw(key, ctr)
+    hit_dist = g["nid"] * torch.log(torch.clamp(u_m, min=1e-12))
+    v = v & (hit_dist <= (e1 - e0))
+    return v, ((e0 + hit_dist) / scale, 2.0, g["mat"], 1.0, 0.0, 0.0, aux)
+
+
+# Family id of each sweep family as the gradient replay pins a winner
+# (JAX ``track_index``): the forward record's ``fam`` cannot tell a quad
+# from an AA box.
+FAMID = {"sph": 0, "quad": 1, "box": 2, "med": 3}
+
+
+def _closest_hit(tl, sizes, *, key, tm, ox, oy, oz, dx, dy, dz, a, inv_a, bn,
+                 track=False):
     """Flat closest-hit sweep in record order (JAX ``make_family_bodies`` +
     ``_closest_hit``, :635-882). ``tl`` maps family → {key: list of
-    floats}. Returns [best_t, fam, mat, p0, p1, p2, aux]."""
+    floats}. Returns [best_t, fam, mat, p0, p1, p2, aux], and with
+    ``track`` also the winner's record index and family id (``FAMID``; -1
+    on a miss) — the same values, the extra columns only follow them."""
     n_sph, n_quad, _, _, n_med, n_box = sizes
-    t_min = float(defs.T_MIN)
-    quad_eps = float(defs.QUAD_EPS)
-    draws_pb = 3 + n_med
     rec = [torch.full_like(ox, BIG), torch.full_like(ox, -1.0), torch.zeros_like(ox),
            torch.zeros_like(ox), torch.zeros_like(ox), torch.zeros_like(ox),
            torch.ones_like(ox)]
+    if track:
+        rec += [torch.full_like(ox, -1.0), torch.full_like(ox, -1.0)]
+    ray = dict(tm=tm, ox=ox, oy=oy, oz=oz, dx=dx, dy=dy, dz=dz, a=a, inv_a=inv_a)
 
-    def upd(closer, vals):
-        for i, v in enumerate(vals):
-            rec[i] = torch.where(closer, v, rec[i])
+    def sweep(fam, keys, n, body, extra=lambda p: {}):
+        tbl = tl[fam]
+        for p in range(n):
+            closer, vals = body({k: tbl[k][p] for k in keys}, best_t=rec[0],
+                                aux=rec[6], **ray, **extra(p))
+            for i, v in enumerate(vals):
+                rec[i] = torch.where(closer, v, rec[i])
+            if track:
+                rec[7] = torch.where(closer, float(p), rec[7])
+                rec[8] = torch.where(closer, float(FAMID[fam]), rec[8])
 
-    sph = tl["sph"]
-    for p in range(n_sph):
-        cx = sph["c0x"][p] + tm * sph["dpx"][p]
-        cy = sph["c0y"][p] + tm * sph["dpy"][p]
-        cz = sph["c0z"][p] + tm * sph["dpz"][p]
-        ocx, ocy, ocz = cx - ox, cy - oy, cz - oz
-        h = dx * ocx + dy * ocy + dz * ocz
-        rad = sph["rad"][p]
-        cc = ocx * ocx + ocy * ocy + ocz * ocz - rad * rad
-        disc = h * h - a * cc
-        has = disc >= 0.0
-        sq = torch.where(has, torch.sqrt(torch.where(has, disc, 1.0)), 0.0)
-        root0 = (h - sq) * inv_a
-        root1 = (h + sq) * inv_a
-        best_t = rec[0]
-        ok0 = (root0 > t_min) & (root0 < best_t)
-        ok1 = (root1 > t_min) & (root1 < best_t)
-        root = torch.where(ok0, root0, root1)
-        closer = has & (ok0 | ok1) & (sph["act"][p] > 0)
-        upd(closer, (root, 0.0, sph["mat"][p], cx, cy, cz, rad))
-
-    qd = tl["quad"]
-    for p in range(n_quad):
-        nx, ny, nz = qd["nx"][p], qd["ny"][p], qd["nz"][p]
-        nd = dx * nx + dy * ny + dz * nz
-        no = ox * nx + oy * ny + oz * nz
-        not_par = torch.abs(nd) >= quad_eps
-        t = (qd["d"][p] - no) / torch.where(not_par, nd, 1.0)
-        o_aa = ox * qd["aax"][p] + oy * qd["aay"][p] + oz * qd["aaz"][p]
-        d_aa = dx * qd["aax"][p] + dy * qd["aay"][p] + dz * qd["aaz"][p]
-        o_ab = ox * qd["abx"][p] + oy * qd["aby"][p] + oz * qd["abz"][p]
-        d_ab = dx * qd["abx"][p] + dy * qd["aby"][p] + dz * qd["abz"][p]
-        alpha = o_aa + t * d_aa - qd["qaa"][p]
-        beta = o_ab + t * d_ab - qd["qab"][p]
-        closer = (not_par & (t >= t_min) & (t <= rec[0])
-                  & (alpha >= 0.0) & (alpha <= 1.0)
-                  & (beta >= 0.0) & (beta <= 1.0))
-        upd(closer, (t, 1.0, qd["mat"][p], nx, ny, nz, rec[6]))
-
+    sweep("sph", SPH_KEYS, n_sph, sph_body)
+    sweep("quad", QUAD_KEYS, n_quad, quad_body)
     if n_box:
-        inv_dx, inv_dy, inv_dz = _safe_inv(dx), _safe_inv(dy), _safe_inv(dz)
-        sdx, sdy, sdz = torch.sign(dx), torch.sign(dy), torch.sign(dz)
-    bxt = tl["box"]
-    for b in range(n_box):
-        tax = (bxt["x0"][b] - ox) * inv_dx
-        tbx = (bxt["x1"][b] - ox) * inv_dx
-        tay = (bxt["y0"][b] - oy) * inv_dy
-        tby = (bxt["y1"][b] - oy) * inv_dy
-        taz = (bxt["z0"][b] - oz) * inv_dz
-        tbz = (bxt["z1"][b] - oz) * inv_dz
-        lox, hix = torch.minimum(tax, tbx), torch.maximum(tax, tbx)
-        loy, hiy = torch.minimum(tay, tby), torch.maximum(tay, tby)
-        loz, hiz = torch.minimum(taz, tbz), torch.maximum(taz, tbz)
-        t0 = torch.maximum(lox, torch.maximum(loy, loz))
-        t1 = torch.minimum(hix, torch.minimum(hiy, hiz))
-        enter = t0 >= t_min
-        t = torch.where(enter, t0, t1)
-        closer = (t1 > t0) & (t > t_min) & (t < rec[0]) & (t1 > t_min)
-        ax_x = (enter & (t0 == lox)) | (~enter & (t1 == hix))
-        ax_y = ((enter & (t0 == loy)) | (~enter & (t1 == hiy))) & ~ax_x
-        ax_z = ~ax_x & ~ax_y
-        sgn = torch.where(enter, -1.0, 1.0)
-        nxb = torch.where(ax_x, sgn * sdx, 0.0)
-        nyb = torch.where(ax_y, sgn * sdy, 0.0)
-        nzb = torch.where(ax_z, sgn * sdz, 0.0)
-        closer = closer & (bxt["act"][b] > 0)
-        upd(closer, (t, 1.0, bxt["mat"][b], nxb, nyb, nzb, rec[6]))
-
-    med = tl["med"]
+        box_kw = dict(inv_d=(_safe_inv(dx), _safe_inv(dy), _safe_inv(dz)),
+                      sgn_d=(torch.sign(dx), torch.sign(dy), torch.sign(dz)))
+        sweep("box", BOX_KEYS, n_box, box_body, lambda p: box_kw)
     if n_med:
         d_len = torch.sqrt(torch.clamp(a, min=1e-24))
-        bctr = bn.to(torch.int32).to(torch.int64) * draws_pb
-    for m in range(n_med):
-        g = {k: med[k][m] for k in MED_KEYS}
-        omx = g["i00"] * ox + g["i01"] * oy + g["i02"] * oz + g["i03"]
-        omy = g["i10"] * ox + g["i11"] * oy + g["i12"] * oz + g["i13"]
-        omz = g["i20"] * ox + g["i21"] * oy + g["i22"] * oz + g["i23"]
-        dmx_r = g["i00"] * dx + g["i01"] * dy + g["i02"] * dz
-        dmy_r = g["i10"] * dx + g["i11"] * dy + g["i12"] * dz
-        dmz_r = g["i20"] * dx + g["i21"] * dy + g["i22"] * dz
-        dm_len = torch.sqrt(torch.clamp(dmx_r * dmx_r + dmy_r * dmy_r + dmz_r * dmz_r,
-                                        min=1e-24))
-        dmx, dmy, dmz = dmx_r / dm_len, dmy_r / dm_len, dmz_r / dm_len
-        if g["btype"] == float(defs.MEDIUM_BOX):
-            # Box boundary (slabs, safe reciprocal).
-            ix, iy, iz = _safe_inv(dmx), _safe_inv(dmy), _safe_inv(dmz)
-            ax, bx = (g["p0x"] - omx) * ix, (g["p1x"] - omx) * ix
-            ay, by = (g["p0y"] - omy) * iy, (g["p1y"] - omy) * iy
-            az, bz = (g["p0z"] - omz) * iz, (g["p1z"] - omz) * iz
-            t0_ = torch.maximum(torch.minimum(ax, bx),
-                                torch.maximum(torch.minimum(ay, by), torch.minimum(az, bz)))
-            t1_ = torch.minimum(torch.maximum(ax, bx),
-                                torch.minimum(torch.maximum(ay, by), torch.maximum(az, bz)))
-            v = t0_ < t1_
-        else:
-            # Sphere boundary (moving center).
-            ocx = (g["p0x"] + tm * g["dspx"]) - omx
-            ocy = (g["p0y"] + tm * g["dspy"]) - omy
-            ocz = (g["p0z"] + tm * g["dspz"]) - omz
-            h = dmx * ocx + dmy * ocy + dmz * ocz
-            r = g["p1x"]
-            cc = ocx * ocx + ocy * ocy + ocz * ocz - r * r
-            disc = h * h - cc
-            v = disc > 0.0
-            sq = torch.where(v, torch.sqrt(torch.where(v, disc, 1.0)), 0.0)
-            t0_, t1_ = h - sq, h + sq
-        v = v & (t1_ > t0_ + float(defs.MEDIUM_EPS))
-        scale = dm_len / d_len
-        e0 = torch.clamp(torch.maximum(t0_, t_min * scale), min=0.0)
-        e1 = torch.minimum(t1_, rec[0] * scale)
-        v = v & (e0 < e1)
-        u_m = rng.draw(key, bctr + (3 + m))
-        hit_dist = g["nid"] * torch.log(torch.clamp(u_m, min=1e-12))
-        v = v & (hit_dist <= (e1 - e0))
-        t_world = (e0 + hit_dist) / scale
-        upd(v, (t_world, 2.0, g["mat"], 1.0, 0.0, 0.0, rec[6]))
+        bctr = bn.to(torch.int32).to(torch.int64) * (3 + n_med)
+        sweep("med", MED_KEYS, n_med, med_body,
+              lambda p: dict(key=key, ctr=bctr + (3 + p), d_len=d_len))
     return rec
 
 
@@ -522,7 +568,8 @@ def make_bounce(packed, background, *, max_depth, sizes, has_checker, has_noise)
     """The per-bounce transition of the v4 kernel (JAX ``_make_bounce``):
     ``bounce(key, tm, carry) -> carry`` with carry = (bn, alive, ox, oy, oz,
     dx, dy, dz, tpr, tpg, tpb, rr, rg, rb), all [N] f32, and ``key`` the
-    lane's uint32 sample key (int64 holder)."""
+    lane's uint32 sample key (int64 holder). ``track=True`` also returns
+    the winner (material, record index, ``FAMID``) of each lane's sweep."""
     cols = unpack_buffer(packed, sizes)
     tl = {fam: {k: v.tolist() for k, v in cols[fam].items()}
           for fam in ("sph", "quad", "box", "med")}
@@ -535,17 +582,18 @@ def make_bounce(packed, background, *, max_depth, sizes, has_checker, has_noise)
         idx = idx_f.to(torch.int64)
         return tuple(c[idx] for c in tex_cols)
 
-    def bounce(key, tm, carry):
+    def bounce(key, tm, carry, track=False):
         (bn, alive_f, ox, oy, oz, dx, dy, dz) = carry[:8]
         a = dx * dx + dy * dy + dz * dz
         inv_a = 1.0 / a
         rec = _closest_hit(tl, sizes, key=key, tm=tm, ox=ox, oy=oy, oz=oz,
-                           dx=dx, dy=dy, dz=dz, a=a, inv_a=inv_a, bn=bn)
+                           dx=dx, dy=dy, dz=dz, a=a, inv_a=inv_a, bn=bn, track=track)
         midx = rec[2].to(torch.int64)
         mat6 = tuple(c[midx] for c in mat_cols)
-        return _shade_advance(carry, rec, mat6, tex_resolve, bg, key,
-                              has_checker=has_checker, has_noise=has_noise,
-                              max_depth=max_depth, n_med=n_med)
+        out = _shade_advance(carry, rec[:7], mat6, tex_resolve, bg, key,
+                             has_checker=has_checker, has_noise=has_noise,
+                             max_depth=max_depth, n_med=n_med)
+        return (out, (rec[2], rec[7], rec[8])) if track else out
 
     return bounce
 

@@ -22,7 +22,7 @@ kernel's block, which also sets the grain of the tail compaction.
 
 The port's kernel sweeps every record flat, in record order; the JAX
 kernel's per-tile cluster skip (the thing the sort pays for on the TPU) is
-not ported yet (ROADMAP queue B item 1).
+not ported yet (ROADMAP queue B item 4).
 """
 
 from __future__ import annotations

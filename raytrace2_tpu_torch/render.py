@@ -22,7 +22,7 @@ from raytrace2_tpu_torch.scene import schema
 _NOT_PORTED = {
     "xla": "ROADMAP queue A item 12 (non-kernel path)",
     "bvh": "ROADMAP queue A item 12 (non-kernel path, sphere BVH)",
-    "pallas": "ROADMAP queue B item 5 (fused intersect kernel)",
+    "pallas": "ROADMAP queue B item 2 (kernel B5, the fused intersect kernel)",
 }
 # Records whose tables the kernel path takes (JAX megakernel.MAX_SMEM_RECORDS);
 # the JAX package sends larger scenes to its XLA path.

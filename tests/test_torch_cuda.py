@@ -1,5 +1,5 @@
-"""The Hopper kernels (v4, the wavefront step) against their plain PyTorch
-versions and each other, on the card. Skipped where
+"""The Hopper kernels (v4, the wavefront step, the gradient replay) against
+their plain PyTorch versions and each other, on the card. Skipped where
 torch.cuda.is_available() is false. Run on a machine with the card:
 python -m pytest tests/test_torch_cuda.py -q --noconftest"""
 
@@ -9,9 +9,11 @@ import numpy as np
 import pytest
 import torch
 
+from raytrace2_tpu_torch import grad
 from raytrace2_tpu_torch.io import compare
 from raytrace2_tpu_torch.ops import camera
 from raytrace2_tpu_torch.ops.kernels import megakernel as mk
+from raytrace2_tpu_torch.ops.kernels import megakernel_grad as mkg
 from raytrace2_tpu_torch.ops.kernels import wavefront as wf
 from raytrace2_tpu_torch.render import Renderer
 from raytrace2_tpu_torch.scene import loader, schema
@@ -136,3 +138,51 @@ def test_record_ceiling_scene_on_card(tmp_path, cuda):
     img = r.render()
     assert wf.LAUNCHES > launches
     assert np.isfinite(img).all() and img.max() == 3.0
+
+
+def _grad_groups(out, sizes):
+    """(name, tensor) per leaf group of a grad_call result: camv, background,
+    each table family."""
+    cols = mk.unpack_buffer(out[2].cpu(), sizes)
+    return [("camv", out[0].cpu()), ("background", out[1].cpu())] + [
+        (fam, torch.cat([cols[fam][k] for k in keys])) for fam, keys in mk.FAMILIES]
+
+
+@pytest.mark.parametrize("name", ["grad_solid", "grad_noise", "grad_media"])
+def test_grad_kernel_matches_plain(tmp_path, cuda, name):
+    """B3 against the replay under autograd, same inputs and cotangent, at
+    32x32, 2 spp, depth 8: per leaf group within 1e-3 of the group's largest
+    cotangent (float atomics sum in another order), and the same replayed
+    bounces."""
+    args, kw = _wavefront_args(write_scene(tmp_path, name), 32, 32, 2, 8, cuda)
+    g = torch.from_numpy(np.random.RandomState(5).uniform(0, 1, (32 * 32, 3))
+                         .astype(np.float32)).to(cuda)
+    counts = [torch.zeros(1, dtype=torch.int64, device=cuda) for _ in range(2)]
+    launches = mkg.LAUNCHES
+    kern = mkg.grad_call(*args, g, n_pix=32 * 32, bounces=counts[0], **kw)
+    torch.cuda.synchronize()
+    assert mkg.LAUNCHES == launches + 1
+    plain = mkg.grad_plain(*args, g, n_pix=32 * 32, bounces=counts[1], **kw)
+    assert int(counts[0]) == int(counts[1]) > 0
+    for (what, a), (_, b) in zip(_grad_groups(kern, kw["sizes"]), _grad_groups(plain, kw["sizes"])):
+        assert torch.isfinite(a).all(), what
+        assert float((a - b).abs().max()) <= 1e-3 * float(b.abs().max()) + 1e-6, what
+
+
+def test_value_and_grad_on_card(tmp_path, cuda, monkeypatch):
+    """The whole gradient path on the card (v4 forward, B3 backward) against
+    the same call with the backward's plain version."""
+    host, _ = loader.load_scene(write_scene(tmp_path, "grad_noise"))
+    feats = host.features()
+    scene = schema.to_device(host, cuda)
+    kw = dict(width=16, height=12, n_samples=2, max_depth=4, sqrt_spp=1)
+    launches = (mk.LAUNCHES, mkg.LAUNCHES)
+    loss, g = grad.value_and_grad_scene(torch.mean, scene, feats, 0, **kw)
+    assert (mk.LAUNCHES, mkg.LAUNCHES) == (launches[0] + 1, launches[1] + 1)
+    monkeypatch.setattr(mkg, "grad_call", mkg.grad_plain)
+    loss_p, g_p = grad.value_and_grad_scene(torch.mean, scene, feats, 0, **kw)
+    assert float(loss) == float(loss_p)
+    for a, b in ((g.materials.albedo, g_p.materials.albedo), (g.materials.param, g_p.materials.param),
+                 (g.spheres.center0, g_p.spheres.center0), (g.camera.center, g_p.camera.center)):
+        assert torch.isfinite(a).all()
+        assert float((a - b).abs().max()) <= 1e-3 * float(b.abs().max()) + 1e-6

@@ -104,12 +104,70 @@ def book1_final_json(rng_seed: int = 0) -> dict:
     return scene.to_json()
 
 
+# The scenes of the JAX package's gradient tests (tests/test_megakernel_grad.py):
+# solid colours only (geometry gradients vanish there), a hash-noise floor
+# under a metal sphere, and a medium with a box and a checker.
+GRAD_SCENES = {
+    "solid": {
+        "background_color": [0.55, 0.6, 0.7],
+        "camera": {"fov": 50, "center": [0, 1.5, 4], "look_at": [0, 0.5, 0]},
+        "materials": [
+            {"type": "lambertian", "albedo": [0.7, 0.3, 0.3]},
+            {"type": "metal", "albedo": [0.8, 0.8, 0.8], "fuzz": 0.2},
+            {"type": "diffuse_light", "albedo": [3, 3, 3]},
+        ],
+        "primitives": [
+            {"type": "sphere", "center": [0, 0.5, 0], "radius": 0.8, "material": 0},
+            {"type": "sphere", "center": [1.3, 0.4, 0.5], "radius": 0.4, "material": 1},
+            {"type": "quad", "q": [-20, 0, -20], "u": [40, 0, 0], "v": [0, 0, 40],
+             "material": 0},
+            {"type": "quad", "q": [-1, 3, -1], "u": [2, 0, 0], "v": [0, 0, 2], "material": 2},
+        ],
+    },
+    "noise": {
+        "background_color": [0.7, 0.75, 0.8],
+        "camera": {"fov": 42, "center": [0, 2, 5], "look_at": [0, 0.5, 0]},
+        "textures": [{"type": "noise", "albedo": [0.85, 0.8, 0.75], "scale": 0.6,
+                      "noise_type": 0}],
+        "materials": [
+            {"type": "texture", "tex_idx": 0},
+            {"type": "metal", "albedo": [0.9, 0.9, 0.9], "fuzz": 0.0},
+        ],
+        "primitives": [
+            {"type": "quad", "q": [-30, 0, -30], "u": [60, 0, 0], "v": [0, 0, 60],
+             "material": 0},
+            {"type": "sphere", "center": [0, 1.0, 0], "radius": 0.9, "material": 1},
+        ],
+    },
+    "media": {
+        "background_color": [0.4, 0.45, 0.55],
+        "camera": {"fov": 50, "center": [0, 2, 6], "look_at": [0, 0.8, 0]},
+        "textures": [
+            {"type": "solid_color", "albedo": [0.9, 0.2, 0.2]},
+            {"type": "solid_color", "albedo": [0.2, 0.9, 0.2]},
+            {"type": "checker", "scale": 2.0, "even_tex_idx": 0, "odd_tex_idx": 1},
+        ],
+        "materials": [
+            {"type": "texture", "tex_idx": 2},
+            {"type": "lambertian", "albedo": [0.6, 0.6, 0.7]},
+        ],
+        "primitives": [
+            {"type": "quad", "q": [-20, 0, -20], "u": [40, 0, 0], "v": [0, 0, 40],
+             "material": 0},
+            {"type": "box", "a": [-2.5, 0, -1], "b": [-1.0, 1.2, 0.2], "material": 1},
+            {"type": "sphere", "center": [1.2, 0.9, 0], "radius": 0.9, "material": 0,
+             "constant_medium": {"density": 0.8, "albedo": [0.3, 0.5, 0.9]}},
+        ],
+    },
+}
+
 SCENES = {
     "cornell": lambda: make_scene.cornell_box_original().to_json(),
     "cornell_volume": lambda: make_scene.cornell_box_volume().to_json(),
     "book1": book1_final_json,
     "book2": lambda: make_scene.book2_final(rng_seed=0).to_json(),
     "feature": feature_scene_json,
+    **{f"grad_{k}": (lambda v=v: v) for k, v in GRAD_SCENES.items()},
 }
 
 
