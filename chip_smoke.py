@@ -43,10 +43,24 @@ Phases, each printed on its own line:
      book 2 600x600, depth 50, 4 spp through the wavefront forward and B3;
   9. 5 Adam steps of python -m raytrace2_tpu_torch.tools.optimize_scene on
      Cornell 600x600 (materials.albedo, 4 spp, depth 50): the loss falls;
- 10. one JSON line describing each kernel, with its bound (f32 operations
-     counted from csrc/path_common.cuh and csrc/grad_adjoint.cuh for the
-     bounces this run's data took, or bytes moved, over the card's peak
-     rates).
+ 10. the fused closest hit B5 vs its plain version at its main-path launch
+     shapes (t bitwise, codes equal): the inputs of the pallas route's first
+     and fourth B5 launches on the first 16,384-ray chunk of book 2 600x600,
+     and of its first launch on a 65,536-ray Cornell chunk; kernel (CUDA
+     events), plain version and the xla route's dense sweep timed, bound;
+ 11. the v3 state-passing kernel B4 vs its plain version, bitwise, on one
+     pass of Cornell 600x600 depth 50 camera rays, timed, bound;
+ 12. the non-kernel main paths: app.main --backend pallas on Cornell
+     600x600 16 spp and book 2 600x600 4 spp (B5 launches > 0, no other
+     kernel, means in their bands), with where a pallas Cornell sample
+     spends its time; the ellipsoid scene through app.main --backend auto
+     (the dense route, no kernel), and at 64x64 on the card against the
+     CPU; integrator.render_sample with use_megakernel (B4) on Cornell
+     600x600, 16 samples, depth 50, its mean against v4's;
+ 13. one JSON line describing each kernel, with its bound (f32 operations
+     counted from csrc/path_common.cuh, csrc/grad_adjoint.cuh and
+     csrc/intersect_kernel.cu for the work this run's data took, or bytes
+     moved, over the card's peak rates).
 The last line is {"ok": true, "device": {...}}. Any failure exits non-zero
 before printing it, as does a machine without CUDA or a directory without
 the package.
@@ -90,6 +104,16 @@ OPS_SHADE = 120
 # adjoint — 60 f32 operations for a Lambertian quad hit, the cheapest case,
 # counted from csrc/grad_adjoint.cuh (bounce_adjoint, resolve_adjoint).
 OPS_ADJOINT = 60
+# f32 operations of one record test of the fused closest hit B5, counted from
+# csrc/intersect_kernel.cu (selects not counted).
+B5_OPS = {"sph": 35, "quad": 48}
+# B5's launches at the non-kernel path's chunk sizes (render.py CHUNK_SIZE,
+# CHUNK_SIZE_LARGE above 1,024 records).
+CHUNK_CORNELL, CHUNK_BOOK2 = 65536, 16384
+# Book 2's mean linear radiance at 600x600, 64 spp, depth 50 on the card
+# through the kernel path (PERF.md, the wavefront main path); its pallas
+# render at 4 spp is the same estimator on other streams.
+BOOK2_MEAN_64 = 0.4436
 # Gate of B3 against its plain version, per leaf group: float atomics sum in
 # another order than autograd.
 GRAD_RTOL, GRAD_ATOL = 1e-3, 1e-6
@@ -675,11 +699,12 @@ def main() -> None:
         f"steps: loss {' -> '.join(f'{x:.3g}' for x in losses)} (improvement "
         f"{recs[-1]['improvement']}), rel_err {recs[0]['rel_err[materials.albedo]']} -> "
         f"{recs[-2]['rel_err[materials.albedo]']}")
+    non_kernel = non_kernel_phases(dev, card, scene_file, cornell, book2, ops_per_bounce)
     shutil.rmtree(work)
     for name in ("jax", "raytrace2_tpu"):
         check(name not in sys.modules, f"{name} was imported")
 
-    # ---- phase 10: the kernels ------------------------------------------------
+    # ---- phase 13: the kernels ------------------------------------------------
     main_shape = results[cases[2][0]]
     k2 = wf_launch["k2"]
     say(json.dumps({"kernels": [{
@@ -712,8 +737,310 @@ def main() -> None:
         "shape": f"cornell 600x600, depth {GRAD_DEPTH}, {GRAD_SPP} spp (ms, bound_ms)",
         "plain_shape": f"cornell 600x600, depth {GRAD_DEPTH}, 2 spp (plain_ms, max_abs_err; "
                        f"the kernel there: {ms2:.3f} ms)",
-    }]}))
+    }, *non_kernel]}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))
+
+
+def event_ms(fn, reps):
+    """(last result, mean ms per call) of ``reps`` calls timed by CUDA events."""
+    import torch
+
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end) / reps
+
+
+def wall_ms(fn):
+    """(result, ms) of one call by the host clock, synchronised."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def non_kernel_phases(dev, card, scene_file, cornell, book2, ops_per_bounce) -> list:
+    """Phases 10-12: the non-kernel path. Returns the kernels-line entries of
+    B5 (the fused closest hit) and B4 (the v3 state-passing kernel)."""
+    import numpy as np
+    import torch
+
+    from test_torch_scenes import ellipsoid_scene_json
+
+    from raytrace2_tpu_torch import app
+    from raytrace2_tpu_torch.io import compare, image
+    from raytrace2_tpu_torch.ops import camera, integrator, intersect, materials, rng
+    from raytrace2_tpu_torch.ops.kernels import intersect_kernel as pk
+    from raytrace2_tpu_torch.ops.kernels import megakernel as mk
+    from raytrace2_tpu_torch.ops.kernels import megakernel_v3 as mk3
+    from raytrace2_tpu_torch.ops.kernels import wavefront as wf
+    from raytrace2_tpu_torch.render import Renderer
+    from raytrace2_tpu_torch.scene import loader, schema
+
+    # ---- phase 10: B5 against its plain version at its launch shapes --------
+    def b5_launches(path, size, chunk, picks):
+        """The inputs of B5's launches number ``picks`` while the pallas route
+        traces the first chunk of a size² image at sample 0 (its own bounce
+        loop, B5's wrapper wrapped to keep what it is given)."""
+        host, _ = loader.load_scene(path)
+        feats = dict(host.features(), use_megakernel=False, use_pallas=True)
+        ds = schema.to_device(host, dev)
+        pix = torch.arange(chunk, dtype=torch.int32, device=dev)
+        keys = rng.pixel_sample_key(0, pix, 0)
+        o, d, tm = camera.generate_rays(ds.camera, size, size, 0, 1, keys, pixel_ids=pix)
+        seen, orig = [], pk.closest_hit
+
+        def keep(*a):
+            seen.append(tuple(x.clone() for x in a))
+            return orig(*a)
+
+        pk.closest_hit = keep
+        try:
+            integrator.trace_rays(ds, feats, o, d, tm, keys, 50)
+        finally:
+            pk.closest_hit = orig
+        torch.cuda.synchronize()
+        return ds, [(i, seen[i]) for i in picks]
+
+    b5 = {}
+    cases = [("book2", book2, CHUNK_BOOK2, (0, 3)), ("cornell", cornell, CHUNK_CORNELL, (0,))]
+    for name, path, chunk, picks in cases:
+        ds, launches = b5_launches(path, 600, chunk, picks)
+        n_sph = int(ds.spheres.active.sum())
+        n_quad = int(ds.quads.active.sum())
+        for bounce, args in launches:
+            label = f"{name} 600x600 {chunk}-ray chunk, bounce {bounce}"
+            o, d, tm, t0, t1 = args[:5]
+            n = o.shape[0]
+            pk.closest_hit(*args)  # warm-up
+            (t_k, c_k), ms = event_ms(lambda: pk.closest_hit(*args), 5)
+            (t_p, c_p), plain_ms = wall_ms(lambda: pk.closest_hit_plain(*args))
+
+            def dense():
+                bt_s, bi_s = intersect._first_min(intersect._sphere_ts(ds.spheres, o, d, tm, t0, t1))
+                bt_q, bi_q = intersect._first_min(intersect._quad_ts(ds.quads, o, d, t0, t1))
+                return bt_s, bt_q
+
+            dense()  # warm-up
+            _, dense_ms = event_ms(dense, 3)
+            n_diff = int((c_k != c_p).sum()) + int((t_k.view(torch.int32)
+                                                   != t_p.view(torch.int32)).sum())
+            check(n_diff == 0, f"B5 {label}: kernel and plain version differ at {n_diff} "
+                               f"places")
+            max_err = float((t_k - t_p).abs().max())
+            hits = int((c_k >= 0).sum())
+            ops = n * (n_sph * B5_OPS["sph"] + n_quad * B5_OPS["quad"])
+            nbytes = n * (9 + 2) * 4 + (8 * n_sph + 13 * n_quad) * 4
+            bound_ms = max(ops / PEAK_F32_OPS, nbytes / PEAK_BYTES) * 1e3
+            bound_by = "operations" if ops / PEAK_F32_OPS >= nbytes / PEAK_BYTES else "bytes"
+            b5[(name, bounce)] = dict(n=n, ms=ms, plain_ms=plain_ms, dense_ms=dense_ms,
+                                      bound_ms=bound_ms, bound_by=bound_by,
+                                      max_abs_err=max_err)
+            say(f"phase 10 B5 vs plain, {label}: {n} rays ({hits} hit), t bitwise and codes "
+                f"equal; kernel {ms:.4f} ms (mean of 5), plain {plain_ms:.1f} ms, the xla "
+                f"route's dense sphere+quad sweep {dense_ms:.3f} ms; {n_sph} spheres x "
+                f"{B5_OPS['sph']} + {n_quad} quads x {B5_OPS['quad']} f32 ops per ray = "
+                f"{ops:.4g} ops, {nbytes} B -> bound {bound_ms:.4f} ms by {bound_by} ({card})")
+
+    # ---- phase 11: B4 against its plain version, one pass -----------------
+    host, _ = loader.load_scene(cornell)
+    feats = host.features()
+    sizes = tuple(feats["mega_sizes"])
+    ds = schema.to_device(host, dev)
+    seed_lane = integrator.mega_seed_of(0, 0)
+    pix = torch.arange(600 * 600, dtype=torch.int32, device=dev)
+    u = rng.murmur_uniforms(seed_lane, pix, tuple(rng.CAMERA_CTR_BASE + k for k in range(5)))
+    o, d, tm = camera.generate_rays(ds.camera, 600, 600, 0, 4, None, uniforms=u)
+    pad = -o.shape[0] % mk3.TILE_R
+    o = torch.nn.functional.pad(o, (0, 0, 0, pad))
+    d = torch.nn.functional.pad(d, (0, 0, 0, pad), value=1.0)
+    tm = torch.nn.functional.pad(tm, (0, pad))
+    state, rid = mk3.init_state(o, d, tm)
+    packed = mk.pack_buffer(ds, sizes)
+    bg = ds.background.to(torch.float32)
+    min_alive = mk3.TILE_R // 16  # the first of the integrator's two passes
+    kw = dict(max_depth=50, sizes=sizes, has_checker=feats["has_checker"],
+              has_noise=feats["has_noise"])
+    mk3.megakernel_pass(state, rid, seed_lane, min_alive, packed, bg, **kw)  # warm-up
+    (rad_k, new_k), b4_ms = event_ms(
+        lambda: mk3.megakernel_pass(state, rid, seed_lane, min_alive, packed, bg, **kw), 5)
+    (rad_p, new_p), b4_plain_ms = wall_ms(
+        lambda: mk3.pass_plain(state, rid, seed_lane, min_alive, packed, bg, **kw))
+    b4_err = max(float((rad_k - rad_p).abs().max()), float((new_k - new_p).abs().max()))
+    check(torch.equal(rad_k, rad_p) and torch.equal(new_k, new_p),
+          f"B4 one pass: kernel and plain version differ (max abs err {b4_err:.3g})")
+    live = (new_k[mk3.COL["alive"]] > 0).view(-1, mk3.TILE_R).sum(1)
+    check(int(live.max()) <= min_alive, f"B4 left a tile with {int(live.max())} live rays")
+    n = rid.numel()
+    b4_bounces = int((new_k[mk3.COL["bounce"]] - state[mk3.COL["bounce"]]).sum())
+    b4_ops = b4_bounces * ops_per_bounce(sizes)
+    b4_bytes = n * (12 * 4 + 4) + n * (11 * 4 + 12) + packed.numel() * 4
+    b4_bound_ms = max(b4_ops / PEAK_F32_OPS, b4_bytes / PEAK_BYTES) * 1e3
+    b4_bound_by = "operations" if b4_ops / PEAK_F32_OPS >= b4_bytes / PEAK_BYTES else "bytes"
+    say(f"phase 11 B4 vs plain, one pass of cornell 600x600 depth 50 ({n} rays, min_alive "
+        f"{min_alive} of {mk3.TILE_R}): radiance and state bitwise, {int(live.sum())} rays "
+        f"live after; kernel {b4_ms:.3f} ms (mean of 5), plain {b4_plain_ms:.1f} ms; "
+        f"{b4_bounces} bounces x {ops_per_bounce(sizes)} f32 ops, {b4_bytes} B -> bound "
+        f"{b4_bound_ms:.4f} ms by {b4_bound_by} ({card})")
+
+    # ---- phase 12: the non-kernel main paths ------------------------------
+    def cli(path, out, *argv):
+        metrics = out + ".jsonl"
+        pk.LAUNCHES = mk.LAUNCHES = wf.LAUNCHES = mk3.LAUNCHES = 0
+        rc = app.main([path, out, "--depth", "50", "--device", "cuda", "--metrics", metrics,
+                       "--quiet", *argv])
+        counts = dict(b5=pk.LAUNCHES, v4=mk.LAUNCHES, wavefront=wf.LAUNCHES, b4=mk3.LAUNCHES)
+        check(rc == 0, f"app.main {os.path.basename(path)} {argv} exited {rc}")
+        with open(metrics) as f:
+            done = [json.loads(line) for line in f][-1]
+        with open(out, "rb") as f:
+            png = image.decode_png(f.read())
+        check(png.shape == (600, 600, 3), f"PNG shape {png.shape}")
+        check(np.isfinite(done["mean_linear"]), f"{path}: mean not finite")
+        return done, counts
+
+    work = os.path.dirname(cornell)
+    done, counts = cli(cornell, os.path.join(work, "cornell_pallas.png"), "--samples", "16",
+                       "--backend", "pallas")
+    b5_main = counts["b5"]
+    lo, hi = CORNELL_MEAN_BAND
+    check(b5_main > 0 and counts["v4"] == counts["wavefront"] == counts["b4"] == 0,
+          f"Cornell pallas main path launches {counts}")
+    check((done["route"], done["kernel"], done["launches"]) == ("pallas", "intersect_kernel",
+                                                                b5_main), f"done record {done}")
+    check(lo <= done["mean_linear"] <= hi,
+          f"Cornell pallas mean linear radiance {done['mean_linear']:.4f} outside [{lo}, {hi}]")
+    say(f"phase 12 pallas main path: app.main Cornell 600x600 16 spp depth 50 --backend pallas, "
+        f"{b5_main} B5 launches, no other kernel, mean linear radiance "
+        f"{done['mean_linear']:.4f} in [{lo}, {hi}], {done['mpaths_per_s']:.4f} Mpaths/s over "
+        f"{done['elapsed_s']:.3f} s on {card}")
+
+    # Where one pallas Cornell sample (600x600, depth 50) spends its time:
+    # CUDA-event spans of each part of the bounce loop, against the wall.
+    spans = {k: [] for k in ("b5", "rng", "hit", "shade", "step")}
+
+    def span(fn, bucket):
+        def run(*a, **k):
+            s_, e_ = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            s_.record()
+            out = fn(*a, **k)
+            e_.record()
+            spans[bucket].append((s_, e_))
+            return out
+        return run
+
+    def make_step(*a, **k):
+        return span(orig["make_step"](*a, **k), "step")
+
+    orig = dict(b5=pk.closest_hit, rng=rng.bounce_uniforms, hit=intersect.closest_hit,
+                shade=materials.shade, make_step=integrator._make_step)
+    feats_p = dict(feats, use_megakernel=False, use_pallas=True)
+    pk.closest_hit = span(orig["b5"], "b5")
+    rng.bounce_uniforms = span(orig["rng"], "rng")
+    intersect.closest_hit = span(orig["hit"], "hit")
+    materials.shade = span(orig["shade"], "shade")
+    integrator._make_step = make_step
+    try:
+        _, sample_ms = wall_ms(lambda: integrator.render_sample(
+            ds, feats_p, 600, 600, 0, 0, 50, 4, chunk_size=CHUNK_CORNELL))
+    finally:
+        (pk.closest_hit, rng.bounce_uniforms, intersect.closest_hit, materials.shade,
+         integrator._make_step) = (orig["b5"], orig["rng"], orig["hit"], orig["shade"],
+                                   orig["make_step"])
+    tot = {k: sum(s_.elapsed_time(e_) for s_, e_ in v) for k, v in spans.items()}
+    n_steps = len(spans["step"])
+    say(f"phase 12 where a pallas Cornell sample goes (600x600, depth 50, chunks of "
+        f"{CHUNK_CORNELL}; {n_steps} bounce steps, each ending in a host read of the live "
+        f"count): wall {sample_ms:.1f} ms; B5 {tot['b5']:.1f} ms ({len(spans['b5'])} launches); "
+        f"rest of the closest hit (records, media) {tot['hit'] - tot['b5']:.1f} ms; threefry "
+        f"draws {tot['rng']:.1f} ms; shading {tot['shade']:.1f} ms; step glue "
+        f"{tot['step'] - tot['hit'] - tot['rng'] - tot['shade']:.1f} ms; outside the steps "
+        f"(camera, keys, compaction, chunking, host) {sample_ms - tot['step']:.1f} ms "
+        f"(CUDA-event spans) ({card})")
+
+    done, counts = cli(book2, os.path.join(work, "book2_pallas.png"), "--samples", "4",
+                       "--backend", "pallas")
+    b5_book2 = counts["b5"]
+    check(b5_book2 > 0 and counts["v4"] == counts["wavefront"] == counts["b4"] == 0,
+          f"book-2 pallas main path launches {counts}")
+    mean = done["mean_linear"]
+    check(abs(mean / BOOK2_MEAN_64 - 1.0) < BOOK2_MEAN_RTOL,
+          f"book-2 pallas mean linear radiance {mean:.4f} vs {BOOK2_MEAN_64}")
+    say(f"phase 12 pallas main path: app.main book2 600x600 4 spp depth 50 --backend pallas, "
+        f"{b5_book2} B5 launches, no other kernel, mean linear radiance {mean:.4f} (kernel "
+        f"path, 64 spp: {BOOK2_MEAN_64}), {done['mpaths_per_s']:.4f} Mpaths/s over "
+        f"{done['elapsed_s']:.3f} s on {card}")
+
+    ell = scene_file("ellipsoid", ellipsoid_scene_json())
+    done, counts = cli(ell, os.path.join(work, "ellipsoid.png"), "--samples", "4",
+                       "--width", "600", "--height", "600")
+    check(done["route"] == "xla" and done["kernel"] is None and not any(counts.values()),
+          f"ellipsoid main path: done {done}, launches {counts}")
+    say(f"phase 12 dense main path: app.main ellipsoid scene 600x600 4 spp depth 50 "
+        f"--backend auto -> route {done['route']}, no kernel launched, mean linear radiance "
+        f"{done['mean_linear']:.4f}, {done['mpaths_per_s']:.4f} Mpaths/s over "
+        f"{done['elapsed_s']:.3f} s on {card}")
+    ell_host, _ = loader.load_scene(ell)
+    img_card = Renderer(ell_host, 64, 64, num_samples=4, max_depth=8, device=dev).render(batch=4)
+    img_cpu = Renderer(ell_host, 64, 64, num_samples=4, max_depth=8,
+                       device="cpu").render(batch=4)
+    d_mean = abs(float(img_card.mean() - img_cpu.mean()))
+    flipped = np.abs(img_card - img_cpu).max(-1) > 1e-4
+    psnr = compare.psnr(img_card[~flipped], img_cpu[~flipped]) if (~flipped).any() else 0.0
+    check(d_mean < 1e-3 and flipped.mean() <= 0.005 and psnr >= 60.0,
+          f"ellipsoid 64x64 card vs CPU: |dmean| {d_mean:.3g}, {int(flipped.sum())} pixels "
+          f"flipped, PSNR {psnr:.2f} dB over the rest")
+    say(f"phase 12 ellipsoid 64x64 4 spp depth 8, card vs CPU: |dmean| {d_mean:.3g}, "
+        f"{int(flipped.sum())} of 4096 pixels differ > 1e-4, PSNR {psnr:.2f} dB over the "
+        f"others (gate 1e-3, 0.5 %, 60 dB)")
+
+    feats_b4 = dict(feats, use_megakernel=True)
+    pk.LAUNCHES = mk.LAUNCHES = wf.LAUNCHES = mk3.LAUNCHES = 0
+    acc, b4_wall = wall_ms(lambda: sum(
+        integrator.render_sample(ds, feats_b4, 600, 600, s, 0, 50, 4) for s in range(16)))
+    b4_main = mk3.LAUNCHES
+    check(b4_main > 0 and mk.LAUNCHES == wf.LAUNCHES == pk.LAUNCHES == 0,
+          f"B4 main path launches: B4 {b4_main}, v4 {mk.LAUNCHES}, wavefront {wf.LAUNCHES}, "
+          f"B5 {pk.LAUNCHES}")
+    mean_b4 = float(acc.mean()) / 16
+    v4_mean = float(Renderer(host, 600, 600, num_samples=16, max_depth=50, seed=0,
+                             device=dev).render(batch=16).mean())
+    check(np.isfinite(mean_b4) and abs(mean_b4 - v4_mean) < 1e-3,
+          f"B4 Cornell mean {mean_b4:.5f} vs v4's {v4_mean:.5f}")
+    say(f"phase 12 B4 main path: integrator.render_sample with use_megakernel, Cornell "
+        f"600x600, 16 samples, depth 50: {b4_main} B4 launches, mean linear radiance "
+        f"{mean_b4:.5f} (v4 at the same seed and samples: {v4_mean:.5f}), "
+        f"{16 * 360000 / b4_wall / 1e3:.3f} Mpaths/s over {b4_wall:.1f} ms on {card}")
+
+    main = b5[("cornell", 0)]
+    return [{
+        "name": "intersect_kernel", "route": "cuda",
+        "source": "raytrace2_tpu_torch/csrc/intersect_kernel.cu",
+        "replaces": "raytrace2_tpu/ops/pallas/intersect_kernel.py:159 (_kernel)",
+        "launches": b5_main, "max_abs_err": main["max_abs_err"],
+        "ms": main["ms"], "plain_ms": main["plain_ms"],
+        "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+        "library_ms": None,
+        "shape": f"cornell 600x600, a {CHUNK_CORNELL}-ray chunk at its first bounce",
+        "launches_book2": b5_book2,
+        "book2": {f"bounce {b}": b5[("book2", b)] for b in (0, 3)},
+    }, {
+        "name": "megakernel_v3", "route": "cuda",
+        "source": "raytrace2_tpu_torch/csrc/megakernel_v3.cu",
+        "replaces": "raytrace2_tpu/ops/pallas/megakernel.py:1422 (_render_kernel)",
+        "launches": b4_main, "max_abs_err": b4_err,
+        "ms": b4_ms, "plain_ms": b4_plain_ms,
+        "bound_ms": b4_bound_ms, "bound_by": b4_bound_by,
+        "library_ms": None,
+        "shape": "cornell 600x600, depth 50, the first pass (min_alive 8 of 128)",
+    }]
 
 
 if __name__ == "__main__":

@@ -3,8 +3,8 @@
 ``python -m raytrace2_tpu_torch <scene.json> [out.png] --device cuda|cpu``:
 the same argv, ``local/data/settings.json`` and output naming as the JAX
 package's CLI. The device is explicit: ``cuda`` (the default) renders
-through the Hopper kernel and fails when no card is present; ``cpu`` runs the
-kernel's plain PyTorch version.
+through the Hopper kernels and fails when no card is present; ``cpu`` runs
+their plain PyTorch versions.
 """
 
 from __future__ import annotations
@@ -76,12 +76,18 @@ def build_parser() -> argparse.ArgumentParser:
                         "summary record")
     p.add_argument("--backend", default="auto",
                    choices=["auto", "xla", "bvh", "pallas", "mega", "wavefront"],
-                   help="auto/mega: the kernel path (the v4 kernel, or the sorted "
-                        "wavefront above 256 records); wavefront: force the sorted "
-                        "wavefront; xla/bvh/pallas are not ported yet")
+                   help="auto: the kernel path (the v4 kernel, or the sorted wavefront "
+                        "above 256 records) when the scene fits it, else the non-kernel "
+                        "path (ellipsoids, more than 4,096 records); mega: the kernel "
+                        "path; wavefront: force the sorted wavefront; xla: the non-kernel "
+                        "path with the dense closest hit; pallas: the non-kernel path "
+                        "with the fused intersect kernel; bvh is not ported yet")
+    p.add_argument("--chunk-size", type=int, default=None,
+                   help="rays per chunk on the non-kernel path (default 65536, or 16384 "
+                        "above 1,024 records)")
     p.add_argument("--device", default="cuda",
-                   help="render device: cuda (the Hopper kernel; default) or cpu "
-                        "(the kernel's plain PyTorch version)")
+                   help="render device: cuda (the Hopper kernels; default) or cpu "
+                        "(their plain PyTorch versions)")
     p.add_argument("--quiet", action="store_true")
     # Accepted so that they can be refused with a clear message.
     p.add_argument("--live", action="store_true", help=argparse.SUPPRESS)
@@ -104,8 +110,8 @@ def main(argv=None) -> int:
     import torch
 
     from raytrace2_tpu_torch.io import image as image_io
-    from raytrace2_tpu_torch.ops.kernels import megakernel, wavefront
-    from raytrace2_tpu_torch.render import Renderer, resolve_device
+    from raytrace2_tpu_torch.ops.kernels import intersect_kernel, megakernel, wavefront
+    from raytrace2_tpu_torch.render import CHUNK_SIZE, Renderer, resolve_device
     from raytrace2_tpu_torch.scene import loader
 
     try:
@@ -151,7 +157,8 @@ def main(argv=None) -> int:
     try:
         renderer = Renderer(scene, width, height, num_samples=settings["num_samples"],
                             max_depth=settings["max_depth"], seed=args.seed,
-                            backend=args.backend, device=device)
+                            backend=args.backend, device=device,
+                            chunk_size=args.chunk_size or CHUNK_SIZE)
     except NotImplementedError as e:
         print(f"error: {e}", file=sys.stderr)
         return 1
@@ -173,9 +180,11 @@ def main(argv=None) -> int:
         if device.type == "cuda":
             torch.cuda.synchronize(device)
 
-    counters = {"megakernel_v4": megakernel, "wavefront_step": wavefront}
-    module = counters[renderer.kernel]
-    launches0, sorts0 = module.LAUNCHES, wavefront.SORTS
+    counters = {"megakernel_v4": megakernel, "wavefront_step": wavefront,
+                "intersect_kernel": intersect_kernel}
+    module = counters.get(renderer.kernel)
+    launches0 = module.LAUNCHES if module else 0
+    sorts0 = wavefront.SORTS
     t0 = time.perf_counter()
     while renderer.frame_idx < total:
         renderer.update(min(batch, total - renderer.frame_idx))
@@ -197,8 +206,11 @@ def main(argv=None) -> int:
     lin = renderer.linear_pixels()
     if args.metrics:
         dt = time.perf_counter() - t0
-        # Kernel launches on the card; 0 where the plain version ran (CPU).
-        kernel = {"kernel": renderer.kernel, "launches": module.LAUNCHES - launches0}
+        # The route and its kernel's launches on the card (0 where the plain
+        # version ran, on the CPU); the dense route has no kernel.
+        kernel = {"route": renderer.route, "kernel": renderer.kernel}
+        if module:
+            kernel["launches"] = module.LAUNCHES - launches0
         if renderer.kernel == "wavefront_step":
             kernel["sorts"] = wavefront.SORTS - sorts0
         with open(args.metrics, "a") as f:

@@ -562,7 +562,8 @@ __host__ __device__ inline int block_smem_bytes(const Counts& c) {
 }
 
 // Stage the packed tables, camv and background in shared memory; returns the
-// staged camv. Every thread of the block must call it.
+// staged camv (zeros where `camv_g` is null: a kernel without a camera).
+// Every thread of the block must call it.
 __device__ __forceinline__ const float* stage_tables(float* smem, const float* camv_g,
                                                      const float* bg_g, const float* tables_g,
                                                      const Counts& c) {
@@ -570,7 +571,7 @@ __device__ __forceinline__ const float* stage_tables(float* smem, const float* c
   float* cv = smem + n_tab;
   float* bg = cv + kCamvLen;
   for (int i = threadIdx.x; i < n_tab; i += blockDim.x) smem[i] = tables_g[i];
-  for (int i = threadIdx.x; i < kCamvLen; i += blockDim.x) cv[i] = camv_g[i];
+  for (int i = threadIdx.x; i < kCamvLen; i += blockDim.x) cv[i] = camv_g ? camv_g[i] : 0.0f;
   if (threadIdx.x < 3) bg[threadIdx.x] = bg_g[threadIdx.x];
   __syncthreads();
   return cv;

@@ -35,7 +35,7 @@ def _check_supported(features, max_depth) -> None:
     if sizes is None:
         raise NotImplementedError(
             "scene has no kernel sizes (ellipsoids): its gradient needs the non-kernel "
-            "path, which is not ported yet (ROADMAP queue A item 12)")
+            "path's differentiable scan, which is not ported yet (ROADMAP queue A item 12)")
     if features.get("noise_impl", "hash") != "hash":
         raise NotImplementedError(
             "table Perlin noise (noise_impl='table') is not ported yet (ROADMAP queue B "
@@ -44,7 +44,8 @@ def _check_supported(features, max_depth) -> None:
         raise NotImplementedError(
             f"depth {max_depth} (gradient kernel: at most {mkg.GRAD_MAX_DEPTH}) or "
             f"{integrator.n_records(features)} records (at most {mkg.MAX_RECORDS}) "
-            "need the non-kernel path, which is not ported yet (ROADMAP queue A item 12)")
+            "need the non-kernel path's differentiable scan, which is not ported yet "
+            "(ROADMAP queue A item 12)")
 
 
 def render_image(scene, features, seed, *, width, height, n_samples, max_depth,

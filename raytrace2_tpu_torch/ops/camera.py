@@ -86,6 +86,46 @@ def make_camv(cam, width: int, height: int, sample0: int, n_samples: int,
     ])
 
 
+def stratum(sample_idx: int, sqrt_spp: int) -> tuple[int, int]:
+    """Stratum cell of progressive sample ``sample_idx``
+    (src/cpu_raytrace/RayTracer.cpp:57-60)."""
+    return sample_idx % sqrt_spp, (sample_idx // sqrt_spp) % sqrt_spp
+
+
+def generate_rays(cam, width: int, height: int, sample_idx: int, sqrt_spp: int, keys,
+                  pixel_ids=None, uniforms=None):
+    """Rays of the non-kernel path for a set of pixels at one stratified
+    sample (JAX ``camera.generate_rays``, :72-125): (origins [N,3], dirs
+    [N,3], times [N]) on the device of ``keys`` or ``uniforms``.
+
+    ``keys`` are threefry keys [N, 2] (``rng.pixel_sample_key``), whose
+    camera draw is ``uniform(fold_in(k, 0x7FFFFFFF), 5)``; or ``uniforms``
+    [N, 5] from the caller's generator (the murmur camera draws)."""
+    u = rng.uniform(rng.fold_in(keys, 0x7FFFFFFF), 5) if uniforms is None else uniforms
+    device = u.device
+    frame = {k: v.detach().to(device) for k, v in camera_frame(cam, width, height).items()}
+    if pixel_ids is None:
+        pixel_ids = torch.arange(width * height, dtype=torch.int32, device=device)
+    xs = (pixel_ids % width).to(torch.float32)
+    ys = torch.div(pixel_ids, width, rounding_mode="floor").to(torch.float32)
+    s_i, s_j = stratum(int(sample_idx), int(sqrt_spp))
+    recip = 1.0 / sqrt_spp
+    px = (s_i + u[:, 0]) * recip - 0.5
+    py = (s_j + u[:, 1]) * recip - 0.5
+    pixel_center = (frame["pixel00"][None, :]
+                    + (xs + px)[:, None] * frame["pixel_delta_u"][None, :]
+                    + (ys + py)[:, None] * frame["pixel_delta_v"][None, :])
+    disk = rng.disk_from_uniforms(u[:, 2], u[:, 3])
+    if float(frame["defocus_angle"]) > 0.0:
+        origins = (frame["center"][None, :]
+                   + disk[:, 0:1] * frame["defocus_disk_u"][None, :]
+                   + disk[:, 1:2] * frame["defocus_disk_v"][None, :])
+    else:
+        origins = frame["center"][None, :].expand_as(pixel_center)
+    dirs = _normalize(pixel_center - origins)
+    return origins.contiguous(), dirs, u[:, 4].contiguous()
+
+
 def _div(a: torch.Tensor, b) -> torch.Tensor:
     """``a / b`` as a true elementwise division: on CUDA, torch divides by a
     host scalar as a multiply by its reciprocal, which can move floor() of

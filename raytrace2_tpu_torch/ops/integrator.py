@@ -1,29 +1,45 @@
-"""Kernel-path integrator (port of the v4 branch of
-``raytrace2_tpu/ops/integrator.py``: ``mega_schedule`` :314-343,
-``_render_batch_megakernel`` :346-465, ``render_progressive`` :481-489).
+"""Path integrator (port of ``raytrace2_tpu/ops/integrator.py``).
 
-Scenes with at most 256 sweep records render through the v4 kernel on the
-linear slot layout with instant regeneration; larger ones (books 1 and 2)
-through the sorted wavefront (``ops/kernels/wavefront.py``), whose K-bounce
-kernel advances the slot state between Morton sorts. Scenes without kernel
-sizes (ellipsoids, which need the non-kernel path) are not ported yet and
-raise.
+Two routes, as in the JAX package:
 
-Feature knobs read here, named as in the JAX package: ``mega_wavefront``
-forces the route either way; ``mega_k_bounces``, ``mega_sort_every``,
-``mega_sort_key``, ``mega_tail_k``, ``mega_tail_frac``, ``mega_tail_compact``
-and ``mega_sort_impl`` set the wavefront's schedule (none changes the
-image). ``mega_sublanes`` and ``mega_state_packed`` are TPU tile and layout
-knobs that choose nothing here.
+* **The kernel path** (``mega_schedule`` :314-343, ``_render_batch_megakernel``
+  :346-465): scenes with at most 256 sweep records render through the v4
+  kernel on the linear slot layout with instant regeneration; larger ones
+  (books 1 and 2) through the sorted wavefront (``ops/kernels/wavefront.py``),
+  whose K-bounce kernel advances the slot state between Morton sorts.
+* **The non-kernel path** (``_make_step``, ``trace_rays``, ``render_sample``,
+  :37-311): one progressive sample at a time, a bounce loop over ray state
+  with phased compaction, the closest hit from ``ops/intersect.py`` (dense,
+  or B5 with ``use_pallas``), shading from ``ops/materials.py`` and threefry
+  or murmur streams. ``trace_rays`` with a ``mega_seed`` and
+  ``use_megakernel`` hands the rays to the v3 kernel B4
+  (``ops/kernels/megakernel_v3.py``) instead; only ``render_sample`` reaches
+  it, as in the JAX package.
+
+``render_progressive`` takes the kernel path when ``use_megakernel`` is set
+and the scene has kernel sizes (no ellipsoids), and the non-kernel path
+otherwise.
+
+Feature knobs read on the kernel path, named as in the JAX package:
+``mega_wavefront`` forces the route either way; ``mega_k_bounces``,
+``mega_sort_every``, ``mega_sort_key``, ``mega_tail_k``, ``mega_tail_frac``,
+``mega_tail_compact`` and ``mega_sort_impl`` set the wavefront's schedule
+(none changes the image). ``mega_sublanes`` and ``mega_state_packed`` are
+TPU tile and layout knobs that choose nothing here. On the non-kernel path:
+``rng_impl`` ("murmur" for the kernels' streams), ``compaction_phases`` (3)
+and ``compaction_ratio`` (8); on B4's: ``mega_phases`` (2) and
+``mega_ratio`` (16).
 """
 
 from __future__ import annotations
 
 import torch
 
-from raytrace2_tpu_torch.ops import camera
+from raytrace2_tpu_torch.ops import camera, intersect, materials, rng
+from raytrace2_tpu_torch.ops.kernels import intersect_kernel as pk
 from raytrace2_tpu_torch.ops.kernels import megakernel as mk
 from raytrace2_tpu_torch.ops.kernels import megakernel_grad as mkg
+from raytrace2_tpu_torch.ops.kernels import megakernel_v3 as mk3
 from raytrace2_tpu_torch.ops.kernels import wavefront as wf
 
 # JAX mega_schedule's threshold: above it, scenes go to the sorted
@@ -51,8 +67,8 @@ def mega_schedule(features) -> tuple:
 def _check_kernel_features(features) -> None:
     if features.get("mega_sizes") is None:
         raise NotImplementedError(
-            "scene has no kernel sizes (ellipsoids): the non-kernel path is not "
-            "ported yet (ROADMAP queue A item 12)")
+            "scene has no kernel sizes (ellipsoids): the kernel path cannot render it; "
+            "use the non-kernel path (use_megakernel unset, backend 'xla' or 'auto')")
     if features.get("noise_impl", "hash") != "hash":
         raise NotImplementedError(
             "table Perlin noise (noise_impl='table') is not ported yet "
@@ -110,17 +126,215 @@ def pack_scene(scene, features) -> torch.Tensor:
     return mk.pack_buffer(scene, sizes)
 
 
+def _int32(x: int) -> int:
+    """``x`` wrapped to int32, as JAX's int32 arithmetic wraps."""
+    return (int(x) + 2**31) % 2**32 - 2**31
+
+
+def mega_seed_of(seed: int, sample_idx: int) -> int:
+    """The kernels' per-(seed, sample) stream seed, seed·1000003 + sample in
+    int32 arithmetic (JAX :245)."""
+    return _int32(_int32(seed) * 1000003 + int(sample_idx))
+
+
+def _make_step(scene, features, background, mega_seed=None):
+    """The per-bounce transition of a (possibly compacted) ray set (JAX
+    :37-108). The state carries each ray's keys and time, so compaction
+    gathers them with the rays.
+
+    ``features["rng_impl"] == "murmur"`` (with ``mega_seed``): the draws are
+    the v4 kernel's counter-hash streams and ``st["keys"]`` holds pixel ids;
+    the counter stride is 3 + the active media, and padded media rows get a
+    dead 0.5 draw. Otherwise ``st["keys"]`` are threefry keys [N, 2]."""
+    num_media = scene.media.btype.shape[0]
+    has_media = features.get("has_media", True)
+    use_murmur = features.get("rng_impl") == "murmur" and mega_seed is not None
+    n_med_active = (features.get("mega_sizes") or (0,) * 6)[4]
+    tables = (pk.pack_scene(scene.spheres, scene.quads)
+              if features.get("use_pallas", False) else None)
+
+    def step(st):
+        keys = st["keys"]
+        if use_murmur:
+            draws_pb = 3 + (n_med_active if has_media else 0)
+            bctr = st["bounce"] * draws_pb
+            ctrs = [bctr, bctr + 1, bctr + 2] + (
+                [bctr + 3 + m for m in range(n_med_active)] if has_media else [])
+            u = rng.murmur_uniforms_at(mega_seed, keys, ctrs).to(keys.device)
+            if has_media and num_media > n_med_active:
+                u = torch.cat([u, torch.full((u.shape[0], num_media - n_med_active), 0.5,
+                                             device=u.device)], -1)
+        else:
+            n_draws = 3 + (num_media if has_media else 0)
+            u = rng.bounce_uniforms(keys, st["bounce"], n_draws)
+        u_media = u[:, 3:] if has_media else None
+        hit = intersect.closest_hit(scene, st["o"], st["d"], st["time"], u_media,
+                                    features=features, pallas_tables=tables)
+        u_vec = rng.unit_vec3_from_uniforms(u[:, 0], u[:, 1])
+        sc = materials.shade(scene, features, hit, st["d"], u_vec, u[:, 2])
+
+        alive = st["alive"]
+        miss = alive & ~hit.valid
+        hit_live = alive & hit.valid
+        scatter_live = hit_live & sc.did_scatter
+        tp = st["throughput"]
+        radiance = st["radiance"] + torch.where(miss[:, None], tp * background[None, :], 0.0)
+        radiance = radiance + torch.where(hit_live[:, None], tp * sc.emitted, 0.0)
+        return dict(
+            st,
+            o=torch.where(scatter_live[:, None], hit.point, st["o"]),
+            d=torch.where(scatter_live[:, None], sc.direction, st["d"]),
+            throughput=torch.where(scatter_live[:, None], tp * sc.attenuation, tp),
+            radiance=radiance,
+            alive=scatter_live,
+            bounce=st["bounce"] + 1,
+        )
+
+    return step
+
+
+def _trace_megakernel(scene, features, o, d, time, seed_lane, max_depth):
+    """The rays through B4 (JAX :111-134): padded to the kernel's tile with
+    alive ``d = 1`` rays, whose radiance is cut off. B4 evaluates hash noise
+    whatever ``noise_impl`` says, as the JAX v3 kernel does."""
+    n = o.shape[0]
+    pad = -n % mk3.TILE_R
+    if pad:
+        o = torch.nn.functional.pad(o, (0, 0, 0, pad))
+        d = torch.nn.functional.pad(d, (0, 0, 0, pad), value=1.0)
+        time = torch.nn.functional.pad(time, (0, pad))
+    sizes = tuple(features["mega_sizes"])
+    radiance = mk3.trace_megakernel(
+        o, d, time, seed_lane, mk.pack_buffer(scene, sizes),
+        scene.background.to(torch.float32), max_depth=max_depth, sizes=sizes,
+        has_checker=int(features.get("has_checker", 1)),
+        has_noise=bool(features.get("has_noise", False)),
+        phases=int(features.get("mega_phases", 2)),
+        compaction_ratio=int(features.get("mega_ratio", 16)))
+    return radiance[:n]
+
+
+def trace_rays(scene, features, o, d, time, keys, max_depth: int,
+               differentiable: bool = False, mega_seed=None):
+    """Trace N rays to completion; returns radiance [N, 3] (JAX :137-228).
+
+    Phased compaction: each phase bounces the whole buffer while more rays
+    are alive than the next phase's capacity (``width // ratio``), then
+    gathers the survivors (stable, with their keys: the streams do not
+    change) into that smaller buffer; the last phase runs dry. The alive
+    count is read on the host once per bounce."""
+    if differentiable:
+        raise NotImplementedError(
+            "trace_rays(differentiable=True), the differentiable scan of the non-kernel "
+            "path, is not ported yet (ROADMAP queue A item 12, the differentiable scan)")
+    if (mega_seed is not None and features.get("use_megakernel", False)
+            and features.get("mega_sizes") is not None):
+        return _trace_megakernel(scene, features, o, d, time, mega_seed, max_depth)
+
+    n = o.shape[0]
+    background = scene.background.to(torch.float32)
+    step = _make_step(scene, features, background, mega_seed=mega_seed)
+    state = dict(o=o, d=d, time=time, keys=keys,
+                 throughput=torch.ones((n, 3), dtype=o.dtype, device=o.device),
+                 radiance=torch.zeros((n, 3), dtype=o.dtype, device=o.device),
+                 alive=torch.ones((n,), dtype=torch.bool, device=o.device), bounce=0)
+    ratio = int(features.get("compaction_ratio", 8))
+    num_phases = int(features.get("compaction_phases", 3))
+    radiance_full = torch.zeros((n, 3), dtype=o.dtype, device=o.device)
+    idx_map = torch.arange(n, device=o.device)
+    width = n
+    for phase in range(num_phases):
+        last = phase == num_phases - 1 or width // ratio < 256
+        cap_next = 0 if last else width // ratio
+        while state["bounce"] < max_depth and int(state["alive"].sum()) > cap_next:
+            state = step(state)
+        radiance_full.index_add_(0, idx_map, state["radiance"])
+        if last:
+            break
+        # Stable partition of the live rays to the front; dead rays that ride
+        # along add nothing.
+        order = torch.argsort((~state["alive"]).to(torch.int8), stable=True)[:cap_next]
+        idx_map = idx_map[order]
+        state = dict(o=state["o"][order], d=state["d"][order], time=state["time"][order],
+                     keys=state["keys"][order],
+                     throughput=state["throughput"][order],
+                     radiance=torch.zeros((cap_next, 3), dtype=o.dtype, device=o.device),
+                     alive=state["alive"][order], bounce=state["bounce"])
+        width = cap_next
+    return radiance_full
+
+
+def render_sample(scene, features, width: int, height: int, sample_idx: int, seed: int,
+                  max_depth: int, sqrt_spp: int, chunk_size: int | None = None,
+                  differentiable: bool = False):
+    """One progressive stratified sample of every pixel → [H, W, 3] radiance
+    (JAX :231-311), on the scene's device.
+
+    Streams: with ``use_megakernel`` (and kernel sizes) the camera draws come
+    from the murmur family and the rays go to B4, unchunked; with
+    ``rng_impl="murmur"`` the XLA loop draws the kernels' streams, keyed by
+    pixel id; otherwise threefry keys of (seed, sample, pixel). Chunks bound
+    the [chunk, records] intermediates; the last one is padded with the
+    first rays again (``keys[:pad]``) and cut off."""
+    n = width * height
+    pixel_ids = torch.arange(n, dtype=torch.int32, device=scene.background.device)
+    mega_seed = mega_seed_of(seed, sample_idx)
+    mega_active = (not differentiable and features.get("use_megakernel", False)
+                   and features.get("mega_sizes") is not None)
+    if mega_active or features.get("rng_impl") == "murmur":
+        cam_u = rng.murmur_uniforms(mega_seed, pixel_ids,
+                                    tuple(rng.CAMERA_CTR_BASE + k for k in range(5)))
+        keys = None if mega_active else pixel_ids
+        o, d, time = camera.generate_rays(scene.camera, width, height, sample_idx, sqrt_spp,
+                                          None, uniforms=cam_u)
+        if mega_active:
+            chunk_size = None  # B4 holds no [rays, records] intermediates
+    else:
+        keys = rng.pixel_sample_key(seed, pixel_ids, sample_idx)
+        o, d, time = camera.generate_rays(scene.camera, width, height, sample_idx, sqrt_spp,
+                                          keys)
+
+    def tracer(o, d, time, keys):
+        return trace_rays(scene, features, o, d, time, keys, max_depth,
+                          differentiable=differentiable, mega_seed=mega_seed)
+
+    if chunk_size is None or chunk_size >= n:
+        radiance = tracer(o, d, time, keys)
+    else:
+        pad = -n % chunk_size
+        if pad:
+            o = torch.nn.functional.pad(o, (0, 0, 0, pad))
+            d = torch.nn.functional.pad(d, (0, 0, 0, pad), value=1.0)
+            time = torch.nn.functional.pad(time, (0, pad))
+            keys = torch.cat([keys, keys[:pad]])
+        radiance = torch.cat([
+            tracer(o[i:i + chunk_size], d[i:i + chunk_size], time[i:i + chunk_size],
+                   keys[i:i + chunk_size])
+            for i in range(0, o.shape[0], chunk_size)])[:n]
+    return radiance.reshape(height, width, 3)
+
+
 def render_progressive(scene, features, width: int, height: int, sample0: int,
                        n_samples: int, seed: int, max_depth: int, sqrt_spp: int,
-                       packed=None, differentiable: bool = False):
-    """Accumulate ``n_samples`` consecutive progressive samples in one kernel
-    launch; returns the radiance sum [H, W, 3] on the scene's device.
-    ``packed`` (``pack_scene``) may be passed to reuse the table buffer.
+                       packed=None, differentiable: bool = False, chunk_size: int | None = None):
+    """Accumulate ``n_samples`` consecutive progressive samples; returns the
+    radiance sum [H, W, 3] on the scene's device.
+
+    With ``use_megakernel`` (the Renderer's kernel route; absent counts as
+    set) and kernel sizes: one kernel launch or wavefront pass. ``packed``
+    (``pack_scene``) may be passed to reuse the table buffer;
     ``differentiable=True`` packs the scene inside the graph and returns a
-    sum that autograd differentiates through the replay kernel."""
-    _check_kernel_features(features)
-    if packed is None or differentiable:
-        packed = pack_scene(scene, features)
-    return _render_batch_megakernel(scene, packed, features, width, height,
-                                    sample0, n_samples, seed, max_depth, sqrt_spp,
-                                    differentiable=differentiable)
+    sum that autograd differentiates through the replay kernel. Otherwise
+    the non-kernel path: a loop of ``render_sample``."""
+    if features.get("use_megakernel", True) and features.get("mega_sizes") is not None:
+        _check_kernel_features(features)
+        if packed is None or differentiable:
+            packed = pack_scene(scene, features)
+        return _render_batch_megakernel(scene, packed, features, width, height,
+                                        sample0, n_samples, seed, max_depth, sqrt_spp,
+                                        differentiable=differentiable)
+    acc = torch.zeros((height, width, 3), dtype=torch.float32, device=scene.background.device)
+    for i in range(int(n_samples)):
+        acc += render_sample(scene, features, width, height, sample0 + i, seed, max_depth,
+                             sqrt_spp, chunk_size, differentiable)
+    return acc

@@ -25,7 +25,8 @@ import torch
 PKG_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
-KERNELS = ("megakernel_v4", "wavefront_step", "megakernel_grad")
+KERNELS = ("megakernel_v4", "wavefront_step", "megakernel_grad", "intersect_kernel",
+           "megakernel_v3")
 # -fmad=false: no contraction of a*b+c into one FMA, so the kernel rounds
 # op for op as its plain PyTorch version does on the card (whose elementwise
 # ops are separate kernels); path-tracing near-ties otherwise flip paths.
@@ -129,8 +130,31 @@ def _bind_megakernel_grad(lib: ctypes.CDLL) -> None:
     lib.megakernel_grad_error_string.restype = ctypes.c_char_p
 
 
+def _bind_intersect_kernel(lib: ctypes.CDLL) -> None:
+    i, p = ctypes.c_int, ctypes.c_void_p
+    lib.intersect_kernel_launch.argtypes = [i, p, p, p, p, p, p, i, p, i, i, p, p, p]
+    lib.intersect_kernel_launch.restype = i
+    lib.intersect_kernel_error_string.argtypes = [i]
+    lib.intersect_kernel_error_string.restype = ctypes.c_char_p
+
+
+def _bind_megakernel_v3(lib: ctypes.CDLL) -> None:
+    i, p = ctypes.c_int, ctypes.c_void_p
+    lib.megakernel_v3_launch.argtypes = [i, p, p, i, i, i, i, i, i, p, p, i, i, i, i, i, i,
+                                         p, p]
+    lib.megakernel_v3_launch.restype = i
+    lib.megakernel_v3_smem_bytes.argtypes = [i] * 6
+    lib.megakernel_v3_smem_bytes.restype = i
+    for name in ("megakernel_v3_state_cols", "megakernel_v3_tile"):
+        getattr(lib, name).argtypes = []
+        getattr(lib, name).restype = i
+    lib.megakernel_v3_error_string.argtypes = [i]
+    lib.megakernel_v3_error_string.restype = ctypes.c_char_p
+
+
 _BINDERS = {"megakernel_v4": _bind_megakernel_v4, "wavefront_step": _bind_wavefront_step,
-            "megakernel_grad": _bind_megakernel_grad}
+            "megakernel_grad": _bind_megakernel_grad, "intersect_kernel": _bind_intersect_kernel,
+            "megakernel_v3": _bind_megakernel_v3}
 
 
 def load(name: str) -> ctypes.CDLL:
@@ -234,3 +258,56 @@ def launch_megakernel_grad(camv, seed: int, background, packed, g, d_camv, d_bg,
     if err:
         msg = lib.megakernel_grad_error_string(err).decode()
         raise RuntimeError(f"megakernel_grad launch failed: {msg} (cudaError {err})")
+
+
+def launch_intersect_kernel(o, d, time, t_min, t_max, sph, qd, out_t, out_code) -> None:
+    """Launch ``intersect_kernel`` writing ``out_t`` [N] f32 and ``out_code``
+    [N] int32; raises on a refused launch."""
+    device = _require_cuda(o=o, d=d, time=time, t_min=t_min, t_max=t_max, sph=sph, qd=qd,
+                           out_t=out_t)
+    n = out_t.numel()
+    if (out_code.dtype != torch.int32 or out_code.device != device
+            or not out_code.is_contiguous() or out_code.numel() != n):
+        raise ValueError("out_code must be a contiguous int32 CUDA tensor of N entries")
+    if o.numel() != 3 * n or d.numel() != 3 * n or any(x.numel() != n
+                                                       for x in (time, t_min, t_max)):
+        raise ValueError("ray columns must hold N (o, d: N x 3) floats")
+    lib = load("intersect_kernel")
+    stream = torch.cuda.current_stream(device).cuda_stream
+    err = lib.intersect_kernel_launch(
+        device.index, o.data_ptr(), d.data_ptr(), time.data_ptr(), t_min.data_ptr(),
+        t_max.data_ptr(), sph.data_ptr(), int(sph.shape[-1]), qd.data_ptr(),
+        int(qd.shape[-1]), int(n), out_t.data_ptr(), out_code.data_ptr(), stream)
+    if err:
+        msg = lib.intersect_kernel_error_string(err).decode()
+        raise RuntimeError(f"intersect_kernel launch failed: {msg} (cudaError {err})")
+
+
+def launch_megakernel_v3(background, packed, state, rid, radiance, *, seed_lane, min_alive,
+                         max_depth, sizes, checker_depth, has_noise) -> None:
+    """Launch one ``megakernel_v3`` pass: ``state`` [12, n] advanced in place,
+    ``rid`` [n] int32, this pass's radiance written to ``radiance`` [n, 3];
+    raises on a refused launch."""
+    device = _require_cuda(background=background, packed=packed, state=state,
+                           radiance=radiance)
+    lib = load("megakernel_v3")
+    n = rid.numel()
+    if state.dim() != 2 or tuple(state.shape) != (lib.megakernel_v3_state_cols(), n):
+        raise ValueError(f"state must be [{lib.megakernel_v3_state_cols()}, n], "
+                         f"got {tuple(state.shape)}")
+    if rid.dtype != torch.int32 or rid.device != device or not rid.is_contiguous():
+        raise ValueError("rid must be a contiguous int32 CUDA tensor")
+    if radiance.numel() != 3 * n or n % lib.megakernel_v3_tile():
+        raise ValueError(f"radiance must hold n x 3 floats and n be a multiple of "
+                         f"{lib.megakernel_v3_tile()}")
+    n_sph, n_quad, n_mat, n_tex, n_med, n_box = (int(x) for x in sizes)
+    _check_smem(lib.megakernel_v3_smem_bytes(n_sph, n_quad, n_mat, n_tex, n_med, n_box))
+    stream = torch.cuda.current_stream(device).cuda_stream
+    err = lib.megakernel_v3_launch(
+        device.index, background.data_ptr(), packed.data_ptr(), n_sph, n_quad, n_mat, n_tex,
+        n_med, n_box, state.data_ptr(), rid.data_ptr(), int(n), int(seed_lane),
+        int(min_alive), int(max_depth), int(checker_depth), int(bool(has_noise)),
+        radiance.data_ptr(), stream)
+    if err:
+        msg = lib.megakernel_v3_error_string(err).decode()
+        raise RuntimeError(f"megakernel_v3 launch failed: {msg} (cudaError {err})")

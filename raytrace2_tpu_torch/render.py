@@ -2,8 +2,22 @@
 
 The accumulator and frame count are the whole render state, as in the
 reference's RayTracer (src/cpu_raytrace/RayTracer.cpp:55-70). The device is
-always explicit: a CPU device runs the kernel's plain PyTorch version, a
-CUDA device the Hopper kernel; nothing falls back from one to the other.
+always explicit: a CPU device runs the kernels' plain PyTorch versions, a
+CUDA device the Hopper kernels; nothing falls back from one to the other.
+
+Routing follows the JAX ``Renderer`` (render.py:100-134): ``auto`` takes the
+kernel path (v4, or the sorted wavefront above 256 records) when the scene
+has kernel sizes and at most ``max_records`` records, and the non-kernel
+path otherwise (ellipsoids, bigger scenes); ``mega`` and ``wavefront`` take
+the kernel path, except for an ellipsoid scene, which only the non-kernel
+path renders; ``xla`` takes the non-kernel path with the dense closest hit
+and ``pallas`` with the fused intersect kernel B5.
+
+One documented difference: on ``xla`` (and ``auto`` off the kernel path) the
+JAX package switches its sphere sweep to a BVH at 256 or more active
+spheres; the port sweeps densely there, which is JAX's own ``xla`` route
+below 256 spheres and finds the same closest hits. The BVH (``bvh``) is not
+ported yet.
 """
 
 from __future__ import annotations
@@ -20,13 +34,16 @@ from raytrace2_tpu_torch.scene import schema
 # Backends of the JAX package that the port does not have yet, and the
 # ROADMAP item that brings each.
 _NOT_PORTED = {
-    "xla": "ROADMAP queue A item 12 (non-kernel path)",
-    "bvh": "ROADMAP queue A item 12 (non-kernel path, sphere BVH)",
-    "pallas": "ROADMAP queue B item 2 (kernel B5, the fused intersect kernel)",
+    "bvh": "ROADMAP queue A item 12, the sphere BVH",
 }
+BACKENDS = ("auto", "mega", "wavefront", "xla", "pallas")
 # Records whose tables the kernel path takes (JAX megakernel.MAX_SMEM_RECORDS);
-# the JAX package sends larger scenes to its XLA path.
+# larger scenes take the non-kernel path.
 MAX_SMEM_RECORDS = 4096
+# Rays per chunk of the non-kernel path (JAX Renderer.chunk_size), and the
+# smaller chunk it takes above 1,024 records.
+CHUNK_SIZE = 65536
+CHUNK_SIZE_LARGE = 16384
 
 
 @dataclasses.dataclass
@@ -43,13 +60,15 @@ def init_state(width: int, height: int, device) -> RenderState:
 
 
 def render_step(scene, features, state: RenderState, seed: int, n_samples: int = 1,
-                *, width, height, max_depth, sqrt_spp, packed=None) -> RenderState:
-    """``n_samples`` progressive samples for all pixels in one launch. The
-    accumulator is updated in place: this stands in for the JAX package's
-    buffer donation."""
+                *, width, height, max_depth, sqrt_spp, packed=None,
+                chunk_size=None) -> RenderState:
+    """``n_samples`` progressive samples for all pixels: one launch on the
+    kernel path, a loop of samples on the non-kernel path. The accumulator
+    is updated in place: this stands in for the JAX package's buffer
+    donation."""
     radiance = integrator.render_progressive(
         scene, features, width, height, state.frame_idx, n_samples, seed,
-        max_depth, sqrt_spp, packed=packed)
+        max_depth, sqrt_spp, packed=packed, chunk_size=chunk_size)
     state.accum += radiance
     state.frame_idx += int(n_samples)
     return state
@@ -88,12 +107,14 @@ class Renderer:
     num_samples: int = 1
     max_depth: int = 50
     seed: int = 0
-    # 'auto' | 'mega' take the kernel path (v4, or the sorted wavefront above
-    # 256 records); 'wavefront' forces the wavefront for any scene.
+    # 'auto' | 'mega' | 'wavefront' | 'xla' | 'pallas' (see the module doc).
     backend: str = "auto"
     device: str | torch.device = "cuda"
     # Most sweep records the kernel path takes (default MAX_SMEM_RECORDS).
     max_records: int | None = None
+    # Rays per chunk on the non-kernel path (CHUNK_SIZE; CHUNK_SIZE_LARGE
+    # above 1,024 records when left at the default).
+    chunk_size: int | None = CHUNK_SIZE
     _features: dict = dataclasses.field(default_factory=dict)
     _state: RenderState | None = None
     _packed: torch.Tensor | None = None
@@ -102,29 +123,47 @@ class Renderer:
         if self.backend in _NOT_PORTED:
             raise NotImplementedError(
                 f"backend {self.backend!r} is not ported yet: {_NOT_PORTED[self.backend]}")
-        if self.backend not in ("auto", "mega", "wavefront"):
+        if self.backend not in BACKENDS:
             raise ValueError(f"unknown backend {self.backend!r}")
         self.device = resolve_device(self.device)
-        self._features = self.scene.features()
+        features = self.scene.features()
         ceiling = MAX_SMEM_RECORDS if self.max_records is None else self.max_records
-        n_records = integrator.n_records(self._features)
-        if n_records > ceiling:
+        n_records = integrator.n_records(features)
+        has_sizes = features["mega_sizes"] is not None
+        eligible = has_sizes and n_records <= ceiling
+        if self.backend in ("mega", "wavefront") and has_sizes and n_records > ceiling:
             raise NotImplementedError(
-                f"scene has {n_records} sweep records, above the kernel path's "
-                f"{ceiling}: the non-kernel path is not ported yet (ROADMAP queue A "
-                "item 12)")
+                f"scene has {n_records} sweep records, above the kernel path's {ceiling} "
+                f"(its tables live in shared memory): use backend 'auto', 'xla' or 'pallas'")
+        features["use_megakernel"] = (self.backend in ("mega", "wavefront") and has_sizes) \
+            or (self.backend == "auto" and eligible)
+        features["use_pallas"] = self.backend == "pallas"
         if self.backend == "wavefront":
-            self._features["mega_wavefront"] = True
+            features["mega_wavefront"] = True
+        if self.chunk_size == CHUNK_SIZE and n_records > 1024:
+            self.chunk_size = CHUNK_SIZE_LARGE
+        self._features = features
         self.scene = schema.to_device(self.scene, self.device)
-        self._packed = integrator.pack_scene(self.scene, self._features)
+        if features["use_megakernel"]:
+            self._packed = integrator.pack_scene(self.scene, features)
         self.reset()
 
     @property
-    def kernel(self) -> str:
-        """The kernel this renderer's launches run: "wavefront_step" or
-        "megakernel_v4"."""
-        return "wavefront_step" if integrator.mega_schedule(self._features)[3] \
-            else "megakernel_v4"
+    def route(self) -> str:
+        """"kernel" (v4 or the wavefront), "pallas" (the non-kernel path with
+        B5) or "xla" (the non-kernel path, dense closest hit)."""
+        if self._features["use_megakernel"]:
+            return "kernel"
+        return "pallas" if self._features["use_pallas"] else "xla"
+
+    @property
+    def kernel(self) -> str | None:
+        """The kernel this renderer's launches run: "megakernel_v4",
+        "wavefront_step", "intersect_kernel", or None on the dense route."""
+        if self.route == "kernel":
+            return "wavefront_step" if integrator.mega_schedule(self._features)[3] \
+                else "megakernel_v4"
+        return "intersect_kernel" if self.route == "pallas" else None
 
     @property
     def sqrt_spp(self) -> int:
@@ -135,10 +174,13 @@ class Renderer:
         self._state = init_state(self.width, self.height, self.device)
 
     def update(self, n_samples: int = 1) -> None:
+        chunk = self.chunk_size
+        if chunk is not None and chunk >= self.width * self.height:
+            chunk = None
         self._state = render_step(
             self.scene, self._features, self._state, self.seed, n_samples,
             width=self.width, height=self.height, max_depth=self.max_depth,
-            sqrt_spp=self.sqrt_spp, packed=self._packed)
+            sqrt_spp=self.sqrt_spp, packed=self._packed, chunk_size=chunk)
 
     def render(self, num_samples: int | None = None, batch: int = 1) -> np.ndarray:
         remaining = num_samples or self.num_samples

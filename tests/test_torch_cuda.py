@@ -1,5 +1,6 @@
-"""The Hopper kernels (v4, the wavefront step, the gradient replay) against
-their plain PyTorch versions and each other, on the card. Skipped where
+"""The Hopper kernels (v4, the wavefront step, the gradient replay, the fused
+intersect kernel B5, the v3 state-passing kernel B4) against their plain
+PyTorch versions and each other, on the card. Skipped where
 torch.cuda.is_available() is false. Run on a machine with the card:
 python -m pytest tests/test_torch_cuda.py -q --noconftest"""
 
@@ -11,9 +12,11 @@ import torch
 
 from raytrace2_tpu_torch import grad
 from raytrace2_tpu_torch.io import compare
-from raytrace2_tpu_torch.ops import camera
+from raytrace2_tpu_torch.ops import camera, integrator, rng
+from raytrace2_tpu_torch.ops.kernels import intersect_kernel as pk
 from raytrace2_tpu_torch.ops.kernels import megakernel as mk
 from raytrace2_tpu_torch.ops.kernels import megakernel_grad as mkg
+from raytrace2_tpu_torch.ops.kernels import megakernel_v3 as mk3
 from raytrace2_tpu_torch.ops.kernels import wavefront as wf
 from raytrace2_tpu_torch.render import Renderer
 from raytrace2_tpu_torch.scene import loader, schema
@@ -186,3 +189,91 @@ def test_value_and_grad_on_card(tmp_path, cuda, monkeypatch):
                  (g.spheres.center0, g_p.spheres.center0), (g.camera.center, g_p.camera.center)):
         assert torch.isfinite(a).all()
         assert float((a - b).abs().max()) <= 1e-3 * float(b.abs().max()) + 1e-6
+
+
+def _b5_rays(scene, size, device, seed=3):
+    """Camera rays of a ``size``² image, then the same number of rays from
+    seeded points inside the camera's view toward seeded directions (the
+    later bounces' kind)."""
+    keys = rng.pixel_sample_key(0, torch.arange(size * size, device=device), 0)
+    o, d, tm = camera.generate_rays(scene.camera, size, size, 0, 1, keys)
+    rs = np.random.RandomState(seed)
+    n = size * size
+    o2 = torch.from_numpy(rs.uniform(-1, 1, (n, 3)).astype(np.float32)).to(device) * 3.0 + \
+        o[:1] * 0.5
+    d2 = torch.from_numpy(rs.normal(size=(n, 3)).astype(np.float32)).to(device)
+    t2 = torch.from_numpy(rs.uniform(0, 1, n).astype(np.float32)).to(device)
+    t_min = torch.full((2 * n,), 1e-3, device=device)
+    t_max = torch.full((2 * n,), 3e38, device=device)
+    return torch.cat([o, o2]), torch.cat([d, d2]), torch.cat([tm, t2]), t_min, t_max
+
+
+@pytest.mark.parametrize("name,size", [("book2", 96), ("cornell", 64), ("feature", 48)])
+def test_intersect_kernel_matches_plain(tmp_path, cuda, name, size):
+    """B5 against its plain version on the same rays: t bitwise, codes equal
+    (both run the Pallas kernel's arithmetic without contraction)."""
+    scene = schema.to_device(loader.load_scene(write_scene(tmp_path, name))[0], cuda)
+    tables = pk.pack_scene(scene.spheres, scene.quads)
+    rays = _b5_rays(scene, size, cuda)
+    launches = pk.LAUNCHES
+    t, code = pk.closest_hit(*rays, *tables)
+    torch.cuda.synchronize()
+    assert pk.LAUNCHES == launches + 1
+    t_p, code_p = pk.closest_hit_plain(*rays, *tables)
+    assert int((code >= 0).sum()) > 0
+    assert torch.equal(code, code_p)
+    assert torch.equal(t.view(torch.int32), t_p.view(torch.int32))
+
+
+@pytest.mark.parametrize("min_alive", [0, mk3.TILE_R // 16])
+def test_megakernel_v3_matches_plain(tmp_path, cuda, min_alive):
+    """One B4 pass against its plain version on Cornell camera rays (64², a
+    few tiles padded): radiance and every state column bitwise."""
+    host, _ = loader.load_scene(write_scene(tmp_path, "cornell"))
+    feats = host.features()
+    scene = schema.to_device(host, cuda)
+    sizes = tuple(feats["mega_sizes"])
+    u = rng.murmur_uniforms(integrator.mega_seed_of(0, 0),
+                            torch.arange(64 * 64, device=cuda), tuple(range(5)))
+    o, d, tm = camera.generate_rays(scene.camera, 64, 64, 0, 1, None, uniforms=u)
+    state, rid = mk3.init_state(o, d, tm)
+    args = (state, rid, integrator.mega_seed_of(0, 0), min_alive, mk.pack_buffer(scene, sizes),
+            scene.background.float())
+    kw = dict(max_depth=50, sizes=sizes, has_checker=feats["has_checker"],
+              has_noise=feats["has_noise"])
+    launches = mk3.LAUNCHES
+    rad, new = mk3.megakernel_pass(*args, **kw)
+    torch.cuda.synchronize()
+    assert mk3.LAUNCHES == launches + 1
+    rad_p, new_p = mk3.pass_plain(*args, **kw)
+    assert torch.equal(rad, rad_p) and torch.equal(new, new_p)
+    live = (new[mk3.COL["alive"]] > 0).view(-1, mk3.TILE_R).sum(1)
+    assert int(live.max()) <= min_alive
+
+
+def test_pallas_and_v3_routes_on_card(tmp_path, cuda):
+    """Renderer(backend="pallas") launches B5 on the card and matches the
+    dense route; render_sample with use_megakernel launches B4 and matches
+    the same call driven by B4's plain pass."""
+    host, _ = loader.load_scene(write_scene(tmp_path, "cornell"))
+    launches = pk.LAUNCHES
+    pallas = Renderer(host, 32, 24, num_samples=2, max_depth=6, backend="pallas",
+                      device=cuda).render(batch=2)
+    assert pk.LAUNCHES > launches
+    dense = Renderer(host, 32, 24, num_samples=2, max_depth=6, backend="xla",
+                     device=cuda).render(batch=2)
+    flipped = np.abs(pallas - dense).max(-1) > 1e-4
+    assert flipped.mean() <= 0.005 and abs(pallas.mean() - dense.mean()) < 1e-3
+
+    feats = dict(host.features(), use_megakernel=True)
+    scene = schema.to_device(host, cuda)
+    launches = mk3.LAUNCHES
+    img = integrator.render_sample(scene, feats, 40, 30, 0, 0, 8, 1)
+    assert mk3.LAUNCHES > launches
+    orig = mk3.megakernel_pass
+    try:
+        mk3.megakernel_pass = mk3.pass_plain
+        plain = integrator.render_sample(scene, feats, 40, 30, 0, 0, 8, 1)
+    finally:
+        mk3.megakernel_pass = orig
+    assert torch.equal(img, plain)

@@ -123,26 +123,29 @@ def test_cli_errors(tmp_path, monkeypatch):
     assert app.main([str(tmp_path / "missing.json"), "--device", "cpu", "--quiet"]) == 1
     assert app.main([write_scene(tmp_path, "cornell"), "--device", "cpu", "--quiet",
                      "--live"]) == 2
-    # Above the kernel path's record ceiling (the non-kernel path is not ported).
-    assert app.main([_many_spheres(tmp_path, MAX_SMEM_RECORDS + 1), "--device", "cpu",
-                     "--quiet", "--width", "4", "--height", "4"]) == 1
+    # The kernel path forced above its record ceiling, and the sphere BVH.
+    huge = _many_spheres(tmp_path, MAX_SMEM_RECORDS + 1)
+    for backend in ("mega", "bvh"):
+        assert app.main([huge, "--device", "cpu", "--quiet", "--width", "4", "--height", "4",
+                         "--backend", backend]) == 1
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert app.main([write_scene(tmp_path, "cornell"), "--quiet"]) == 1
 
 
 def test_renderer_refuses_what_is_not_ported(tmp_path, monkeypatch):
+    """The sphere BVH, the kernel path forced above its record ceiling (its
+    tables live in shared memory) and table noise on the kernel path raise;
+    scenes the kernel path cannot take go to the non-kernel path instead."""
     scene, _ = loader.load_scene(write_scene(tmp_path, "cornell"))
-    for backend in ("xla", "bvh", "pallas"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            Renderer(scene, 8, 8, backend=backend, device="cpu")
-    # More records than the kernel path takes: the JAX package's XLA path.
+    with pytest.raises(NotImplementedError, match="ROADMAP queue A item 12, the sphere BVH"):
+        Renderer(scene, 8, 8, backend="bvh", device="cpu")
     huge, _ = loader.load_scene(_many_spheres(tmp_path, MAX_SMEM_RECORDS + 1))
-    with pytest.raises(NotImplementedError, match="queue A item 12"):
-        Renderer(huge, 8, 8, device="cpu")
+    assert Renderer(huge, 8, 8, device="cpu").route == "xla"
     big, _ = loader.load_scene(write_scene(tmp_path, "book2"))
-    with pytest.raises(NotImplementedError, match="queue A item 12"):
-        Renderer(big, 8, 8, device="cpu", max_records=1000)
-    # Table Perlin noise.
+    for backend in ("mega", "wavefront"):
+        with pytest.raises(NotImplementedError, match="shared memory"):
+            Renderer(big, 8, 8, device="cpu", max_records=1000, backend=backend)
+    # Table Perlin noise on the kernel path.
     feats = dict(big.features(), noise_impl="table")
     with pytest.raises(NotImplementedError, match="table"):
         integrator.render_progressive(schema.to_device(big, "cpu"), feats, 4, 4, 0, 1, 0,
@@ -153,8 +156,7 @@ def test_renderer_refuses_what_is_not_ported(tmp_path, monkeypatch):
         "primitives": [{"type": "sphere", "radius": 1, "material": 0}],
         "scene": [{"transform": {"scale": [1, 2, 1]}, "primitive": 0}]}))
     ell, _ = loader.load_scene(str(p))
-    with pytest.raises(NotImplementedError, match="non-kernel"):
-        Renderer(ell, 8, 8, device="cpu")
+    assert Renderer(ell, 8, 8, device="cpu", backend="mega").route == "xla"
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         Renderer(scene, 8, 8, device="cuda")

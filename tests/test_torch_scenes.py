@@ -161,12 +161,37 @@ GRAD_SCENES = {
     },
 }
 
+def ellipsoid_scene_json() -> dict:
+    """The scene of tests/test_ellipsoid.py (a sphere under a non-uniform
+    scale and a rotation, lit by a quad under a sky) with a ground quad, so
+    that paths bounce. Only the non-kernel path renders it."""
+    return {
+        "background_color": [0.5, 0.6, 0.8],
+        "camera": {"fov": 50, "center": [0, 1, 6], "look_at": [0, 0.5, 0]},
+        "materials": [{"type": "lambertian", "albedo": [0.7, 0.3, 0.3]},
+                      {"type": "diffuse_light", "albedo": [4, 4, 4]},
+                      {"type": "lambertian", "albedo": [0.5, 0.5, 0.5]}],
+        "primitives": [
+            {"type": "sphere", "center": [0, 0.5, 0], "radius": 1.0, "material": 0},
+            {"type": "quad", "q": [-1, 3, -1], "u": [2, 0, 0], "v": [0, 0, 2], "material": 1},
+            {"type": "quad", "q": [-10, -0.5, -10], "u": [20, 0, 0], "v": [0, 0, 20],
+             "material": 2},
+        ],
+        "scene": [
+            {"primitive": 0, "transform": {"scale": [1.0, 2.0, 0.5], "rotation": [30, 0, 1, 0]}},
+            {"primitive": 1},
+            {"primitive": 2},
+        ],
+    }
+
+
 SCENES = {
     "cornell": lambda: make_scene.cornell_box_original().to_json(),
     "cornell_volume": lambda: make_scene.cornell_box_volume().to_json(),
     "book1": book1_final_json,
     "book2": lambda: make_scene.book2_final(rng_seed=0).to_json(),
     "feature": feature_scene_json,
+    "ellipsoid": ellipsoid_scene_json,
     **{f"grad_{k}": (lambda v=v: v) for k, v in GRAD_SCENES.items()},
 }
 
