@@ -18,25 +18,31 @@ Phases, each printed on its own line:
      the wavefront on Cornell 600x600 4 spp depth 8 (forced) and book 2
      64x64 2 spp depth 4, driven by the kernel and by its plain step; the
      wavefront's step at its main path's launch shapes (book 2 600x600,
-     depth 50, 6-sample batch: a K=2 launch and a K=16 tail launch),
-     kernel vs plain step on the same captured state, timed; the wavefront
-     bitwise equal to v4 on book 2 600x600 16 spp depth 50, both timed; and
-     where a book-2 batch's time goes (kernel, sort, runnable counts, host);
+     depth 50, 6-sample batch: a K=2 launch and a K=16 tail launch) bitwise
+     against the plain step on the same captured state, timed with the
+     cluster skip and over the flat tables in turns, its bound from the
+     records and cluster boxes the plain step tested; where a book-2 batch's
+     time goes (kernel, sort, runnable counts, host); v4 (block-tiled
+     layout, wave_frac 0.5) bitwise equal to the wavefront on book 2 600x600
+     16 spp depth 50, with the skip and flat, timed in turns, and the skip's
+     image against the flat sweep's (at most 0.01 % of pixels: exact ties);
   5. the v4 main path through the CLI entry (app.main): Cornell 600x600,
      depth 50, 64 spp, PNG written, launch counts reset before and read
      after, mean linear radiance checked, Mpaths/s reported;
   6. the wavefront main path through app.main with the default backend:
      book 2 600x600, depth 50, 64 spp; wavefront launches and sorts > 0 and
      no v4 launch, PNG written, mean linear radiance checked against the
-     16-spp render of phase 4;
+     16-spp render of phase 4; then the same run with and without the
+     cluster skip in turns;
   7. the gradient kernel (B3) vs its plain PyTorch version (the replay
      under torch.autograd), same inputs and radiance cotangent, gate
      max|d| <= 1e-3 max|g_plain| + 1e-6 per leaf group (camv, background,
      each table family): the three gradient-test scenes at 64x64, 2 spp,
-     depth 8, and Cornell 600x600 depth 50 at 2 spp (lanes chunked), where
-     both are timed and the replayed bounces must be the plain pre-pass's;
-     then B3 alone at the main path's launch (Cornell 600x600, depth 50,
-     64 spp), timed with CUDA events;
+     depth 8, the noise scene with table noise too, and Cornell 600x600
+     depth 50 at 2 spp (lanes chunked), where both are timed and the
+     replayed bounces must be the plain pre-pass's; then B3 alone at the
+     main path's launch (Cornell 600x600, depth 50, 64 spp), timed with CUDA
+     events;
   8. the gradient main path through grad.value_and_grad_scene: Cornell
      600x600, depth 50, 64 spp, sqrt_spp 2, loss = mean (the JAX bench's
      cornell600_fwdbwd_d50_paths_per_sec, with the forward/backward split);
@@ -51,16 +57,29 @@ Phases, each printed on its own line:
  11. the v3 state-passing kernel B4 vs its plain version, bitwise, on one
      pass of Cornell 600x600 depth 50 camera rays, timed, bound;
  12. the non-kernel main paths: app.main --backend pallas on Cornell
-     600x600 16 spp and book 2 600x600 4 spp (B5 launches > 0, no other
+     600x600 4 spp and book 2 600x600 1 spp (B5 launches > 0, no other
      kernel, means in their bands), with where a pallas Cornell sample
      spends its time; the ellipsoid scene through app.main --backend auto
      (the dense route, no kernel), and at 64x64 on the card against the
      CPU; integrator.render_sample with use_megakernel (B4) on Cornell
      600x600, 16 samples, depth 50, its mean against v4's;
- 13. one JSON line describing each kernel, with its bound (f32 operations
-     counted from csrc/path_common.cuh, csrc/grad_adjoint.cuh and
-     csrc/intersect_kernel.cu for the work this run's data took, or bytes
-     moved, over the card's peak rates).
+ 13. B1's options against the plain versions on book 2: v4 on the block
+     layout with wave_frac 0.5 (600x600, 2 spp, depth 50) bitwise, timed,
+     bound from the tests the plain run counted; one B4 pass of its camera
+     rays bitwise; B3 (64x64, 4 spp, depth 50) within 1e-3 of the largest
+     cotangent with the same replayed bounces; table noise (noise_impl
+     "table", 200x200, 2 spp) in v4 and in the wavefront's K=2 and K=16
+     launches bitwise;
+ 14. this slice's main paths, launch counts reset before each and read
+     after: v4 forced (mega_wavefront=False) through
+     integrator.render_progressive on book 2 600x600 16 spp, bitwise phase
+     4's image; table noise through render_progressive (the wavefront) and
+     through grad.value_and_grad_scene (wavefront + B3), book 2 600x600;
+ 15. one JSON line describing each kernel, with the options it carries
+     (status) and its bound (f32 operations counted from
+     csrc/path_common.cuh, csrc/grad_adjoint.cuh and csrc/intersect_kernel.cu
+     for the work this run's data took, or bytes moved, over the card's
+     peak rates).
 The last line is {"ok": true, "device": {...}}. Any failure exits non-zero
 before printing it, as does a machine without CUDA or a directory without
 the package.
@@ -99,6 +118,10 @@ PEAK_BYTES = 3.35e12
 # selects and the camera ray are not counted, so the bound is a low one.
 OPS_PER_RECORD = {"sph": 35, "quad": 46, "box": 28, "med": 85}
 OPS_SHADE = 120
+# f32 operations of one slab test of a cluster's or supercluster's AABB
+# (could_hit in csrc/path_common.cuh: 6 sub, 6 mul, 6 min/max per axis, 4 to
+# combine, 1 max with t_min, 2 compares).
+OPS_AABB = 25
 # The gradient kernel replays each bounce after its pre-pass (the forward's
 # sweep and shade): the winner's record test, the shade again, and the
 # adjoint — 60 f32 operations for a Lambertian quad hit, the cheapest case,
@@ -136,6 +159,30 @@ def check(cond: bool, msg: str) -> None:
         fail(msg)
 
 
+@contextlib.contextmanager
+def flat_sweep():
+    """Inside: every family sweeps flat, in record order (the cluster tables
+    are left out of the packed buffer and the kernels' counts), the sweep
+    the port ran before the cluster skip. For A/B timings and the image
+    check only; no user-facing option selects it."""
+    from raytrace2_tpu_torch.ops.kernels import megakernel as mk
+
+    orig = mk.hier_flags
+    mk.hier_flags = lambda sizes: (False, False)
+    try:
+        yield
+    finally:
+        mk.hier_flags = orig
+
+
+def sweep_ops(stats) -> int:
+    """f32 operations of the bounces a plain run counted (``stats`` of
+    megakernel.make_bounce): each record test by family, each AABB slab
+    test, and the shading of each bounce."""
+    return (sum(stats[f] * OPS_PER_RECORD[f] for f in OPS_PER_RECORD)
+            + stats["aabb"] * OPS_AABB + stats["bounces"] * OPS_SHADE)
+
+
 def main() -> None:
     try:
         import numpy as np
@@ -155,7 +202,7 @@ def main() -> None:
 
         from raytrace2_tpu_torch import app, grad
         from raytrace2_tpu_torch.io import compare, image
-        from raytrace2_tpu_torch.ops import camera
+        from raytrace2_tpu_torch.ops import camera, integrator
         from raytrace2_tpu_torch.ops.kernels import build
         from raytrace2_tpu_torch.ops.kernels import megakernel as mk
         from raytrace2_tpu_torch.ops.kernels import megakernel_grad as mkg
@@ -237,7 +284,10 @@ def main() -> None:
                 f"max relative error {err:.3g} (rtol 1e-5) ok")
 
     # ---- phase 4: kernel vs plain on the card --------------------------------
-    def prepare(path, w, h, spp, depth):
+    def prepare(path, w, h, spp, depth, table=False):
+        """Inputs of a kernel call at w x h, spp samples: (camv, seed, packed,
+        background) and the keywords; with ``table`` the ntab operand of
+        table noise."""
         scene, _ = loader.load_scene(path)
         feats = scene.features()
         sizes = tuple(feats["mega_sizes"])
@@ -246,6 +296,8 @@ def main() -> None:
         camv = camera.make_camv(scene.camera, w, h, 0, spp, max(int(spp ** 0.5), 1), 0).to(dev)
         kw = dict(n_pix=w * h, max_depth=depth, sizes=sizes,
                   has_checker=feats["has_checker"], has_noise=feats["has_noise"])
+        if table:
+            kw["ntab"] = integrator.noise_tables(ds, dict(feats, noise_impl="table"))
         return (camv, 0, packed, ds.background), kw
 
     def timed(fn, reps):
@@ -318,16 +370,6 @@ def main() -> None:
             f"PSNR {psnr:.2f} dB, max abs err {max_err:.3g}; whole batch with the kernel "
             f"{ms:.1f} ms, with the plain step {plain_ms:.1f} ms ({card})")
 
-    def count_bounces(state, camv, seed, packed, bg, k, kw):
-        """Bounces the next k steps of ``state`` take, counted by single
-        plain steps: the slots that can run before each step."""
-        state, total = state.clone(), 0
-        n_samples = float(camv[22])
-        for _ in range(k):
-            total += wf.runnable_count(state, n_samples)
-            state = wf.step_plain(state, camv, seed, packed, bg, k_bounces=1, **kw)
-        return total
-
     def ops_per_bounce(sizes):
         n_sph, n_quad, _, _, n_med, n_box = sizes
         return (n_sph * OPS_PER_RECORD["sph"] + n_quad * OPS_PER_RECORD["quad"]
@@ -391,7 +433,7 @@ def main() -> None:
             *args, n_rays=n_rays,
             step=timed(capture_step, lambda k: f"step{min(k['k_bounces'], 16)}"), **kw)
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
+        batch_ms = (time.perf_counter() - t0) * 1e3
     finally:
         wf.sort_state, wf.runnable_count = orig_sort, orig_count
     dev_ms = {b: sum(s_.elapsed_time(e_) for s_, e_ in v) for b, v in ev.items()}
@@ -399,74 +441,136 @@ def main() -> None:
     busy = sum(dev_ms.values())
     say(f"phase 4 where a book-2 batch goes (600x600, 6 spp, depth 50, {n2} K=2 + {n16} "
         f"K=16 launches, {len(ev['sort'])} sorts, {len(ev['count'])} runnable counts "
-        f"read on the host): wall {wall_ms:.2f} ms; kernel {dev_ms['step2']:.2f} ms "
+        f"read on the host): wall {batch_ms:.2f} ms; kernel {dev_ms['step2']:.2f} ms "
         f"(K=2) + {dev_ms['step16']:.2f} ms (K=16); keys+argsort+gather "
         f"{dev_ms['sort']:.2f} ms; runnable counts {dev_ms['count']:.2f} ms (device time "
-        f"to each read); host gaps {wall_ms - busy:.2f} ms; per launch K=2 "
+        f"to each read); host gaps {batch_ms - busy:.2f} ms; per launch K=2 "
         f"{dev_ms['step2'] / max(n2, 1):.4f} ms, K=16 {dev_ms['step16'] / max(n16, 1):.4f} ms "
         f"({card})")
     check("k2" in captured and "k16" in captured, "no K=2 or K=16 launch to capture")
 
-    wf_launch = {}
-    for tag, k in (("k2", wf.K_BOUNCES), ("k16", wf.TAIL_K)):
-        st0 = captured[tag]
-        reps, ms = 5, 0.0
+    # The same launches over the skip-free (flat) tables, timed in turns with
+    # the cluster skip's (skip, flat, flat, skip), on the same captured states.
+    with flat_sweep():
+        args_flat, _ = prepare(book2, 600, 600, 6, 50)
+
+    def launch_ms(st0, a, k, reps=3):
+        ms = 0.0
         for _ in range(reps):
             st = st0.clone()
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
-            wf.wavefront_step(st, *args, k_bounces=k, **kw)
+            wf.wavefront_step(st, *a, k_bounces=k, **kw)
             end.record()
             torch.cuda.synchronize()
             ms += start.elapsed_time(end) / reps
+        return st, ms
+
+    wf_launch = {}
+    for tag, k in (("k2", wf.K_BOUNCES), ("k16", wf.TAIL_K)):
+        st0 = captured[tag]
+        times = {"skip": [], "flat": []}
+        for which in ("skip", "flat", "flat", "skip"):
+            if which == "flat":
+                with flat_sweep():
+                    st_flat, t = launch_ms(st0, args_flat, k)
+            else:
+                st, t = launch_ms(st0, args, k)
+            times[which].append(t)
+        ms = sum(times["skip"]) / 2
+        flat_ms = sum(times["flat"]) / 2
+        stats = {}
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        sp = wf.step_plain(st0.clone(), *args, k_bounces=k, **kw)
+        sp = wf.step_plain(st0.clone(), *args, k_bounces=k, stats=stats, **kw)
         torch.cuda.synchronize()
         plain_ms = (time.perf_counter() - t0) * 1e3
-        rad_k = st[wf.COL["rr"]:wf.COL["rb"] + 1].t().cpu().numpy()
-        rad_p = sp[wf.COL["rr"]:wf.COL["rb"] + 1].t().cpu().numpy()
-        scale = max(float(np.abs(rad_p).max()), 1.0)
-        d_mean, psnr, _ = gate(f"wavefront {tag} launch", rad_k / scale, rad_p / scale)
         max_err = float((st - sp).abs().max())
         n_diff = int(((st != sp).any(0)).sum())
-        bounces = count_bounces(st0, args[0], args[1], args[2], args[3], k, kw)
-        ops = bounces * ops_per_bounce(kw["sizes"])
+        check(n_diff == 0, f"wavefront {tag} launch: {n_diff} slots differ from the plain step "
+                           f"(max abs err {max_err:.3g})")
+        n_flat_diff = int(((st != st_flat).any(0)).sum())
+        check(n_flat_diff <= 1e-4 * n_rays, f"wavefront {tag} launch: the flat sweep's state "
+                                            f"differs in {n_flat_diff} slots")
+        bounces = stats["bounces"]
+        ops = sweep_ops(stats)
+        flat_ops = bounces * ops_per_bounce(kw["sizes"])
         nbytes = 2 * 17 * 4 * n_rays + args[2].numel() * 4
         bound_ms = max(ops / PEAK_F32_OPS, nbytes / PEAK_BYTES) * 1e3
         bound_by = "operations" if ops / PEAK_F32_OPS >= nbytes / PEAK_BYTES else "bytes"
         wf_launch[tag] = dict(ms=ms, plain_ms=plain_ms, max_abs_err=max_err,
-                              bound_ms=bound_ms, bound_by=bound_by)
+                              bound_ms=bound_ms, bound_by=bound_by, flat_ms=flat_ms,
+                              times_skip=times["skip"], times_flat=times["flat"],
+                              aabb_per_bounce=stats["aabb"] / max(bounces, 1),
+                              sph_per_bounce=stats["sph"] / max(bounces, 1),
+                              box_per_bounce=stats["box"] / max(bounces, 1),
+                              flat_bound_ms=max(flat_ops / PEAK_F32_OPS,
+                                                nbytes / PEAK_BYTES) * 1e3)
         say(f"phase 4 wavefront {tag} launch at the main-path shape (book2 600x600, "
-            f"{n_rays} slots): kernel {ms:.4f} ms (mean of {reps}), plain step "
-            f"{plain_ms:.1f} ms; state max abs err {max_err:.3g}, slots differing "
-            f"{n_diff}; radiance |dmean| {d_mean:.3g}, PSNR {psnr:.2f} dB; {bounces} "
-            f"bounces x {ops_per_bounce(kw['sizes'])} f32 ops, {nbytes} B -> bound "
-            f"{bound_ms:.4f} ms by {bound_by} ({card})")
+            f"{n_rays} slots): kernel {ms:.4f} ms with the cluster skip "
+            f"({'/'.join(f'{t:.4f}' for t in times['skip'])}), {flat_ms:.4f} ms flat "
+            f"({'/'.join(f'{t:.4f}' for t in times['flat'])}; in turns skip, flat, flat, "
+            f"skip), plain step {plain_ms:.1f} ms; state bitwise equal to the plain step's, "
+            f"{n_flat_diff} slots differ from the flat sweep's; {bounces} bounces, per bounce "
+            f"{stats['aabb'] / max(bounces, 1):.2f} AABB slab tests, "
+            f"{stats['sph'] / max(bounces, 1):.2f} sphere and "
+            f"{stats['box'] / max(bounces, 1):.2f} box record tests (flat: {kw['sizes'][0]} "
+            f"and {kw['sizes'][5]}) -> {ops:.4g} f32 ops, {nbytes} B -> bound "
+            f"{bound_ms:.4f} ms by {bound_by} (the flat sweep's count: "
+            f"{wf_launch[tag]['flat_bound_ms']:.4f} ms) ({card})")
 
-    # Wavefront vs v4 on book 2, bitwise, timed in turns (v4, wf, wf, v4).
-    args, kw = prepare(book2, 600, 600, 16, 50)
-    n_pix = kw.pop("n_pix")
-    t_v4, t_wf, imgs = [], [], {}
-    for which in ("v4", "wf", "wf", "v4"):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        if which == "v4":
-            out = mk.trace_megakernel_batch(*args, n_pix=n_pix, **kw)
-        else:
-            out = wf.trace_wavefront_batch(*args, n_rays=n_rays_of(n_pix), **kw)[:n_pix]
-        torch.cuda.synchronize()
-        (t_v4 if which == "v4" else t_wf).append((time.perf_counter() - t0) * 1e3)
-        imgs[which] = out.cpu().numpy()
-    n_diff = int((imgs["v4"] != imgs["wf"]).any(-1).sum())
-    check(n_diff == 0, f"book2 600x600 16spp depth 50: wavefront differs from v4 in "
-                       f"{n_diff} pixels")
-    book2_mean16 = float(imgs["v4"].mean() / 16)
-    say(f"phase 4 wavefront == v4 bitwise, book2 600x600 16spp depth 50 (mean linear "
-        f"radiance {book2_mean16:.4f}): v4 {t_v4[0]:.1f}/{t_v4[1]:.1f} ms, wavefront "
-        f"{t_wf[0]:.1f}/{t_wf[1]:.1f} ms ({16 * n_pix / min(t_v4) / 1e3:.2f} vs "
-        f"{16 * n_pix / min(t_wf) / 1e3:.2f} Mpaths/s) ({card})")
+    # Wavefront vs v4 on book 2, bitwise, timed in turns (v4, wf, wf, v4),
+    # with the cluster skip and then over the flat tables. v4 is forced as
+    # JAX's mega_schedule would run it there: the block-tiled layout, wave
+    # regeneration at 0.5 of a tile's in-image lanes.
+    def book2_v4_wf(spp):
+        (camv_, seed_, packed_, bg_), kw_ = prepare(book2, 600, 600, spp, 50)
+        n_pix_ = kw_.pop("n_pix")
+        camv_b = camera.make_camv(loader.load_scene(book2)[0].camera, 600, 600, 0, spp,
+                                  max(int(spp ** 0.5), 1), 0, block=mk.BLOCK).to(dev)
+        n_slots, slot_of_pixel = mk.pixel_slots(600, 600, block=True)
+        slot_of_pixel = slot_of_pixel.reshape(-1).to(dev)
+
+        def v4():
+            return mk.trace_megakernel_batch(camv_b, seed_, packed_, bg_, n_pix=n_slots,
+                                             block=True, wave_frac=0.5, **kw_)[slot_of_pixel]
+
+        def wavefront():
+            return wf.trace_wavefront_batch(camv_, seed_, packed_, bg_,
+                                            n_rays=n_rays_of(n_pix_), **kw_)[:n_pix_]
+        return v4, wavefront
+
+    runs, imgs = {}, {}
+    for sweep in ("skip", "flat"):
+        with flat_sweep() if sweep == "flat" else contextlib.nullcontext():
+            v4_run, wf_run = book2_v4_wf(16)
+            for which in ("v4", "wf", "wf", "v4"):
+                out, t = wall_ms(v4_run if which == "v4" else wf_run)
+                runs.setdefault((sweep, which), []).append(t)
+                imgs[(sweep, which)] = out.cpu().numpy()
+    for sweep in ("skip", "flat"):
+        n_diff = int((imgs[(sweep, "v4")] != imgs[(sweep, "wf")]).any(-1).sum())
+        check(n_diff == 0, f"book2 600x600 16spp depth 50 ({sweep}): the wavefront differs "
+                           f"from v4 in {n_diff} pixels")
+    n_flat = int((imgs[("skip", "wf")] != imgs[("flat", "wf")]).any(-1).sum())
+    book2_mean16 = float(imgs[("skip", "wf")].mean() / 16)
+    check(n_flat <= 1e-4 * 360000, f"book2 16 spp: {n_flat} pixels differ between the "
+                                   f"cluster-skip and the flat sweep (more than exact ties)")
+    check(abs(book2_mean16 / BOOK2_MEAN_64 - 1.0) < BOOK2_MEAN_RTOL,
+          f"book2 16-spp mean {book2_mean16:.4f} vs {BOOK2_MEAN_64}")
+    t_v4, t_wf = runs[("skip", "v4")], runs[("skip", "wf")]
+    f_v4, f_wf = runs[("flat", "v4")], runs[("flat", "wf")]
+    book2_16 = dict(v4_ms=t_v4, wf_ms=t_wf, v4_flat_ms=f_v4, wf_flat_ms=f_wf,
+                    pixels_differing_from_flat=n_flat, mean=book2_mean16)
+    say(f"phase 4 wavefront == v4 (block layout, wave_frac 0.5) bitwise, book2 600x600 16spp "
+        f"depth 50, mean linear radiance {book2_mean16:.4f}: with the cluster skip v4 "
+        f"{t_v4[0]:.1f}/{t_v4[1]:.1f} ms, wavefront {t_wf[0]:.1f}/{t_wf[1]:.1f} ms "
+        f"({16 * 360000 / min(t_v4) / 1e3:.2f} vs {16 * 360000 / min(t_wf) / 1e3:.2f} "
+        f"Mpaths/s); flat v4 {f_v4[0]:.1f}/{f_v4[1]:.1f} ms, wavefront {f_wf[0]:.1f}/"
+        f"{f_wf[1]:.1f} ms ({16 * 360000 / min(f_v4) / 1e3:.2f} vs "
+        f"{16 * 360000 / min(f_wf) / 1e3:.2f} Mpaths/s); the image with the skip differs "
+        f"from the flat sweep's in {n_flat} of 360000 pixels (gate 0.01 %) ({card})")
 
     # ---- phase 5: main path through the CLI ----------------------------------
     out_png = os.path.join(work, "cornell.png")
@@ -514,10 +618,24 @@ def main() -> None:
         f"{wf_launches} wavefront launches, {wf_sorts} sorts, {v4_launches} v4 launches, "
         f"mean linear radiance {mean:.4f} (16 spp: {book2_mean16:.4f}), "
         f"{done['mpaths_per_s']:.2f} Mpaths/s over {done['elapsed_s']:.3f} s on {card}")
+    # The same CLI run with and without the cluster skip, in turns (the run
+    # above, then flat, flat, skip).
+    cli_mp = {"skip": [done["mpaths_per_s"]], "flat": []}
+    for which in ("flat", "flat", "skip"):
+        m = os.path.join(work, f"metrics_book2_{which}{len(cli_mp[which])}.jsonl")
+        with flat_sweep() if which == "flat" else contextlib.nullcontext():
+            rc = app.main([book2, os.path.join(work, "book2_ab.png"), "--samples", "64",
+                           "--depth", "50", "--device", "cuda", "--metrics", m, "--quiet"])
+        check(rc == 0, f"app.main ({which} sweep) exited {rc}")
+        with open(m) as f:
+            cli_mp[which].append([json.loads(line) for line in f][-1]["mpaths_per_s"])
+    say(f"phase 6 book-2 CLI (64 spp) with and without the cluster skip, in turns: skip "
+        f"{cli_mp['skip'][0]:.2f}, flat {cli_mp['flat'][0]:.2f}, flat {cli_mp['flat'][1]:.2f}, "
+        f"skip {cli_mp['skip'][1]:.2f} Mpaths/s ({card})")
 
     # ---- phase 7: the gradient kernel vs its plain version ------------------
-    def grad_args(path, size, spp, depth, sqrt_spp=None):
-        (camv_, seed_, packed_, bg_), kw_ = prepare(path, size, size, spp, depth)
+    def grad_args(path, size, spp, depth, sqrt_spp=None, table=False):
+        (camv_, seed_, packed_, bg_), kw_ = prepare(path, size, size, spp, depth, table)
         if sqrt_spp is not None:
             camv_[23] = float(sqrt_spp)
         g = torch.from_numpy(np.random.RandomState(5).uniform(
@@ -554,9 +672,11 @@ def main() -> None:
         torch.cuda.synchronize()
         return out, start.elapsed_time(end) / reps
 
-    for name in ("solid", "noise", "media"):
-        label = f"grad_{name} 64x64 2spp depth 8"
-        args, kw = grad_args(scene_file(f"grad_{name}", GRAD_SCENES[name]), 64, 2, 8)
+    for name, table in (("solid", False), ("noise", False), ("media", False),
+                        ("noise", True)):
+        label = f"grad_{name}{' (table noise)' if table else ''} 64x64 2spp depth 8"
+        args, kw = grad_args(scene_file(f"grad_{name}", GRAD_SCENES[name]), 64, 2, 8,
+                             table=table)
         kern, ms = timed_grad(args, kw, 3)
         t0 = time.perf_counter()
         plain = mkg.grad_plain(*args, **kw)
@@ -700,35 +820,52 @@ def main() -> None:
         f"{recs[-1]['improvement']}), rel_err {recs[0]['rel_err[materials.albedo]']} -> "
         f"{recs[-2]['rel_err[materials.albedo]']}")
     non_kernel = non_kernel_phases(dev, card, scene_file, cornell, book2, ops_per_bounce)
+    book2_16["image"] = imgs[("skip", "wf")]
+    b1 = b1_option_phases(dev, card, book2, book2_16)
     shutil.rmtree(work)
     for name in ("jax", "raytrace2_tpu"):
         check(name not in sys.modules, f"{name} was imported")
 
-    # ---- phase 13: the kernels ------------------------------------------------
+    # ---- phase 15: the kernels ------------------------------------------------
     main_shape = results[cases[2][0]]
-    k2 = wf_launch["k2"]
+    k2, k16 = wf_launch["k2"], wf_launch["k16"]
+    v4b = b1["v4_book2"]
     say(json.dumps({"kernels": [{
         "name": "megakernel_v4", "route": "cuda",
         "source": "raytrace2_tpu_torch/csrc/megakernel_v4.cu",
         "replaces": "raytrace2_tpu/ops/pallas/megakernel.py:1786 (_render_kernel_v4)",
+        "status": "ported, PR 2; PR 6 adds the cluster-skip sweep (_hier_sweep), table "
+                  "Perlin (ntab) and the block-tiled layout with wave regeneration",
         "launches": launches,
         "max_abs_err": main_shape["max_abs_err"],
         "ms": main_shape["ms"], "plain_ms": main_shape["plain_ms"],
         "bound_ms": main_shape["bound_ms"], "bound_by": "operations",
         "library_ms": None,
+        "shape": "cornell 600x600, depth 50, 6 spp (the CLI's batch; no clustered family)",
+        "book2_block": dict(v4b, shape="book2 600x600, depth 50, 2 spp, block layout, "
+                                       "wave_frac 0.5 (ms, plain_ms, bound_ms)",
+                            launches_forced=b1["v4_forced_launches"]),
+        "book2_16spp_ms": {"skip": book2_16["v4_ms"], "flat": book2_16["v4_flat_ms"]},
     }, {
         "name": "wavefront_step", "route": "cuda",
         "source": "raytrace2_tpu_torch/csrc/wavefront_step.cu",
         "replaces": "raytrace2_tpu/ops/pallas/wavefront_sorted.py:117 (_bounce_step_kernel)",
+        "status": "ported, PR 3; PR 6 adds the cluster-skip sweep and table Perlin",
         "launches": wf_launches,
         "max_abs_err": k2["max_abs_err"],
         "ms": k2["ms"], "plain_ms": k2["plain_ms"],
         "bound_ms": k2["bound_ms"], "bound_by": k2["bound_by"],
         "library_ms": None,
+        "shape": "book2 600x600, depth 50, 6 spp, a K=2 launch",
+        "k16": k16, "k2_flat_ms": k2["flat_ms"],
+        "launches_table_noise": b1["table_launches"],
+        "cli_mpaths_per_s": cli_mp,
     }, {
         "name": "megakernel_grad", "route": "cuda",
         "source": "raytrace2_tpu_torch/csrc/megakernel_grad.cu",
         "replaces": "raytrace2_tpu/ops/pallas/megakernel_grad.py:350 (_grad_kernel)",
+        "status": "ported, PR 4; PR 6 adds the cluster-skip winner search and the "
+                  "table-Perlin adjoint",
         "launches": b3_launches,
         "max_abs_err": b3_err,
         "ms": b3_ms, "plain_ms": plain_ms2,
@@ -737,6 +874,7 @@ def main() -> None:
         "shape": f"cornell 600x600, depth {GRAD_DEPTH}, {GRAD_SPP} spp (ms, bound_ms)",
         "plain_shape": f"cornell 600x600, depth {GRAD_DEPTH}, 2 spp (plain_ms, max_abs_err; "
                        f"the kernel there: {ms2:.3f} ms)",
+        "book2_64x64_4spp": b1["b3_book2"],
     }, *non_kernel]}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))
 
@@ -764,6 +902,207 @@ def wall_ms(fn):
     out = fn()
     torch.cuda.synchronize()
     return out, (time.perf_counter() - t0) * 1e3
+
+
+def b1_option_phases(dev, card, book2, book2_16) -> dict:
+    """Phases 13-14: B1's options — the cluster skip, the block-tiled layout
+    with wave regeneration, table Perlin — in every kernel that shares
+    path_common.cuh. Phase 13 holds each kernel against its plain version
+    on the card; phase 14 drives this slice's own main paths on book 2 (v4
+    forced, table noise forward and gradient), each with the launch counts
+    set to 0 before it and read after. Returns what the kernels line
+    reports."""
+    import numpy as np
+    import torch
+
+    from raytrace2_tpu_torch import grad
+    from raytrace2_tpu_torch.ops import camera, integrator, rng
+    from raytrace2_tpu_torch.ops.kernels import megakernel as mk
+    from raytrace2_tpu_torch.ops.kernels import megakernel_grad as mkg
+    from raytrace2_tpu_torch.ops.kernels import megakernel_v3 as mk3
+    from raytrace2_tpu_torch.ops.kernels import wavefront as wf
+    from raytrace2_tpu_torch.scene import loader, schema
+
+    host, _ = loader.load_scene(book2)
+    feats = host.features()
+    sizes = tuple(feats["mega_sizes"])
+    ds = schema.to_device(host, dev)
+    packed = mk.pack_buffer(ds, sizes)
+    bg = ds.background.to(torch.float32).contiguous()
+    base_kw = dict(max_depth=50, sizes=sizes, has_checker=feats["has_checker"],
+                   has_noise=feats["has_noise"])
+    out = {}
+
+    # ---- phase 13a: v4 on the block layout with wave regeneration ----------
+    spp = 2
+    camv = camera.make_camv(host.camera, 600, 600, 0, spp, 1, 0, block=mk.BLOCK).to(dev)
+    n_slots, _ = mk.pixel_slots(600, 600, block=True)
+    kw = dict(base_kw, n_pix=n_slots, block=True, wave_frac=0.5)
+    mk.trace_megakernel_batch(camv, 0, packed, bg, **kw)  # warm-up
+    kern, ms = event_ms(lambda: mk.trace_megakernel_batch(camv, 0, packed, bg, **kw), 3)
+    stats = {}
+    plain, plain_ms = wall_ms(lambda: mk.trace_plain(camv, 0, packed, bg, stats=stats, **kw))
+    n_diff = int((kern != plain).any(-1).sum())
+    check(n_diff == 0, f"v4 book2 block layout: {n_diff} slots differ from the plain version")
+    ops = sweep_ops(stats)
+    nbytes = 12 * n_slots + packed.numel() * 4
+    bound_ms = max(ops / PEAK_F32_OPS, nbytes / PEAK_BYTES) * 1e3
+    out["v4_book2"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, max_abs_err=0.0,
+                           bounces=stats["bounces"],
+                           aabb_per_bounce=stats["aabb"] / stats["bounces"],
+                           sph_per_bounce=stats["sph"] / stats["bounces"],
+                           box_per_bounce=stats["box"] / stats["bounces"])
+    say(f"phase 13 v4 vs plain, book2 600x600 {spp} spp depth 50, block-tiled layout "
+        f"({n_slots} slots) with wave_frac 0.5: bitwise equal; kernel {ms:.3f} ms (mean of "
+        f"3), plain {plain_ms:.1f} ms; {stats['bounces']} bounces, per bounce "
+        f"{stats['aabb'] / stats['bounces']:.2f} AABB slab tests, "
+        f"{stats['sph'] / stats['bounces']:.2f} sphere and "
+        f"{stats['box'] / stats['bounces']:.2f} box record tests -> {ops:.4g} f32 ops "
+        f"-> bound {bound_ms:.4f} ms by operations ({card})")
+
+    # ---- phase 13b: B4 on book 2 -----------------------------------------
+    seed_lane = integrator.mega_seed_of(0, 0)
+    pix = torch.arange(600 * 600, dtype=torch.int32, device=dev)
+    u = rng.murmur_uniforms(seed_lane, pix, tuple(rng.CAMERA_CTR_BASE + k for k in range(5)))
+    o, d, tm = camera.generate_rays(ds.camera, 600, 600, 0, 1, None, uniforms=u)
+    pad = -o.shape[0] % mk3.TILE_R
+    o = torch.nn.functional.pad(o, (0, 0, 0, pad))
+    d = torch.nn.functional.pad(d, (0, 0, 0, pad), value=1.0)
+    tm = torch.nn.functional.pad(tm, (0, pad))
+    state, rid = mk3.init_state(o, d, tm)
+    min_alive = mk3.TILE_R // 16
+    mk3.megakernel_pass(state, rid, seed_lane, min_alive, packed, bg, **base_kw)  # warm-up
+    (rad_k, new_k), b4_ms = event_ms(
+        lambda: mk3.megakernel_pass(state, rid, seed_lane, min_alive, packed, bg, **base_kw), 3)
+    (rad_p, new_p), b4_plain_ms = wall_ms(
+        lambda: mk3.pass_plain(state, rid, seed_lane, min_alive, packed, bg, **base_kw))
+    check(torch.equal(rad_k, rad_p) and torch.equal(new_k, new_p),
+          "B4 book2 pass: kernel and plain version differ")
+    out["b4_book2"] = dict(ms=b4_ms, plain_ms=b4_plain_ms)
+    say(f"phase 13 B4 vs plain, one pass of book2 600x600 camera rays (min_alive "
+        f"{min_alive} of {mk3.TILE_R}), spheres and boxes through the cluster skip: radiance "
+        f"and state bitwise; kernel {b4_ms:.3f} ms (mean of 3), plain {b4_plain_ms:.1f} ms "
+        f"({card})")
+
+    # ---- phase 13c: B3 with the cluster skip on book 2 -------------------
+    size, spp = 64, 4
+    camv = camera.make_camv(host.camera, size, size, 0, spp, 2, 0).to(dev)
+    g = torch.from_numpy(np.random.RandomState(5).uniform(
+        0.0, 1.0, (size * size, 3)).astype(np.float32)).to(dev)
+    gkw = dict(base_kw, n_pix=size * size)
+    counts = [torch.zeros(1, dtype=torch.int64, device=dev) for _ in range(2)]
+    mkg.grad_call(camv, 0, packed, bg, g, **gkw)  # warm-up
+    kern, b3_ms = event_ms(lambda: mkg.grad_call(camv, 0, packed, bg, g, **gkw), 3)
+    mkg.grad_call(camv, 0, packed, bg, g, bounces=counts[0], **gkw)
+    plain, b3_plain_ms = wall_ms(lambda: mkg.grad_plain(camv, 0, packed, bg, g,
+                                                        bounces=counts[1], **gkw))
+    check(int(counts[0]) == int(counts[1]) > 0,
+          f"B3 book2: replayed {int(counts[0])} bounces, the plain pre-pass {int(counts[1])}")
+    detail = []
+    for name, a, b in grad_groups(kern, plain, sizes):
+        err, scale = float((a - b).abs().max()), float(b.abs().max())
+        check(bool(torch.isfinite(a).all()) and err <= GRAD_RTOL * scale + GRAD_ATOL,
+              f"B3 book2 {name}: max|d| {err:.3g} vs max|g| {scale:.3g}")
+        if scale > 0:
+            detail.append(f"{name} {err:.3g}/{scale:.3g}")
+    say(f"phase 13 B3 vs plain, book2 {size}x{size} {spp} spp depth 50 (winner search "
+        f"through the cluster skip): {', '.join(detail)}; replayed bounces {int(counts[0])} "
+        f"== {int(counts[1])}; kernel {b3_ms:.3f} ms, plain {b3_plain_ms:.1f} ms ({card})")
+
+    # ---- phase 13d: table noise in v4 and the wavefront step ------------------
+    tfeats = dict(feats, noise_impl="table")
+    ntab = integrator.noise_tables(ds, tfeats)
+    size, spp = 200, 2
+    camv = camera.make_camv(host.camera, size, size, 0, spp, 1, 0).to(dev)
+    kw = dict(base_kw, n_pix=size * size, ntab=ntab)
+    kern = mk.trace_megakernel_batch(camv, 0, packed, bg, **kw)
+    plain = mk.trace_plain(camv, 0, packed, bg, **kw)
+    hashed = mk.trace_megakernel_batch(camv, 0, packed, bg, **dict(kw, ntab=None))
+    torch.cuda.synchronize()
+    n_diff = int((kern != plain).any(-1).sum())
+    check(n_diff == 0, f"v4 with table noise: {n_diff} pixels differ from the plain version")
+    n_noise = int((kern != hashed).any(-1).sum())
+    check(n_noise > 0, "v4 with table noise renders the hash-noise image")
+    wkw = dict(base_kw, ntab=ntab)
+    n_rays = -(-size * size // wf.SLOT_TILE) * wf.SLOT_TILE
+    state = wf.init_wavefront_state(n_rays, camv.tolist(), dev)
+    bb = wf.scene_bounds(packed, sizes)
+    for k in (wf.K_BOUNCES, wf.TAIL_K):
+        state = wf.sort_state(state, float(spp), *bb)
+        st_k = wf.wavefront_step(state.clone(), camv, 0, packed, bg, k_bounces=k, **wkw)
+        st_p = wf.step_plain(state.clone(), camv, 0, packed, bg, k_bounces=k, **wkw)
+        torch.cuda.synchronize()
+        check(torch.equal(st_k, st_p), f"wavefront K={k} with table noise differs from plain")
+        state = st_k
+    say(f"phase 13 table noise (noise_impl='table'), book2 {size}x{size} {spp} spp depth 50: "
+        f"v4 bitwise equal to its plain version ({n_noise} pixels differ from hash noise); "
+        f"the wavefront step's K={wf.K_BOUNCES} and K={wf.TAIL_K} launches bitwise equal to "
+        f"the plain step ({card})")
+
+    # ---- phase 14: this slice's main paths -------------------------------
+    mk.LAUNCHES = wf.LAUNCHES = 0
+    img, v4_wall = wall_ms(lambda: integrator.render_progressive(
+        ds, dict(feats, mega_wavefront=False), 600, 600, 0, 16, 0, 50, 4))
+    v4_main = mk.LAUNCHES
+    check(v4_main == 1 and wf.LAUNCHES == 0,
+          f"v4-forced main path launches: v4 {v4_main}, wavefront {wf.LAUNCHES}")
+    img = img.reshape(-1, 3).cpu().numpy()
+    check(np.array_equal(img, book2_16["image"]),
+          "v4 forced through render_progressive differs from phase 4's 16-spp image")
+    say(f"phase 14 v4 forced (mega_wavefront=False -> block layout, wave_frac 0.5) through "
+        f"integrator.render_progressive, book2 600x600 16 spp depth 50: {v4_main} v4 launch, "
+        f"no wavefront launch, image bitwise phase 4's, {16 * 360000 / v4_wall / 1e3:.2f} "
+        f"Mpaths/s over {v4_wall:.1f} ms ({card})")
+
+    mk.LAUNCHES = wf.LAUNCHES = 0
+    timg, t_wall = wall_ms(lambda: integrator.render_progressive(
+        ds, tfeats, 600, 600, 0, 16, 0, 50, 4))
+    table_launches = wf.LAUNCHES
+    check(table_launches > 0 and mk.LAUNCHES == 0,
+          f"table-noise main path launches: wavefront {table_launches}, v4 {mk.LAUNCHES}")
+    t_mean = float(timg.mean()) / 16
+    check(np.isfinite(t_mean) and abs(t_mean / BOOK2_MEAN_64 - 1.0) < BOOK2_MEAN_RTOL,
+          f"book2 table-noise mean {t_mean:.4f} vs {BOOK2_MEAN_64}")
+    n_noise = int((timg.reshape(-1, 3).cpu().numpy() != book2_16["image"]).any(-1).sum())
+    say(f"phase 14 table-noise forward through integrator.render_progressive "
+        f"(noise_impl='table'), book2 600x600 16 spp depth 50: {table_launches} wavefront "
+        f"launches, mean linear radiance {t_mean:.4f} ({n_noise} pixels differ from hash "
+        f"noise), {16 * 360000 / t_wall / 1e3:.2f} Mpaths/s over {t_wall:.1f} ms ({card})")
+
+    scene = schema.to_device(host, dev)
+    mk.LAUNCHES = wf.LAUNCHES = mkg.LAUNCHES = 0
+    (loss, gr), g_wall = wall_ms(lambda: grad.value_and_grad_scene(
+        torch.mean, scene, tfeats, 0, width=600, height=600, n_samples=4, max_depth=50,
+        sqrt_spp=2))
+    check(wf.LAUNCHES > 0 and mkg.LAUNCHES == 1 and mk.LAUNCHES == 0,
+          f"table-noise gradient launches: wavefront {wf.LAUNCHES}, B3 {mkg.LAUNCHES}, "
+          f"v4 {mk.LAUNCHES}")
+    leaves = []
+    schema.map_leaves(gr, lambda x: leaves.append(x) if x is not None else None)
+    check(all(bool(torch.isfinite(x).all()) for x in leaves), "table-noise gradient not finite")
+    dc = float(gr.spheres.center0.abs().max())
+    check(dc > 0.0, "table-noise book-2 sphere-centre gradient is zero")
+    say(f"phase 14 table-noise gradient through grad.value_and_grad_scene, book2 600x600, "
+        f"4 spp, depth 50: loss {float(loss):.4f}, {wf.LAUNCHES} wavefront + {mkg.LAUNCHES} "
+        f"B3 launches, every leaf finite, max |d center0| {dc:.3g}, {g_wall:.1f} ms ({card})")
+    out.update(v4_forced_launches=v4_main, table_launches=table_launches,
+               b3_book2=dict(ms=b3_ms, plain_ms=b3_plain_ms))
+    return out
+
+
+def grad_groups(kern, plain, sizes):
+    """(name, kernel, plain) per leaf group of two grad_call results: camv,
+    background, each table family."""
+    import torch
+
+    from raytrace2_tpu_torch.ops.kernels import megakernel as mk
+
+    groups = [("camv", kern[0], plain[0]), ("background", kern[1], plain[1])]
+    ck, cp = mk.unpack_buffer(kern[2], sizes), mk.unpack_buffer(plain[2], sizes)
+    for fam, keys in mk.FAMILIES:
+        groups.append((fam, torch.cat([ck[fam][k] for k in keys]),
+                       torch.cat([cp[fam][k] for k in keys])))
+    return groups
 
 
 def non_kernel_phases(dev, card, scene_file, cornell, book2, ops_per_bounce) -> list:
@@ -907,7 +1246,7 @@ def non_kernel_phases(dev, card, scene_file, cornell, book2, ops_per_bounce) -> 
         return done, counts
 
     work = os.path.dirname(cornell)
-    done, counts = cli(cornell, os.path.join(work, "cornell_pallas.png"), "--samples", "16",
+    done, counts = cli(cornell, os.path.join(work, "cornell_pallas.png"), "--samples", "4",
                        "--backend", "pallas")
     b5_main = counts["b5"]
     lo, hi = CORNELL_MEAN_BAND
@@ -917,7 +1256,7 @@ def non_kernel_phases(dev, card, scene_file, cornell, book2, ops_per_bounce) -> 
                                                                 b5_main), f"done record {done}")
     check(lo <= done["mean_linear"] <= hi,
           f"Cornell pallas mean linear radiance {done['mean_linear']:.4f} outside [{lo}, {hi}]")
-    say(f"phase 12 pallas main path: app.main Cornell 600x600 16 spp depth 50 --backend pallas, "
+    say(f"phase 12 pallas main path: app.main Cornell 600x600 4 spp depth 50 --backend pallas, "
         f"{b5_main} B5 launches, no other kernel, mean linear radiance "
         f"{done['mean_linear']:.4f} in [{lo}, {hi}], {done['mpaths_per_s']:.4f} Mpaths/s over "
         f"{done['elapsed_s']:.3f} s on {card}")
@@ -965,7 +1304,7 @@ def non_kernel_phases(dev, card, scene_file, cornell, book2, ops_per_bounce) -> 
         f"(camera, keys, compaction, chunking, host) {sample_ms - tot['step']:.1f} ms "
         f"(CUDA-event spans) ({card})")
 
-    done, counts = cli(book2, os.path.join(work, "book2_pallas.png"), "--samples", "4",
+    done, counts = cli(book2, os.path.join(work, "book2_pallas.png"), "--samples", "1",
                        "--backend", "pallas")
     b5_book2 = counts["b5"]
     check(b5_book2 > 0 and counts["v4"] == counts["wavefront"] == counts["b4"] == 0,
@@ -973,7 +1312,7 @@ def non_kernel_phases(dev, card, scene_file, cornell, book2, ops_per_bounce) -> 
     mean = done["mean_linear"]
     check(abs(mean / BOOK2_MEAN_64 - 1.0) < BOOK2_MEAN_RTOL,
           f"book-2 pallas mean linear radiance {mean:.4f} vs {BOOK2_MEAN_64}")
-    say(f"phase 12 pallas main path: app.main book2 600x600 4 spp depth 50 --backend pallas, "
+    say(f"phase 12 pallas main path: app.main book2 600x600 1 spp depth 50 --backend pallas, "
         f"{b5_book2} B5 launches, no other kernel, mean linear radiance {mean:.4f} (kernel "
         f"path, 64 spp: {BOOK2_MEAN_64}), {done['mpaths_per_s']:.4f} Mpaths/s over "
         f"{done['elapsed_s']:.3f} s on {card}")
@@ -1024,6 +1363,8 @@ def non_kernel_phases(dev, card, scene_file, cornell, book2, ops_per_bounce) -> 
         "name": "intersect_kernel", "route": "cuda",
         "source": "raytrace2_tpu_torch/csrc/intersect_kernel.cu",
         "replaces": "raytrace2_tpu/ops/pallas/intersect_kernel.py:159 (_kernel)",
+        "status": "ported, PR 5 (its own dense sweep of sphere and quad tiles, as the TPU "
+                  "kernel's)",
         "launches": b5_main, "max_abs_err": main["max_abs_err"],
         "ms": main["ms"], "plain_ms": main["plain_ms"],
         "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
@@ -1035,6 +1376,8 @@ def non_kernel_phases(dev, card, scene_file, cornell, book2, ops_per_bounce) -> 
         "name": "megakernel_v3", "route": "cuda",
         "source": "raytrace2_tpu_torch/csrc/megakernel_v3.cu",
         "replaces": "raytrace2_tpu/ops/pallas/megakernel.py:1422 (_render_kernel)",
+        "status": "ported, PR 5; PR 6 adds the cluster-skip sweep (hash noise, as the JAX v3 "
+                  "kernel)",
         "launches": b4_main, "max_abs_err": b4_err,
         "ms": b4_ms, "plain_ms": b4_plain_ms,
         "bound_ms": b4_bound_ms, "bound_by": b4_bound_by,

@@ -93,11 +93,14 @@ __device__ __forceinline__ void normalize_adj(float n2, float inv_len, float ux,
   gz *= inv_len;
 }
 
-// ---- noise with its gradient (megakernel.py _noise_factor_remat) --------
+// ---- noise with its gradient (megakernel.py _noise_factor_remat,
+// _nfrt_fwd/_nfrt_bwd) ----------------------------------------------------
 
-// One octave of hash-gradient noise and its gradient in p; the lattice cell
-// is detached (floor has derivative 0).
-__device__ float perlin_noise_grad(float px, float py, float pz, uint32_t seed_u, float& dpx,
+// One octave of Perlin noise (hash or table lattice, path_common.cuh) and
+// its gradient in p; the lattice cell is detached (floor has derivative 0,
+// the tables are constants).
+template <class Lattice>
+__device__ float perlin_noise_grad(float px, float py, float pz, const Lattice& lat, float& dpx,
                                    float& dpy, float& dpz) {
   float fx = floorf(px), fy = floorf(py), fz = floorf(pz);
   uint32_t ix = (uint32_t)(int32_t)fx, iy = (uint32_t)(int32_t)fy, iz = (uint32_t)(int32_t)fz;
@@ -114,7 +117,7 @@ __device__ float perlin_noise_grad(float px, float py, float pz, uint32_t seed_u
       for (int dk = 0; dk < 2; ++dk) {
         float wk = dk ? ww : (1.0f - ww), dwk = dk ? dww : -dww;
         float gx, gy, gz;
-        hash_gradient(ix + di, iy + dj, iz + dk, seed_u, gx, gy, gz);
+        lat.at(ix + di, iy + dj, iz + dk, gx, gy, gz);
         float ex = u - (float)di, ey = v - (float)dj, ez = w - (float)dk;
         float dot = gx * ex + gy * ey + gz * ez;
         float w3 = wi * wj * wk;
@@ -130,14 +133,15 @@ __device__ float perlin_noise_grad(float px, float py, float pz, uint32_t seed_u
 
 // Marble or Perlin factor at p (Texture.cpp:13-22) and its derivatives in p
 // and in the texture's scale.
+template <class Lattice>
 __device__ float noise_factor_grad(float px, float py, float pz, float t_scale, float t_ntype,
-                                   uint32_t nseed, float* dp, float& dscale) {
+                                   const Lattice& lat, float* dp, float& dscale) {
   if (t_ntype == kNoiseMarble) {
     float acc = 0.0f, ax = 0.0f, ay = 0.0f, az = 0.0f, weight = 1.0f, mul = 1.0f;
     float sx = px, sy = py, sz = pz;
     for (int i = 0; i < 7; ++i) {
       float gx, gy, gz;
-      acc = acc + weight * perlin_noise_grad(sx, sy, sz, nseed, gx, gy, gz);
+      acc = acc + weight * perlin_noise_grad(sx, sy, sz, lat, gx, gy, gz);
       // d(noise(2^i p))/dp = 2^i grad: weight * 2^i == 1.
       ax += weight * mul * gx;
       ay += weight * mul * gy;
@@ -158,7 +162,7 @@ __device__ float noise_factor_grad(float px, float py, float pz, float t_scale, 
     return 0.5f * (1.0f + sinf(arg));
   }
   float gx, gy, gz;
-  float n = perlin_noise_grad(t_scale * px, t_scale * py, t_scale * pz, nseed, gx, gy, gz);
+  float n = perlin_noise_grad(t_scale * px, t_scale * py, t_scale * pz, lat, gx, gy, gz);
   dp[0] = 0.5f * t_scale * gx;
   dp[1] = 0.5f * t_scale * gy;
   dp[2] = 0.5f * t_scale * gz;
@@ -441,9 +445,16 @@ __device__ void bounce_adjoint(const Tables& T, const Counts& c, const float* bg
   const bool noisy = has_noise && T.tx(TTYPE, ti) == kTexNoise;
   float nfac = 1.0f, ndp[3] = {0.0f, 0.0f, 0.0f}, ndscale = 0.0f;
   if (noisy) {
-    uint32_t nseed = mix((uint32_t)(int32_t)leaf ^ 0x5EEDBA5Eu);
-    nfac = noise_factor_grad(p[0], p[1], p[2], T.tx(TSCALE, ti), T.tx(TNTYPE, ti), nseed, ndp,
-                             ndscale);
+    const float t_scale = T.tx(TSCALE, ti), t_ntype = T.tx(TNTYPE, ti);
+    if (T.nt) {
+      nfac = noise_factor_grad(p[0], p[1], p[2], t_scale, t_ntype,
+                               TableLattice{T.nt, T.nld, (int)T.tx(TNSLOT, ti) * kNoiseN}, ndp,
+                               ndscale);
+    } else {
+      nfac = noise_factor_grad(p[0], p[1], p[2], t_scale, t_ntype,
+                               HashLattice{mix((uint32_t)(int32_t)leaf ^ 0x5EEDBA5Eu)}, ndp,
+                               ndscale);
+    }
   }
   float t_al[3];
   for (int k = 0; k < 3; ++k) t_al[k] = noisy ? t_raw[k] * nfac : t_raw[k];

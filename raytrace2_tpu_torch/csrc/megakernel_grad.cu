@@ -11,9 +11,11 @@
 // (the GRAD_*_KEYS rows; every other entry stays 0).
 //
 // Design. One thread per pixel slot, 128 threads per block, as the forward
-// kernels; the packed tables are staged in shared memory (stage_tables) and
-// the pre-pass calls the forward's own camera_ray and bounce, so the
-// replayed primal is the forward's f32 sequence. A thread keeps its path's
+// kernels; the packed tables (with the cluster tables) and the ntab operand
+// are staged in shared memory (stage_tables) and the pre-pass calls the
+// forward's own camera_ray and bounce — the winner search is the forward's
+// sweep, cluster skip included — so the replayed primal is the forward's
+// f32 sequence. The backward replays only the winner's record test. A thread keeps its path's
 // per-bounce entry carries and winners (at most 64 x 40 B) in local memory.
 // Table cotangents go to a shared-memory copy of the packed layout with one
 // shared atomic per lane and entry (a warp-aggregated form, peers summing by
@@ -29,8 +31,8 @@
 //
 // What bounds it on this card: f32 ALU and special-function work — the
 // forward's sweep in the pre-pass plus, per bounce, a resolve, a shade and
-// its adjoint (for noise textures, 8 octaves x 8 lattice corners of hashing
-// with their gradients). Device memory traffic is the cotangent input
+// its adjoint (for noise textures, 7 octaves x 8 lattice corners of hashing
+// or table gathers with their gradients). Device memory traffic is the cotangent input
 // (12 B per pixel), the tables and the outputs.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -fmad=false
@@ -50,20 +52,21 @@ __host__ __device__ inline int grad_smem_bytes(const Counts& c, bool shared_cot)
 
 __global__ void __launch_bounds__(kThreads)
 megakernel_grad(const float* __restrict__ camv_g, int seed, const float* __restrict__ bg_g,
-                const float* __restrict__ tables_g, Counts c, int n_pix, int max_depth,
+                const float* __restrict__ tables_g, const float* __restrict__ ntab_g,
+                Counts c, int n_pix, int max_depth,
                 int checker_depth, int has_noise, const float* __restrict__ g_g,
                 float* __restrict__ d_camv_g, float* __restrict__ d_bg_g,
                 float* __restrict__ d_tables_g, int shared_cot,
                 unsigned long long* __restrict__ bounces_g) {
   extern __shared__ float smem[];
   const int n_tab = table_floats(c);
-  float* red = smem + n_tab + kCamvLen + 4;
+  float* red = smem + stage_floats(c);
   float* dtab = shared_cot ? red + kRedFloats : d_tables_g;
   for (int i = threadIdx.x; i < kRedFloats; i += blockDim.x) red[i] = 0.0f;
   if (shared_cot) {
     for (int i = threadIdx.x; i < n_tab; i += blockDim.x) dtab[i] = 0.0f;
   }
-  const float* cv = stage_tables(smem, camv_g, bg_g, tables_g, c);  // synchronises
+  const float* cv = stage_tables(smem, camv_g, bg_g, tables_g, ntab_g, c);  // synchronises
   const float* bg = cv + kCamvLen;
   const Tables T = make_tables(smem, c);
   const Cot D = make_cot(dtab, c);
@@ -112,18 +115,23 @@ extern "C" {
 // Bytes of dynamic shared memory one block needs, with the table
 // cotangents in shared memory (shared_cot = 1) or in device memory.
 int megakernel_grad_smem_bytes(int n_sph, int n_quad, int n_mat, int n_tex, int n_med,
-                               int n_box, int shared_cot) {
-  return grad_smem_bytes(Counts{n_sph, n_quad, n_mat, n_tex, n_med, n_box}, shared_cot != 0);
+                               int n_box, int hier_sph, int hier_box, int n_noise,
+                               int shared_cot) {
+  return grad_smem_bytes(
+      Counts{n_sph, n_quad, n_mat, n_tex, n_med, n_box, hier_sph, hier_box, n_noise},
+      shared_cot != 0);
 }
 
 // Launch on `stream`; returns the cudaError_t of the launch. `g` is the
 // radiance cotangent [n_pix, 3]; d_camv [28], d_bg [3] and d_tables must be
 // zeroed by the caller. `bounces` (optional) gets the number of bounces the
-// kernel replayed added to it. A depth above kGradMaxDepth, the size of a
-// thread's carry store, is refused.
+// kernel replayed added to it. `ntab` holds n_noise Perlin tables (null for
+// hash noise); it takes no cotangent. A depth above kGradMaxDepth, the size
+// of a thread's carry store, is refused.
 int megakernel_grad_launch(int device, const float* camv, int seed, const float* bg,
                            const float* tables, int n_sph, int n_quad, int n_mat, int n_tex,
-                           int n_med, int n_box, int n_pix, int max_depth, int checker_depth,
+                           int n_med, int n_box, int hier_sph, int hier_box, const float* ntab,
+                           int n_noise, int n_pix, int max_depth, int checker_depth,
                            int has_noise, const float* g, float* d_camv, float* d_bg,
                            float* d_tables, int shared_cot, unsigned long long* bounces,
                            void* stream) {
@@ -131,7 +139,7 @@ int megakernel_grad_launch(int device, const float* camv, int seed, const float*
   if (err != cudaSuccess) return (int)err;
   if (n_pix <= 0) return (int)cudaSuccess;
   if (max_depth > kGradMaxDepth) return (int)cudaErrorInvalidValue;
-  Counts c{n_sph, n_quad, n_mat, n_tex, n_med, n_box};
+  Counts c{n_sph, n_quad, n_mat, n_tex, n_med, n_box, hier_sph, hier_box, n_noise};
   int smem = grad_smem_bytes(c, shared_cot != 0);
   if (smem > 48 * 1024) {
     err = cudaFuncSetAttribute(megakernel_grad, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -140,8 +148,8 @@ int megakernel_grad_launch(int device, const float* camv, int seed, const float*
   }
   int blocks = (n_pix + kThreads - 1) / kThreads;
   megakernel_grad<<<blocks, kThreads, smem, (cudaStream_t)stream>>>(
-      camv, seed, bg, tables, c, n_pix, max_depth, checker_depth, has_noise, g, d_camv, d_bg,
-      d_tables, shared_cot, bounces);
+      camv, seed, bg, tables, ntab, c, n_pix, max_depth, checker_depth, has_noise, g, d_camv,
+      d_bg, d_tables, shared_cot, bounces);
   return (int)cudaGetLastError();
 }
 

@@ -24,10 +24,12 @@
 // in the count, dead or past the end). A dead thread waits. The ray id is an
 // int32 column, not an f32 bit pattern.
 //
-// What bounds it on this card: the flat closest-hit sweep's operations, as
-// in megakernel_v4.cu; the state traffic is 48 B read and 60 B written per
-// ray and pass. The scene tables and background are staged in dynamic shared
-// memory per block (stage_tables).
+// What bounds it on this card: the closest-hit sweep's operations (with the
+// cluster skip of path_common.cuh for clustered families), as in
+// megakernel_v4.cu; the state traffic is 48 B read and 60 B written per ray
+// and pass. The scene and cluster tables and the background are staged in
+// dynamic shared memory per block (stage_tables). Noise is always hash
+// noise, as in the JAX v3 kernel.
 //
 // Build: as megakernel_v4.cu (ops/kernels/build.py, -fmad=false), bound
 //        through ctypes.
@@ -40,13 +42,17 @@ namespace {
 enum V3Col { V_OX, V_OY, V_OZ, V_DX, V_DY, V_DZ, V_TM, V_BN, V_AL, V_TPR, V_TPG, V_TPB,
              N_V3_COLS };
 
-__global__ void __launch_bounds__(kThreads)
+// At least 6 resident blocks: 80 registers a thread without a spill (96
+// uncapped, with the cluster walk), 3 % faster a Cornell pass
+// (tools/ab_kernels.py --what wf; the wavefront step, at 123, ran 30 %
+// slower capped so).
+__global__ void __launch_bounds__(kThreads, 6)
 megakernel_v3(const float* __restrict__ bg_g, const float* __restrict__ tables_g, Counts c,
               float* __restrict__ state, const int* __restrict__ rid, int n, int seed_lane,
               int min_alive, int max_depth, int checker_depth, int has_noise,
               float* __restrict__ radiance) {
   extern __shared__ float smem[];
-  const float* bg = stage_tables(smem, nullptr, bg_g, tables_g, c) + kCamvLen;
+  const float* bg = stage_tables(smem, nullptr, bg_g, tables_g, nullptr, c) + kCamvLen;
   const Tables T = make_tables(smem, c);
 
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
@@ -89,8 +95,8 @@ extern "C" {
 
 // Bytes of dynamic shared memory one block of the kernel needs.
 int megakernel_v3_smem_bytes(int n_sph, int n_quad, int n_mat, int n_tex, int n_med,
-                             int n_box) {
-  return block_smem_bytes(Counts{n_sph, n_quad, n_mat, n_tex, n_med, n_box});
+                             int n_box, int hier_sph, int hier_box) {
+  return block_smem_bytes(Counts{n_sph, n_quad, n_mat, n_tex, n_med, n_box, hier_sph, hier_box, 0});
 }
 
 int megakernel_v3_state_cols() { return N_V3_COLS; }
@@ -101,13 +107,14 @@ int megakernel_v3_tile() { return kThreads; }
 // this pass's radiance [n, 3], on `stream`; returns the cudaError_t of the
 // launch.
 int megakernel_v3_launch(int device, const float* bg, const float* tables, int n_sph,
-                         int n_quad, int n_mat, int n_tex, int n_med, int n_box, float* state,
+                         int n_quad, int n_mat, int n_tex, int n_med, int n_box, int hier_sph,
+                         int hier_box, float* state,
                          const int* rid, int n, int seed_lane, int min_alive, int max_depth,
                          int checker_depth, int has_noise, float* radiance, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (n <= 0) return (int)cudaSuccess;
-  Counts c{n_sph, n_quad, n_mat, n_tex, n_med, n_box};
+  Counts c{n_sph, n_quad, n_mat, n_tex, n_med, n_box, hier_sph, hier_box, 0};
   int smem = block_smem_bytes(c);
   if (smem > 48 * 1024) {
     err = cudaFuncSetAttribute(megakernel_v3, cudaFuncAttributeMaxDynamicSharedMemorySize,

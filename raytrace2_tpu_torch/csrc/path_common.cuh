@@ -1,9 +1,18 @@
 // Device code shared by the port's path-tracing kernels (megakernel_v4.cu,
-// wavefront_step.cu, and the gradient kernel megakernel_grad.cu): the
-// packed-table views, the murmur RNG, hash-gradient noise, the flat
-// closest-hit sweep, one bounce of a live path, and the camera ray of a
+// wavefront_step.cu, megakernel_v3.cu, and the gradient kernel
+// megakernel_grad.cu): the packed-table views, the murmur RNG, hash-gradient
+// and table Perlin noise, the closest-hit sweep (flat, or the two-level
+// cluster skip), one bounce of a live path, and the camera ray of a
 // regenerated sample. Every kernel includes it, so a path computes the same
 // f32 sequence in each of them.
+//
+// The cluster skip (JAX _hier_sweep, megakernel.py:438-497) is per thread:
+// each lane picks its front-to-back visit order from its own direction and
+// skips a supercluster or cluster whose AABB its interval misses. The JAX
+// kernel decides per tile (the summed direction, any lane); a per-lane
+// decision keeps the visit order, and so the winner on exact-t ties,
+// independent of which other lanes are live, which the divergent replay of
+// the gradient kernel needs and the plain version reproduces.
 //
 // Semantics kept exactly as the JAX kernel has them: family order spheres ->
 // quads -> AA boxes -> media; comparisons sphere `root < best_t`, quad
@@ -29,6 +38,9 @@ constexpr float kMediumEps = 1e-4f;
 constexpr float kTwoPi = 6.28318530717958f;
 constexpr int kThreads = 128;
 constexpr int kCamvLen = 28;
+constexpr int kCluster = 16;   // records per cluster (megakernel.py CLUSTER)
+constexpr int kSuper = 128;    // records per supercluster (SUPER)
+constexpr int kNoiseN = 256;   // entries per Perlin table (NOISE_TABLE_N)
 
 // Column ids of the packed tables (ops/kernels/megakernel.py *_KEYS).
 enum SphCol { C0X, C0Y, C0Z, DPX, DPY, DPZ, RAD, SMAT, SACT, N_SPH_COLS };
@@ -46,13 +58,31 @@ constexpr float kMatLambertian = 0.f, kMatMetal = 1.f, kMatDielectric = 2.f,
 constexpr float kTexChecker = 1.f, kTexNoise = 2.f, kNoiseMarble = 1.f;
 constexpr float kMediumBox = 1.f;
 
+// The six family sizes; whether spheres and AA boxes sweep through their
+// clusters (megakernel.hier_flags); noise textures in the ntab operand (0:
+// hash noise). megakernel.counts in Python builds it.
 struct Counts {
-  int n_sph, n_quad, n_mat, n_tex, n_med, n_box;
+  int n_sph, n_quad, n_mat, n_tex, n_med, n_box, hier_sph, hier_box, n_noise;
 };
+
+// Cluster tables of one family (megakernel.CLUSTER_FAMILIES): AABBs
+// [6, n_cl] and [6, n_l2] (x0, y0, z0, x1, y1, z1), the supercluster visit
+// orders [6 * n_l2] and the cluster orders inside them [6 * n_cl], as f32
+// ids. n_cl = 0 for a family swept flat.
+struct Clusters {
+  const float* cb; const float* sb; const float* ord; const float* lord;
+  int n_cl, n_l2;
+};
+
+__host__ __device__ inline int n_super(int n, int on) {
+  return on ? (n + kSuper - 1) / kSuper : 0;
+}
 
 // Column-major views into the shared-memory copy of the packed buffer:
 // column k of a family starts at base + k * rows, rows = max(n, 1) for the
-// record families and n for materials/textures (table_layout in Python).
+// record families and n for materials/textures, then the cluster tables
+// (table_layout in Python). `nt` is the staged ntab, [6, nld] (perm rows
+// 0-2, gradient rows 3-5), or null for hash noise.
 struct Tables {
   const float* sph; int ls;
   const float* quad; int lq;
@@ -60,6 +90,8 @@ struct Tables {
   const float* med; int lm;
   const float* mat; int lmat;
   const float* tex; int ltex;
+  Clusters scl, bcl;
+  const float* nt; int nld;
   __device__ float s(int k, int i) const { return sph[k * ls + i]; }
   __device__ float q(int k, int i) const { return quad[k * lq + i]; }
   __device__ float b(int k, int i) const { return box[k * lb + i]; }
@@ -70,12 +102,40 @@ struct Tables {
 
 __host__ __device__ inline int at_least_one(int n) { return n > 0 ? n : 1; }
 
+__host__ __device__ inline int cluster_floats(int n, int on) {
+  const int n_l2 = n_super(n, on);
+  return 12 * (n_l2 * (kSuper / kCluster) + n_l2);
+}
+
 __host__ __device__ inline int table_floats(const Counts& c) {
   return N_SPH_COLS * at_least_one(c.n_sph) + N_QUAD_COLS * at_least_one(c.n_quad) +
          N_BOX_COLS * at_least_one(c.n_box) + N_MED_COLS * at_least_one(c.n_med) +
-         N_MAT_COLS * c.n_mat + N_TEX_COLS * c.n_tex;
+         N_MAT_COLS * c.n_mat + N_TEX_COLS * c.n_tex + cluster_floats(c.n_sph, c.hier_sph) +
+         cluster_floats(c.n_box, c.hier_box);
 }
 
+__host__ __device__ inline int ntab_floats(const Counts& c) { return 6 * kNoiseN * c.n_noise; }
+
+// Floats staged in one block's shared memory: the tables, camv, the
+// background (padded to 4) and the ntab operand.
+__host__ __device__ inline int stage_floats(const Counts& c) {
+  return table_floats(c) + kCamvLen + 4 + ntab_floats(c);
+}
+
+__device__ inline Clusters make_clusters(const float*& p, int n, int on) {
+  Clusters k;
+  k.n_l2 = n_super(n, on);
+  k.n_cl = k.n_l2 * (kSuper / kCluster);
+  k.cb = p;
+  k.sb = k.cb + 6 * k.n_cl;
+  k.ord = k.sb + 6 * k.n_l2;
+  k.lord = k.ord + 6 * k.n_l2;
+  p = k.lord + 6 * k.n_cl;
+  return k;
+}
+
+// Views of the tables at `base`; where the base is a staging area
+// (stage_tables), `nt` points at its ntab.
 __device__ inline Tables make_tables(const float* base, const Counts& c) {
   Tables t;
   t.ls = at_least_one(c.n_sph);
@@ -90,6 +150,11 @@ __device__ inline Tables make_tables(const float* base, const Counts& c) {
   t.med = t.box + N_BOX_COLS * t.lb;
   t.mat = t.med + N_MED_COLS * t.lm;
   t.tex = t.mat + N_MAT_COLS * t.lmat;
+  const float* p = t.tex + N_TEX_COLS * t.ltex;
+  t.scl = make_clusters(p, c.n_sph, c.hier_sph);
+  t.bcl = make_clusters(p, c.n_box, c.hier_box);
+  t.nld = kNoiseN * c.n_noise;
+  t.nt = c.n_noise ? base + table_floats(c) + kCamvLen + 4 : nullptr;
   return t;
 }
 
@@ -142,7 +207,35 @@ __device__ void hash_gradient(uint32_t ix, uint32_t iy, uint32_t iz, uint32_t se
   gz = z;
 }
 
-__device__ float perlin_noise(float px, float py, float pz, uint32_t seed_u) {
+// The lattice's gradient at an integer corner: the hash above, or the
+// reference's 256-entry tables (JAX _table_perlin, megakernel.py:583-621;
+// PerlinNoiseGen.cpp:66-88) gathered from the staged ntab at this texture's
+// block `base` (nslot * 256), coordinates masked & 255 as uint32.
+struct HashLattice {
+  uint32_t seed;
+  __device__ __forceinline__ void at(uint32_t ix, uint32_t iy, uint32_t iz, float& gx,
+                                     float& gy, float& gz) const {
+    hash_gradient(ix, iy, iz, seed, gx, gy, gz);
+  }
+};
+
+struct TableLattice {
+  const float* nt;
+  int ld, base;
+  __device__ __forceinline__ void at(uint32_t ix, uint32_t iy, uint32_t iz, float& gx,
+                                     float& gy, float& gz) const {
+    const int px = (int)nt[base + (int)(ix & 255u)];
+    const int py = (int)nt[ld + base + (int)(iy & 255u)];
+    const int pz = (int)nt[2 * ld + base + (int)(iz & 255u)];
+    const int gi = base + (px ^ py ^ pz);
+    gx = nt[3 * ld + gi];
+    gy = nt[4 * ld + gi];
+    gz = nt[5 * ld + gi];
+  }
+};
+
+template <class Lattice>
+__device__ float perlin_noise(float px, float py, float pz, const Lattice& lat) {
   float fx = floorf(px), fy = floorf(py), fz = floorf(pz);
   uint32_t ix = (uint32_t)(int32_t)fx, iy = (uint32_t)(int32_t)fy, iz = (uint32_t)(int32_t)fz;
   float u = px - fx, v = py - fy, w = pz - fz;
@@ -157,7 +250,7 @@ __device__ float perlin_noise(float px, float py, float pz, uint32_t seed_u) {
       for (int dk = 0; dk < 2; ++dk) {
         float wk = dk ? ww : (1.0f - ww);
         float gx, gy, gz;
-        hash_gradient(ix + di, iy + dj, iz + dk, seed_u, gx, gy, gz);
+        lat.at(ix + di, iy + dj, iz + dk, gx, gy, gz);
         float dot = gx * (u - (float)di) + gy * (v - (float)dj) + gz * (w - (float)dk);
         accum = accum + wi * wj * wk * dot;
       }
@@ -166,16 +259,27 @@ __device__ float perlin_noise(float px, float py, float pz, uint32_t seed_u) {
   return accum;
 }
 
-__device__ float turbulence(float px, float py, float pz, uint32_t seed_u) {
+template <class Lattice>
+__device__ float turbulence(float px, float py, float pz, const Lattice& lat) {
   float accum = 0.0f, weight = 1.0f;
   for (int i = 0; i < 7; ++i) {
-    accum = accum + weight * perlin_noise(px, py, pz, seed_u);
+    accum = accum + weight * perlin_noise(px, py, pz, lat);
     weight *= 0.5f;
     px *= 2.0f;
     py *= 2.0f;
     pz *= 2.0f;
   }
   return fabsf(accum);
+}
+
+// Marble or Perlin factor of a noise texture at p (Texture.cpp:13-22).
+template <class Lattice>
+__device__ float noise_factor(float px, float py, float pz, float t_scale, float t_ntype,
+                              const Lattice& lat) {
+  if (t_ntype == kNoiseMarble) {
+    return 0.5f * (1.0f + sinf(t_scale * pz + 10.0f * turbulence(px, py, pz, lat)));
+  }
+  return 0.5f * (1.0f + perlin_noise(t_scale * px, t_scale * py, t_scale * pz, lat));
 }
 
 // ---- closest hit (make_family_bodies + _closest_hit, :635-882) -------------
@@ -320,18 +424,84 @@ __device__ __forceinline__ bool medium_test(const Tables& T, int m, uint32_t key
   return v;
 }
 
-// The flat sweep. With kTrack it also writes the winner to *win (the
-// forward kernels instantiate it without).
+// Slab test of AABB `c` of a [6, n] table against the ray's interval
+// (JAX _hier_sweep.could_hit): t1 > max(t0, t_min) and t0 < best.
+__device__ __forceinline__ bool could_hit(const float* bb, int n, int c, float ox, float oy,
+                                          float oz, float ix, float iy, float iz, float best) {
+  float tax = (bb[c] - ox) * ix;
+  float tbx = (bb[3 * n + c] - ox) * ix;
+  float tay = (bb[n + c] - oy) * iy;
+  float tby = (bb[4 * n + c] - oy) * iy;
+  float taz = (bb[2 * n + c] - oz) * iz;
+  float tbz = (bb[5 * n + c] - oz) * iz;
+  float t0 = fmaxf(fminf(tax, tbx), fmaxf(fminf(tay, tby), fminf(taz, tbz)));
+  float t1 = fminf(fmaxf(tax, tbx), fminf(fmaxf(tay, tby), fmaxf(taz, tbz)));
+  return t1 > fmaxf(t0, kTMin) && t0 < best;
+}
+
+// Visit order of a ray (0..5: +x, -x, +y, -y, +z, -z) by the dominant axis
+// of its direction (JAX _closest_hit's rule, :843-856, for one lane).
+__device__ __forceinline__ int sweep_dir(float dx, float dy, float dz) {
+  const float ax = fabsf(dx), ay = fabsf(dy), az = fabsf(dz);
+  const bool is_x = ax >= ay && ax >= az;
+  const bool is_y = !is_x && ay >= az;
+  return is_x ? (dx >= 0.0f ? 0 : 1) : is_y ? (dy >= 0.0f ? 2 : 3) : (dz >= 0.0f ? 4 : 5);
+}
+
+// The two-level cluster-skip walk over the n records of a clustered family
+// (JAX _hier_sweep): superclusters in the order of `dir`, then the clusters
+// inside each in order, each entered only when its AABB passes could_hit
+// with the running best t; `test(p)` runs the record test of record p. A
+// family of one supercluster walks its clusters in index order, as JAX does.
+template <class Test>
+__device__ __forceinline__ void hier_sweep(const Clusters& C, int n, int dir, float ox,
+                                           float oy, float oz, float ix, float iy, float iz,
+                                           const Rec& r, Test test) {
+  constexpr int kRatio = kSuper / kCluster;
+  auto cluster = [&](int c1) {
+    if (!could_hit(C.cb, C.n_cl, c1, ox, oy, oz, ix, iy, iz, r.t)) return;
+    const int p1 = min(c1 * kCluster + kCluster, n);
+    for (int p = c1 * kCluster; p < p1; ++p) test(p);
+  };
+  if (C.n_l2 < 2) {
+    for (int c1 = 0; c1 < C.n_cl; ++c1) cluster(c1);
+    return;
+  }
+  for (int i = 0; i < C.n_l2; ++i) {
+    const int c2 = (int)C.ord[dir * C.n_l2 + i];
+    if (!could_hit(C.sb, C.n_l2, c2, ox, oy, oz, ix, iy, iz, r.t)) continue;
+    for (int j = 0; j < kRatio; ++j) cluster((int)C.lord[dir * C.n_cl + c2 * kRatio + j]);
+  }
+}
+
+// The closest-hit sweep: quads and media flat in record order, spheres and
+// AA boxes flat or through hier_sweep where they are clustered. With kTrack
+// it also writes the winner to *win (the forward kernels instantiate it
+// without).
 template <bool kTrack = false>
 __device__ Rec closest_hit(const Tables& T, const Counts& c, uint32_t key, float bn,
                            float tm, float ox, float oy, float oz, float dx, float dy,
                            float dz, float a, float inv_a, Winner* win = nullptr) {
   Rec r{kBig, -1.0f, 0.0f, 0.0f, 0.0f, 0.0f, 1.0f};
+  const bool hs = T.scl.n_cl > 0, hb = T.bcl.n_cl > 0;
+  float inv_dx = 0.0f, inv_dy = 0.0f, inv_dz = 0.0f;
+  int dir = 0;
+  if (hs || c.n_box) {
+    inv_dx = safe_inv(dx);
+    inv_dy = safe_inv(dy);
+    inv_dz = safe_inv(dz);
+  }
+  if (hs || hb) dir = sweep_dir(dx, dy, dz);
 
-  for (int p = 0; p < c.n_sph; ++p) {
+  auto sph = [&](int p) {
     if (sphere_test(T, p, tm, ox, oy, oz, dx, dy, dz, a, inv_a, r.t, r)) {
       if constexpr (kTrack) *win = Winner{0, p};
     }
+  };
+  if (hs) {
+    hier_sweep(T.scl, c.n_sph, dir, ox, oy, oz, inv_dx, inv_dy, inv_dz, r, sph);
+  } else {
+    for (int p = 0; p < c.n_sph; ++p) sph(p);
   }
 
   for (int p = 0; p < c.n_quad; ++p) {
@@ -340,13 +510,15 @@ __device__ Rec closest_hit(const Tables& T, const Counts& c, uint32_t key, float
     }
   }
 
-  if (c.n_box) {
-    float inv_dx = safe_inv(dx), inv_dy = safe_inv(dy), inv_dz = safe_inv(dz);
-    for (int bi = 0; bi < c.n_box; ++bi) {
-      if (box_test(T, bi, ox, oy, oz, dx, dy, dz, inv_dx, inv_dy, inv_dz, r.t, r.aux, r)) {
-        if constexpr (kTrack) *win = Winner{2, bi};
-      }
+  auto box = [&](int bi) {
+    if (box_test(T, bi, ox, oy, oz, dx, dy, dz, inv_dx, inv_dy, inv_dz, r.t, r.aux, r)) {
+      if constexpr (kTrack) *win = Winner{2, bi};
     }
+  };
+  if (hb) {
+    hier_sweep(T.bcl, c.n_box, dir, ox, oy, oz, inv_dx, inv_dy, inv_dz, r, box);
+  } else {
+    for (int bi = 0; bi < c.n_box; ++bi) box(bi);
   }
 
   if (c.n_med) {
@@ -409,13 +581,14 @@ __device__ void bounce(Path& s, const Tables& T, const Counts& c, const float* b
   }
   float t_alr = T.tx(TALR, ti), t_alg = T.tx(TALG, ti), t_alb = T.tx(TALB, ti);
   if (has_noise && valid && T.tx(TTYPE, ti) == kTexNoise) {
-    float t_scale = T.tx(TSCALE, ti);
-    uint32_t nseed = mix((uint32_t)(int32_t)leaf ^ 0x5EEDBA5Eu);
+    float t_scale = T.tx(TSCALE, ti), t_ntype = T.tx(TNTYPE, ti);
     float nfac;
-    if (T.tx(TNTYPE, ti) == kNoiseMarble) {
-      nfac = 0.5f * (1.0f + sinf(t_scale * pz + 10.0f * turbulence(px, py, pz, nseed)));
+    if (T.nt) {
+      nfac = noise_factor(px, py, pz, t_scale, t_ntype,
+                          TableLattice{T.nt, T.nld, (int)T.tx(TNSLOT, ti) * kNoiseN});
     } else {
-      nfac = 0.5f * (1.0f + perlin_noise(t_scale * px, t_scale * py, t_scale * pz, nseed));
+      nfac = noise_factor(px, py, pz, t_scale, t_ntype,
+                          HashLattice{mix((uint32_t)(int32_t)leaf ^ 0x5EEDBA5Eu)});
     }
     t_alr = t_alr * nfac;
     t_alg = t_alg * nfac;
@@ -556,23 +729,27 @@ __device__ __forceinline__ void camera_ray(Path& s, float& tm, const float* cv, 
   s.tpr = s.tpg = s.tpb = 1.0f;
 }
 
-// Dynamic shared memory of one block: the packed tables, camv, background.
+// Dynamic shared memory of one block: the packed tables, camv, background
+// and ntab.
 __host__ __device__ inline int block_smem_bytes(const Counts& c) {
-  return (table_floats(c) + kCamvLen + 4) * (int)sizeof(float);
+  return stage_floats(c) * (int)sizeof(float);
 }
 
-// Stage the packed tables, camv and background in shared memory; returns the
-// staged camv (zeros where `camv_g` is null: a kernel without a camera).
-// Every thread of the block must call it.
+// Stage the packed tables, camv, background and ntab (c.n_noise tables of
+// `ntab_g`) in shared memory; returns the staged camv (zeros where `camv_g`
+// is null: a kernel without a camera). Every thread of the block must call
+// it.
 __device__ __forceinline__ const float* stage_tables(float* smem, const float* camv_g,
                                                      const float* bg_g, const float* tables_g,
-                                                     const Counts& c) {
+                                                     const float* ntab_g, const Counts& c) {
   const int n_tab = table_floats(c);
   float* cv = smem + n_tab;
   float* bg = cv + kCamvLen;
+  float* nt = bg + 4;
   for (int i = threadIdx.x; i < n_tab; i += blockDim.x) smem[i] = tables_g[i];
   for (int i = threadIdx.x; i < kCamvLen; i += blockDim.x) cv[i] = camv_g ? camv_g[i] : 0.0f;
   if (threadIdx.x < 3) bg[threadIdx.x] = bg_g[threadIdx.x];
+  for (int i = threadIdx.x; i < ntab_floats(c); i += blockDim.x) nt[i] = ntab_g[i];
   __syncthreads();
   return cv;
 }

@@ -17,13 +17,17 @@
 // steps while its own slot is runnable, and stores them back; no state is
 // shared between threads. A slot that could not run is not written.
 //
-// What bounds it on this card: the flat closest-hit sweep's operations, as in
-// megakernel_v4.cu (whose device code it shares through path_common.cuh, so a
-// path computes the same f32 sequence in both kernels and the images are
-// bitwise equal). The state traffic is 136 B per slot per launch, read and
+// What bounds it on this card: the closest-hit sweep's operations, as in
+// megakernel_v4.cu (whose device code it shares through path_common.cuh —
+// the cluster skip and table noise included — so a path computes the same
+// f32 sequence in both kernels and the images are bitwise equal). The sort
+// between launches gives neighbouring threads nearby origins and the same
+// direction octant, so they tend to take the same visit order and enter the
+// same clusters. The state traffic is 136 B per slot per launch, read and
 // written: about 49 MB at 600x600, some 15 us at 3.35 TB/s, small beside the
-// sweep. The scene tables and camv are staged in dynamic shared memory per
-// block as v4 does (book 2: about 50 KB, inside the 227 KB opt-in).
+// sweep. The scene tables, cluster tables, camv and ntab are staged in
+// dynamic shared memory per block as v4 does (book 2: about 60 KB, inside
+// the 227 KB opt-in).
 //
 // Build: as megakernel_v4.cu (ops/kernels/build.py, -fmad=false), bound
 //        through ctypes.
@@ -38,10 +42,11 @@ enum StateCol { S_LANE, PID, BN, AL, OX, OY, OZ, DX, DY, DZ, TM, TPR, TPG, TPB,
 
 __global__ void __launch_bounds__(kThreads)
 wavefront_step(const float* __restrict__ camv_g, int seed, const float* __restrict__ bg_g,
-               const float* __restrict__ tables_g, Counts c, float* __restrict__ state,
-               int n_slots, int k_bounces, int max_depth, int checker_depth, int has_noise) {
+               const float* __restrict__ tables_g, const float* __restrict__ ntab_g, Counts c,
+               float* __restrict__ state, int n_slots, int k_bounces, int max_depth,
+               int checker_depth, int has_noise) {
   extern __shared__ float smem[];
-  const float* cv = stage_tables(smem, camv_g, bg_g, tables_g, c);
+  const float* cv = stage_tables(smem, camv_g, bg_g, tables_g, ntab_g, c);
   const float* bg = cv + kCamvLen;
 
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
@@ -102,22 +107,24 @@ extern "C" {
 
 // Bytes of dynamic shared memory one block of the kernel needs.
 int wavefront_step_smem_bytes(int n_sph, int n_quad, int n_mat, int n_tex, int n_med,
-                              int n_box) {
-  return block_smem_bytes(Counts{n_sph, n_quad, n_mat, n_tex, n_med, n_box});
+                              int n_box, int hier_sph, int hier_box, int n_noise) {
+  return block_smem_bytes(
+      Counts{n_sph, n_quad, n_mat, n_tex, n_med, n_box, hier_sph, hier_box, n_noise});
 }
 
 int wavefront_step_state_cols() { return N_STATE_COLS; }
 
 // Advance `state` [17, n_slots] in place on `stream`; returns the cudaError_t
-// of the launch.
+// of the launch. `ntab` holds n_noise Perlin tables (null for hash noise).
 int wavefront_step_launch(int device, const float* camv, int seed, const float* bg,
                           const float* tables, int n_sph, int n_quad, int n_mat, int n_tex,
-                          int n_med, int n_box, float* state, int n_slots, int k_bounces,
-                          int max_depth, int checker_depth, int has_noise, void* stream) {
+                          int n_med, int n_box, int hier_sph, int hier_box, const float* ntab,
+                          int n_noise, float* state, int n_slots, int k_bounces, int max_depth,
+                          int checker_depth, int has_noise, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (n_slots <= 0 || k_bounces <= 0) return (int)cudaSuccess;
-  Counts c{n_sph, n_quad, n_mat, n_tex, n_med, n_box};
+  Counts c{n_sph, n_quad, n_mat, n_tex, n_med, n_box, hier_sph, hier_box, n_noise};
   int smem = block_smem_bytes(c);
   if (smem > 48 * 1024) {
     err = cudaFuncSetAttribute(wavefront_step, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -126,7 +133,7 @@ int wavefront_step_launch(int device, const float* camv, int seed, const float* 
   }
   int blocks = (n_slots + kThreads - 1) / kThreads;
   wavefront_step<<<blocks, kThreads, smem, (cudaStream_t)stream>>>(
-      camv, seed, bg, tables, c, state, n_slots, k_bounces, max_depth, checker_depth,
+      camv, seed, bg, tables, ntab, c, state, n_slots, k_bounces, max_depth, checker_depth,
       has_noise);
   return (int)cudaGetLastError();
 }

@@ -15,10 +15,12 @@ scene the radiance is piecewise constant in geometry, so geometry and
 camera gradients are exactly zero there; a noise texture makes them
 continuous.
 
-The JAX package falls back to its XLA scan for scenes outside the gradient
-kernel's gates (ellipsoids, depth above 64, more than 4,096 records, table
-Perlin). That path is not ported yet: such scenes raise
-``NotImplementedError`` naming the ROADMAP item that brings them.
+Noise textures differentiate through hash noise or, with
+``noise_impl="table"``, the reference's Perlin tables (held constant). The
+JAX package falls back to its XLA scan for scenes outside the gradient
+kernel's gates (ellipsoids, depth above 64, more than 4,096 records). That
+path is not ported yet: such scenes raise ``NotImplementedError`` naming the
+ROADMAP item that brings them.
 """
 
 from __future__ import annotations
@@ -36,10 +38,6 @@ def _check_supported(features, max_depth) -> None:
         raise NotImplementedError(
             "scene has no kernel sizes (ellipsoids): its gradient needs the non-kernel "
             "path's differentiable scan, which is not ported yet (ROADMAP queue A item 12)")
-    if features.get("noise_impl", "hash") != "hash":
-        raise NotImplementedError(
-            "table Perlin noise (noise_impl='table') is not ported yet (ROADMAP queue B "
-            "item 5, B1's options)")
     if not mkg.grad_supported(tuple(sizes), max_depth):
         raise NotImplementedError(
             f"depth {max_depth} (gradient kernel: at most {mkg.GRAD_MAX_DEPTH}) or "

@@ -18,9 +18,12 @@ import torch
 from raytrace2_tpu_torch.ops import rng
 
 CAMV_LEN = 28
-# Lane tile of the JAX v4 kernel on the linear layout (32×128 lanes); only
-# camv[26] (the pixel-block grid width, unused on the linear layout) uses it.
+# camv[26] is the pixel-block grid width, ceil(width / block). On the linear
+# layout nothing reads it, and it is the JAX v4 kernel's, whose 32x128-lane
+# tile gives block 64; the port's block-tiled v4 tile is one CUDA block of
+# 256 lanes, a 16x16 pixel block (csrc/megakernel_v4.cu).
 _TILE_BLOCK = 64
+PIXEL_BLOCK = 16
 
 
 def _f32(x) -> torch.Tensor:
@@ -71,14 +74,16 @@ def camera_frame(cam, width: int, height: int) -> dict:
 
 
 def make_camv(cam, width: int, height: int, sample0: int, n_samples: int,
-              sqrt_spp: int, seed: int) -> torch.Tensor:
+              sqrt_spp: int, seed: int, block: int = _TILE_BLOCK) -> torch.Tensor:
     """The 28-entry control vector (JAX integrator.py:365-378), f32 CPU.
-    slot0 (a shard's first pixel) is 0: one device renders every pixel."""
+    slot0 (a shard's first pixel) is 0: one device renders every pixel.
+    ``block`` is the side of the pixel block of the lane layout
+    (``PIXEL_BLOCK`` for the block-tiled one)."""
     frame = camera_frame(cam, width, height)
     tail = torch.tensor([
         float(frame["defocus_angle"].detach()), float(width), float(width * height),
         float(sample0), float(n_samples), float(sqrt_spp), float(seed),
-        0.0, float(-(-width // _TILE_BLOCK)), float(height),
+        0.0, float(-(-width // block)), float(height),
     ], dtype=torch.float32)
     return torch.cat([
         frame["pixel00"], frame["pixel_delta_u"], frame["pixel_delta_v"],
@@ -174,10 +179,25 @@ def camera_ray(cv, xx, yy, sqrt_spp, s_global_f, key):
     return ox, oy, oz, ddx * inv_len, ddy * inv_len, ddz * inv_len, u4
 
 
-def slot_to_pixel(slot_f: torch.Tensor, cv):
-    """Linear slot layout (slot == pixel id): (xx, yy, in_grid). All values
-    stay below 2^24, so the f32 arithmetic is exact."""
+def slot_to_pixel(slot_f: torch.Tensor, cv, tile_r: int = 0):
+    """Slot → (xx, yy, in_grid) (JAX ``slot_to_pixel``, :1729-1747). With
+    ``tile_r`` = 0 the linear layout (slot == pixel id); else the
+    block-tiled one: tile ``slot // tile_r`` owns the square pixel block of
+    side sqrt(tile_r) at block row ``tile // nbx`` (nbx = camv[26]), pixels
+    row-major inside it, and lanes past the image's edge are idle. All
+    values stay below 2^24, so the f32 arithmetic is exact."""
     width = cv[19]
-    yy = torch.floor(_div(slot_f, width))
-    xx = slot_f - yy * width
-    return xx, yy, slot_f < cv[20]
+    if not tile_r:
+        yy = torch.floor(_div(slot_f, width))
+        xx = slot_f - yy * width
+        return xx, yy, slot_f < cv[20]
+    block = int(round(tile_r ** 0.5))
+    tile_f = torch.floor(slot_f * (1.0 / tile_r))
+    within = slot_f - tile_f * tile_r
+    by = torch.floor(_div(tile_f, cv[26]))
+    bx = tile_f - by * cv[26]
+    ly = torch.floor(within * (1.0 / block))
+    lx = within - ly * block
+    xx = bx * block + lx
+    yy = by * block + ly
+    return xx, yy, (xx < width) & (yy < cv[27])

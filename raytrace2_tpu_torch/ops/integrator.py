@@ -6,7 +6,11 @@ Two routes, as in the JAX package:
   :346-465): scenes with at most 256 sweep records render through the v4
   kernel on the linear slot layout with instant regeneration; larger ones
   (books 1 and 2) through the sorted wavefront (``ops/kernels/wavefront.py``),
-  whose K-bounce kernel advances the slot state between Morton sorts.
+  whose K-bounce kernel advances the slot state between Morton sorts. v4
+  forced on a scene of more than 512 records takes JAX's block-tiled lane
+  layout with wave regeneration at half occupancy. With
+  ``noise_impl="table"`` both kernels evaluate the reference's Perlin
+  tables (``megakernel.pack_noise_tables``) instead of hash noise.
 * **The non-kernel path** (``_make_step``, ``trace_rays``, ``render_sample``,
   :37-311): one progressive sample at a time, a bounce loop over ray state
   with phased compaction, the closest hit from ``ops/intersect.py`` (dense,
@@ -23,9 +27,11 @@ otherwise.
 Feature knobs read on the kernel path, named as in the JAX package:
 ``mega_wavefront`` forces the route either way; ``mega_k_bounces``,
 ``mega_sort_every``, ``mega_sort_key``, ``mega_tail_k``, ``mega_tail_frac``,
-``mega_tail_compact`` and ``mega_sort_impl`` set the wavefront's schedule
-(none changes the image). ``mega_sublanes`` and ``mega_state_packed`` are
-TPU tile and layout knobs that choose nothing here. On the non-kernel path:
+``mega_tail_compact`` and ``mega_sort_impl`` set the wavefront's schedule,
+``mega_wave_frac`` and ``mega_linear`` v4's (none changes the image).
+``mega_sublanes`` and ``mega_state_packed`` are TPU tile and layout knobs
+that choose nothing here: the port's tiles are its CUDA blocks. On the
+non-kernel path:
 ``rng_impl`` ("murmur" for the kernels' streams), ``compaction_phases`` (3)
 and ``compaction_ratio`` (8); on B4's: ``mega_phases`` (2) and
 ``mega_ratio`` (16).
@@ -45,6 +51,9 @@ from raytrace2_tpu_torch.ops.kernels import wavefront as wf
 # JAX mega_schedule's threshold: above it, scenes go to the sorted
 # wavefront kernel (wavefront_sorted.py::_bounce_step_kernel).
 WAVEFRONT_MIN_RECORDS = 256
+# Above this many records v4 takes the block-tiled layout and wave
+# regeneration (JAX mega_schedule's ``big``).
+BLOCK_MIN_RECORDS = 512
 
 
 def n_records(features) -> int:
@@ -55,13 +64,19 @@ def n_records(features) -> int:
 
 def mega_schedule(features) -> tuple:
     """(sublanes, wave_frac, linear, wavefront) as the JAX package picks them
-    on its two ported branches: the sorted wavefront (24×128 tiles, linear
-    slots) above 256 records or when ``mega_wavefront`` is set, else v4 with
-    32×128 tiles, instant regeneration and linear slots. Only ``wavefront``
-    chooses anything in the port: its kernels have no tiles."""
+    (:314-343): the sorted wavefront (24×128 tiles, linear slots) above 256
+    records or when ``mega_wavefront`` is set; else v4, above 512 records
+    with 8×128 tiles, wave regeneration at ``wave_frac`` 0.5 and the
+    block-tiled layout, below with 32×128 tiles, instant regeneration and
+    linear slots; ``mega_sublanes``, ``mega_wave_frac`` and ``mega_linear``
+    override them. ``sublanes`` chooses nothing in the port, whose tiles
+    are its CUDA blocks."""
+    big = n_records(features) > BLOCK_MIN_RECORDS
     if bool(features.get("mega_wavefront", n_records(features) > WAVEFRONT_MIN_RECORDS)):
-        return 24, 1.0, True, True
-    return 32, 1.0, True, False
+        return int(features.get("mega_sublanes", 24)), 1.0, True, True
+    return (int(features.get("mega_sublanes", 8 if big else 32)),
+            float(features.get("mega_wave_frac", 0.5 if big else 1.0)),
+            bool(features.get("mega_linear", not big)), False)
 
 
 def _check_kernel_features(features) -> None:
@@ -69,10 +84,16 @@ def _check_kernel_features(features) -> None:
         raise NotImplementedError(
             "scene has no kernel sizes (ellipsoids): the kernel path cannot render it; "
             "use the non-kernel path (use_megakernel unset, backend 'xla' or 'auto')")
-    if features.get("noise_impl", "hash") != "hash":
-        raise NotImplementedError(
-            "table Perlin noise (noise_impl='table') is not ported yet "
-            "(ROADMAP queue B item 5, B1's options)")
+
+
+def noise_tables(scene, features):
+    """The ``ntab`` operand of table noise (JAX :389-397): the noise
+    textures' Perlin tables when the scene has noise and ``noise_impl`` is
+    "table", else None (hash noise). The tables are constants of the
+    estimator: they carry no gradient."""
+    if features.get("has_noise", False) and features.get("noise_impl", "hash") == "table":
+        return mk.pack_noise_tables(scene, tuple(features["noise_rows"])).detach()
+    return None
 
 
 def _render_batch_megakernel(scene, packed, features, width, height, sample0,
@@ -85,19 +106,28 @@ def _render_batch_megakernel(scene, packed, features, width, height, sample0,
     (JAX :407-436): the same forward, and a backward that launches the
     replay kernel; ``camv`` and ``packed`` then carry the scene leaves'
     graph."""
-    wavefront = mega_schedule(features)[3]
+    _, wave_frac, linear, wavefront = mega_schedule(features)
+    block = not (linear or wavefront)
     n_pix = width * height
-    camv = camera.make_camv(scene.camera, width, height, sample0, n_samples,
-                            sqrt_spp, seed).to(packed.device)
+    camv = camera.make_camv(scene.camera, width, height, sample0, n_samples, sqrt_spp, seed,
+                            **({"block": mk.BLOCK} if block else {})).to(packed.device)
+    ntab = noise_tables(scene, features)
     kw = dict(max_depth=max_depth, sizes=tuple(features["mega_sizes"]),
               has_checker=int(features.get("has_checker", 1)),
-              has_noise=bool(features.get("has_noise", False)))
+              has_noise=bool(features.get("has_noise", False)), ntab=ntab)
     background = scene.background.to(torch.float32).contiguous()
+    if block:
+        n_slots, slot_of_pixel = mk.pixel_slots(width, height, block=True)
+        slot_of_pixel = slot_of_pixel.reshape(-1).to(packed.device)
 
     def forward(camv, seed, packed, background):
+        if block:
+            out = mk.trace_megakernel_batch(camv, seed, packed, background, n_pix=n_slots,
+                                            block=True, wave_frac=wave_frac, **kw)
+            return out[slot_of_pixel]  # de-tile: each pixel's slot (JAX :463-465)
         if not wavefront:
             return mk.trace_megakernel_batch(camv, seed, packed, background,
-                                             n_pix=n_pix, **kw)
+                                             n_pix=n_pix, wave_frac=wave_frac, **kw)
         return wf.trace_wavefront_batch(
             camv, seed, packed, background,
             n_rays=-(-n_pix // wf.SLOT_TILE) * wf.SLOT_TILE,

@@ -97,11 +97,17 @@ def build_all(names=KERNELS) -> dict[str, Path]:
     return paths
 
 
+# ctypes types of the kernels' Counts (csrc/path_common.cuh), as
+# megakernel.counts returns them: six sizes, two cluster flags, n_noise.
+_COUNTS = [ctypes.c_int] * 9
+
+
 def _bind_megakernel_v4(lib: ctypes.CDLL) -> None:
-    i, p = ctypes.c_int, ctypes.c_void_p
-    lib.megakernel_v4_launch.argtypes = [i, p, i, p, p, i, i, i, i, i, i, i, i, i, i, p, p]
+    i, p, f = ctypes.c_int, ctypes.c_void_p, ctypes.c_float
+    lib.megakernel_v4_launch.argtypes = [i, p, i, p, p, *_COUNTS[:8], p, i, i, i, f, i, i, i,
+                                         p, p]
     lib.megakernel_v4_launch.restype = i
-    lib.megakernel_v4_smem_bytes.argtypes = [i] * 6
+    lib.megakernel_v4_smem_bytes.argtypes = _COUNTS
     lib.megakernel_v4_smem_bytes.restype = i
     lib.megakernel_v4_error_string.argtypes = [i]
     lib.megakernel_v4_error_string.restype = ctypes.c_char_p
@@ -109,9 +115,10 @@ def _bind_megakernel_v4(lib: ctypes.CDLL) -> None:
 
 def _bind_wavefront_step(lib: ctypes.CDLL) -> None:
     i, p = ctypes.c_int, ctypes.c_void_p
-    lib.wavefront_step_launch.argtypes = [i, p, i, p, p, i, i, i, i, i, i, p, i, i, i, i, i, p]
+    lib.wavefront_step_launch.argtypes = [i, p, i, p, p, *_COUNTS[:8], p, i, p, i, i, i, i, i,
+                                          p]
     lib.wavefront_step_launch.restype = i
-    lib.wavefront_step_smem_bytes.argtypes = [i] * 6
+    lib.wavefront_step_smem_bytes.argtypes = _COUNTS
     lib.wavefront_step_smem_bytes.restype = i
     lib.wavefront_step_state_cols.argtypes = []
     lib.wavefront_step_state_cols.restype = i
@@ -121,10 +128,10 @@ def _bind_wavefront_step(lib: ctypes.CDLL) -> None:
 
 def _bind_megakernel_grad(lib: ctypes.CDLL) -> None:
     i, p = ctypes.c_int, ctypes.c_void_p
-    lib.megakernel_grad_launch.argtypes = [i, p, i, p, p, i, i, i, i, i, i, i, i, i, i,
+    lib.megakernel_grad_launch.argtypes = [i, p, i, p, p, *_COUNTS[:8], p, i, i, i, i, i,
                                            p, p, p, p, i, p, p]
     lib.megakernel_grad_launch.restype = i
-    lib.megakernel_grad_smem_bytes.argtypes = [i] * 7
+    lib.megakernel_grad_smem_bytes.argtypes = _COUNTS + [i]
     lib.megakernel_grad_smem_bytes.restype = i
     lib.megakernel_grad_error_string.argtypes = [i]
     lib.megakernel_grad_error_string.restype = ctypes.c_char_p
@@ -140,10 +147,9 @@ def _bind_intersect_kernel(lib: ctypes.CDLL) -> None:
 
 def _bind_megakernel_v3(lib: ctypes.CDLL) -> None:
     i, p = ctypes.c_int, ctypes.c_void_p
-    lib.megakernel_v3_launch.argtypes = [i, p, p, i, i, i, i, i, i, p, p, i, i, i, i, i, i,
-                                         p, p]
+    lib.megakernel_v3_launch.argtypes = [i, p, p, *_COUNTS[:8], p, p, i, i, i, i, i, i, p, p]
     lib.megakernel_v3_launch.restype = i
-    lib.megakernel_v3_smem_bytes.argtypes = [i] * 6
+    lib.megakernel_v3_smem_bytes.argtypes = _COUNTS[:8]
     lib.megakernel_v3_smem_bytes.restype = i
     for name in ("megakernel_v3_state_cols", "megakernel_v3_tile"):
         getattr(lib, name).argtypes = []
@@ -185,29 +191,44 @@ def _check_smem(smem: int) -> None:
                          f"above the {MAX_SMEM_BYTES} B a block can have")
 
 
-def launch_megakernel_v4(camv, seed: int, background, packed, out, *, n_pix,
-                         max_depth, sizes, checker_depth, has_noise) -> None:
-    """Launch ``megakernel_v4`` writing ``out`` [n_pix, 3]; raises on a
-    refused launch."""
+def _ntab_args(ntab, device) -> tuple:
+    """(pointer, tables) of an optional ntab operand [6, T*256]."""
+    if ntab is None:
+        return None, 0
+    _require_cuda(ntab=ntab)
+    if ntab.device != device:
+        raise ValueError(f"ntab is on {ntab.device}, expected {device}")
+    return ntab.data_ptr(), ntab.shape[1] // 256
+
+
+def launch_megakernel_v4(camv, seed: int, background, packed, ntab, out, *, n_pix,
+                         max_depth, counts, checker_depth, has_noise, block=False,
+                         wave_frac=1.0) -> None:
+    """Launch ``megakernel_v4`` writing ``out`` [n_pix, 3] (one row per slot
+    of the linear or, with ``block``, the block-tiled layout); ``counts`` is
+    ``megakernel.counts`` of the scene, whose n_noise must match ``ntab``;
+    raises on a refused launch."""
     device = _require_cuda(camv=camv, background=background, packed=packed, out=out)
     if out.numel() != 3 * n_pix:
         raise ValueError("out must hold n_pix x 3 floats")
+    nt, n_noise = _ntab_args(ntab, device)
+    if n_noise != counts[8]:
+        raise ValueError("counts and ntab disagree on the number of noise tables")
     lib = load("megakernel_v4")
-    n_sph, n_quad, n_mat, n_tex, n_med, n_box = (int(x) for x in sizes)
-    _check_smem(lib.megakernel_v4_smem_bytes(n_sph, n_quad, n_mat, n_tex, n_med, n_box))
+    _check_smem(lib.megakernel_v4_smem_bytes(*counts))
     stream = torch.cuda.current_stream(device).cuda_stream
     err = lib.megakernel_v4_launch(
         device.index, camv.data_ptr(), int(seed), background.data_ptr(),
-        packed.data_ptr(), n_sph, n_quad, n_mat, n_tex, n_med, n_box,
-        int(n_pix), int(max_depth), int(checker_depth), int(bool(has_noise)),
+        packed.data_ptr(), *counts[:8], nt, n_noise, int(n_pix), int(bool(block)),
+        float(wave_frac), int(max_depth), int(checker_depth), int(bool(has_noise)),
         out.data_ptr(), stream)
     if err:
         msg = lib.megakernel_v4_error_string(err).decode()
         raise RuntimeError(f"megakernel_v4 launch failed: {msg} (cudaError {err})")
 
 
-def launch_wavefront_step(camv, seed: int, background, packed, state, *, n_slots,
-                          k_bounces, max_depth, sizes, checker_depth, has_noise) -> None:
+def launch_wavefront_step(camv, seed: int, background, packed, ntab, state, *, n_slots,
+                          k_bounces, max_depth, counts, checker_depth, has_noise) -> None:
     """Launch ``wavefront_step``, advancing ``state`` [17, n_slots] in place
     by up to ``k_bounces`` steps per slot; raises on a refused launch."""
     device = _require_cuda(camv=camv, background=background, packed=packed, state=state)
@@ -215,28 +236,29 @@ def launch_wavefront_step(camv, seed: int, background, packed, state, *, n_slots
     if state.dim() != 2 or tuple(state.shape) != (lib.wavefront_step_state_cols(), n_slots):
         raise ValueError(f"state must be [{lib.wavefront_step_state_cols()}, n_slots], "
                          f"got {tuple(state.shape)}")
-    n_sph, n_quad, n_mat, n_tex, n_med, n_box = (int(x) for x in sizes)
-    _check_smem(lib.wavefront_step_smem_bytes(n_sph, n_quad, n_mat, n_tex, n_med, n_box))
+    nt, n_noise = _ntab_args(ntab, device)
+    if n_noise != counts[8]:
+        raise ValueError("counts and ntab disagree on the number of noise tables")
+    _check_smem(lib.wavefront_step_smem_bytes(*counts))
     stream = torch.cuda.current_stream(device).cuda_stream
     err = lib.wavefront_step_launch(
         device.index, camv.data_ptr(), int(seed), background.data_ptr(),
-        packed.data_ptr(), n_sph, n_quad, n_mat, n_tex, n_med, n_box,
-        state.data_ptr(), int(n_slots), int(k_bounces), int(max_depth),
-        int(checker_depth), int(bool(has_noise)), stream)
+        packed.data_ptr(), *counts[:8], nt, n_noise, state.data_ptr(), int(n_slots),
+        int(k_bounces), int(max_depth), int(checker_depth), int(bool(has_noise)), stream)
     if err:
         msg = lib.wavefront_step_error_string(err).decode()
         raise RuntimeError(f"wavefront_step launch failed: {msg} (cudaError {err})")
 
 
-def launch_megakernel_grad(camv, seed: int, background, packed, g, d_camv, d_bg, d_packed, *,
-                           n_pix, max_depth, sizes, checker_depth, has_noise,
+def launch_megakernel_grad(camv, seed: int, background, packed, ntab, g, d_camv, d_bg,
+                           d_packed, *, n_pix, max_depth, counts, checker_depth, has_noise,
                            bounces=None) -> None:
     """Launch ``megakernel_grad``, adding the render's vector-Jacobian product
     with ``g`` [n_pix, 3] to ``d_camv`` [28], ``d_bg`` [3] and ``d_packed``
     (zeroed by the caller); raises on a refused launch. The table cotangents
     accumulate in shared memory where two copies of the tables fit, else in
-    device memory. ``bounces`` (an int64 [1] CUDA tensor, optional) gets the
-    number of replayed bounces added."""
+    device memory. ``ntab`` takes no cotangent. ``bounces`` (an int64 [1]
+    CUDA tensor, optional) gets the number of replayed bounces added."""
     device = _require_cuda(camv=camv, background=background, packed=packed, g=g,
                            d_camv=d_camv, d_bg=d_bg, d_packed=d_packed)
     if g.numel() != 3 * n_pix or d_camv.numel() != camv.numel() \
@@ -245,16 +267,19 @@ def launch_megakernel_grad(camv, seed: int, background, packed, g, d_camv, d_bg,
     if bounces is not None and (bounces.dtype != torch.int64 or bounces.device != device
                                 or bounces.numel() != 1):
         raise ValueError("bounces must be an int64 [1] tensor on the tables' device")
+    nt, n_noise = _ntab_args(ntab, device)
+    if n_noise != counts[8]:
+        raise ValueError("counts and ntab disagree on the number of noise tables")
     lib = load("megakernel_grad")
-    counts = [int(x) for x in sizes]
     shared_cot = int(lib.megakernel_grad_smem_bytes(*counts, 1) <= MAX_SMEM_BYTES)
     _check_smem(lib.megakernel_grad_smem_bytes(*counts, shared_cot))
     stream = torch.cuda.current_stream(device).cuda_stream
     err = lib.megakernel_grad_launch(
         device.index, camv.data_ptr(), int(seed), background.data_ptr(), packed.data_ptr(),
-        *counts, int(n_pix), int(max_depth), int(checker_depth), int(bool(has_noise)),
-        g.data_ptr(), d_camv.data_ptr(), d_bg.data_ptr(), d_packed.data_ptr(), shared_cot,
-        None if bounces is None else bounces.data_ptr(), stream)
+        *counts[:8], nt, n_noise, int(n_pix), int(max_depth), int(checker_depth),
+        int(bool(has_noise)), g.data_ptr(), d_camv.data_ptr(), d_bg.data_ptr(),
+        d_packed.data_ptr(), shared_cot, None if bounces is None else bounces.data_ptr(),
+        stream)
     if err:
         msg = lib.megakernel_grad_error_string(err).decode()
         raise RuntimeError(f"megakernel_grad launch failed: {msg} (cudaError {err})")
@@ -284,7 +309,7 @@ def launch_intersect_kernel(o, d, time, t_min, t_max, sph, qd, out_t, out_code) 
 
 
 def launch_megakernel_v3(background, packed, state, rid, radiance, *, seed_lane, min_alive,
-                         max_depth, sizes, checker_depth, has_noise) -> None:
+                         max_depth, counts, checker_depth, has_noise) -> None:
     """Launch one ``megakernel_v3`` pass: ``state`` [12, n] advanced in place,
     ``rid`` [n] int32, this pass's radiance written to ``radiance`` [n, 3];
     raises on a refused launch."""
@@ -300,12 +325,11 @@ def launch_megakernel_v3(background, packed, state, rid, radiance, *, seed_lane,
     if radiance.numel() != 3 * n or n % lib.megakernel_v3_tile():
         raise ValueError(f"radiance must hold n x 3 floats and n be a multiple of "
                          f"{lib.megakernel_v3_tile()}")
-    n_sph, n_quad, n_mat, n_tex, n_med, n_box = (int(x) for x in sizes)
-    _check_smem(lib.megakernel_v3_smem_bytes(n_sph, n_quad, n_mat, n_tex, n_med, n_box))
+    _check_smem(lib.megakernel_v3_smem_bytes(*counts[:8]))
     stream = torch.cuda.current_stream(device).cuda_stream
     err = lib.megakernel_v3_launch(
-        device.index, background.data_ptr(), packed.data_ptr(), n_sph, n_quad, n_mat, n_tex,
-        n_med, n_box, state.data_ptr(), rid.data_ptr(), int(n), int(seed_lane),
+        device.index, background.data_ptr(), packed.data_ptr(), *counts[:8],
+        state.data_ptr(), rid.data_ptr(), int(n), int(seed_lane),
         int(min_alive), int(max_depth), int(checker_depth), int(bool(has_noise)),
         radiance.data_ptr(), stream)
     if err:

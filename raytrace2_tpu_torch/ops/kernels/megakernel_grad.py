@@ -61,7 +61,7 @@ LAUNCHES = 0
 
 def grad_supported(sizes, max_depth) -> bool:
     """Scenes within the kernel path's record bound, at depth ≤ 64 (JAX
-    ``grad_supported``; it allows hash noise too, which is what gives
+    ``grad_supported``; it allows hash and table noise, which is what gives
     geometry and camera leaves a gradient under the detached estimator)."""
     n_sph, n_quad, _, _, n_med, n_box = sizes
     return n_sph + n_quad + n_box + n_med <= MAX_RECORDS and max_depth <= GRAD_MAX_DEPTH
@@ -104,13 +104,16 @@ _BODIES = (("sph", mk.SPH_KEYS, mk.sph_body), ("quad", mk.QUAD_KEYS, mk.quad_bod
 
 
 def resolve_shade(key, tm, carry, winner, cols, bg, *, sizes, has_checker, has_noise,
-                  max_depth):
+                  max_depth, ntab=None):
     """One replayed bounce with a pinned winner (JAX ``_make_resolve_shade``):
     gather the winner's columns from ``cols`` (``unpack_buffer`` of the
     packed tables) by index, run its family's body once, then the forward's
     ``_shade_advance``. ``winner`` = (material, record index, family id),
     as ``make_bounce(track=True)`` returns it; ``bg`` is a [3] tensor.
-    Differentiable in ``carry``, ``cols`` and ``bg``."""
+    Differentiable in ``carry``, ``cols`` and ``bg``; with ``ntab`` the
+    noise is table Perlin, whose tables are constants (JAX
+    ``_noise_factor_impl_table``: gathers at detached lattice cells, the
+    gradient through the Hermite weights and the (u - di) terms)."""
     n_sph, n_quad, _, _, n_med, n_box = sizes
     count = {"sph": n_sph, "quad": n_quad, "box": n_box, "med": n_med}
     matf, idx, famid = winner
@@ -148,30 +151,31 @@ def resolve_shade(key, tm, carry, winner, cols, bg, *, sizes, has_checker, has_n
 
     return mk._shade_advance(carry, rec, mat6, tex_resolve, bg, key,
                              has_checker=has_checker, has_noise=has_noise,
-                             max_depth=max_depth, n_med=n_med)
+                             max_depth=max_depth, n_med=n_med, ntab=ntab)
 
 
 def grad_plain(camv, seed, packed, background, g, *, n_pix, max_depth, sizes,
-               has_checker, has_noise, bounces=None):
+               has_checker, has_noise, ntab=None, bounces=None):
     """Plain PyTorch version of the backward kernel: the vector-Jacobian
     product of the v4 render (radiance summed over ``camv[22]`` samples,
     [n_pix, 3]) with the cotangent ``g`` [n_pix, 3]. Per sample: the pre-pass
     without gradient records every bounce's winner, then the path is
     replayed under ``torch.autograd``. Returns (d_camv [28], d_background
     [3], d_packed): zero beyond camv entry 18 and outside the GRAD keys.
-    Lanes replay ``LANE_CHUNK`` at a time. ``bounces`` (an int64 [1] tensor, optional) gets the number of live
-    bounces of the pre-pass added, as the kernel counts them."""
+    Lanes replay ``LANE_CHUNK`` at a time. ``bounces`` (an int64 [1]
+    tensor, optional) gets the number of live bounces of the pre-pass added,
+    as the kernel counts them. ``ntab`` (table noise) takes no cotangent."""
     device = packed.device
     cv = [float(x) for x in camv.tolist()]
     bounce = mk.make_bounce(packed, background, max_depth=max_depth, sizes=sizes,
-                            has_checker=has_checker, has_noise=has_noise)
+                            has_checker=has_checker, has_noise=has_noise, ntab=ntab)
     camv_l = camv.detach().clone().requires_grad_(True)
     bg_l = background.detach().clone().requires_grad_(True)
     packed_l = packed.detach().clone().requires_grad_(True)
     leaves = (camv_l, bg_l, packed_l)
     acc = [torch.zeros_like(x) for x in leaves]
     shade_kw = dict(sizes=sizes, has_checker=has_checker, has_noise=has_noise,
-                    max_depth=max_depth)
+                    max_depth=max_depth, ntab=ntab)
     for l0 in range(0, n_pix, LANE_CHUNK):
         n = min(LANE_CHUNK, n_pix - l0)
         slot_f = (torch.arange(l0, l0 + n, dtype=torch.int32, device=device)
@@ -194,7 +198,13 @@ def grad_plain(camv, seed, packed, background, g, *, n_pix, max_depth, sizes,
                 cols = mk.unpack_buffer(packed_l, sizes)
                 carry, tm = camera_rays(camv_l, xx, yy, in_grid, s_f, key, cv[23])
                 for w in winners:
-                    carry = resolve_shade(key, tm, carry, w, cols, bg_l, **shade_kw)
+                    # Only the lanes alive at this bounce replay it, as in
+                    # the kernel: a dead lane's bounce changes nothing, but
+                    # its masked branches can hold 0 * inf in the backward.
+                    live = torch.nonzero(carry[1].detach() > 0.0).squeeze(1)
+                    sub = resolve_shade(key[live], tm[live], tuple(c[live] for c in carry),
+                                        tuple(x[live] for x in w), cols, bg_l, **shade_kw)
+                    carry = tuple(c.index_copy(0, live, v) for c, v in zip(carry, sub))
                 out = (carry[11] * gl[:, 0] + carry[12] * gl[:, 1]
                        + carry[13] * gl[:, 2]).sum()
                 grads = torch.autograd.grad(out, leaves, allow_unused=True)
@@ -212,14 +222,16 @@ def grad_plain(camv, seed, packed, background, g, *, n_pix, max_depth, sizes,
 
 
 def grad_call(camv, seed, packed, background, g, *, n_pix, max_depth, sizes,
-              has_checker, has_noise, bounces=None):
+              has_checker, has_noise, ntab=None, bounces=None):
     """(d_camv [28], d_background [3], d_packed) of the render's
     vector-Jacobian product with ``g`` [n_pix, 3]. On a CPU tensor this runs
     the plain version; on a CUDA tensor it launches the Hopper kernel (built
     at first use) or raises. ``bounces`` (an int64 [1] tensor on the same
-    device, optional) gets the number of replayed bounces added."""
+    device, optional) gets the number of replayed bounces added. ``ntab``
+    (``megakernel.pack_noise_tables``) selects table noise."""
     global LAUNCHES
     mk.check_inputs(camv, packed, background, n_pix, sizes)
+    mk.check_ntab(ntab, packed)
     if g.dtype != torch.float32 or not g.is_contiguous() or tuple(g.shape) != (n_pix, 3) \
             or g.device != packed.device:
         raise ValueError("g must be a contiguous [n_pix, 3] float32 tensor on the "
@@ -230,7 +242,7 @@ def grad_call(camv, seed, packed, background, g, *, n_pix, max_depth, sizes,
     if packed.device.type == "cpu":
         return grad_plain(camv, seed, packed, background, g, n_pix=n_pix,
                           max_depth=max_depth, sizes=sizes, has_checker=has_checker,
-                          has_noise=has_noise, bounces=bounces)
+                          has_noise=has_noise, ntab=ntab, bounces=bounces)
     if packed.device.type != "cuda":
         raise ValueError(f"unsupported device {packed.device}")
     from raytrace2_tpu_torch.ops.kernels import build
@@ -239,9 +251,9 @@ def grad_call(camv, seed, packed, background, g, *, n_pix, max_depth, sizes,
     d_bg = torch.zeros_like(background)
     d_packed = torch.zeros_like(packed)
     build.launch_megakernel_grad(
-        camv, int(seed), background, packed, g, d_camv, d_bg, d_packed, n_pix=n_pix,
-        max_depth=max_depth, sizes=sizes, checker_depth=int(has_checker),
-        has_noise=bool(has_noise), bounces=bounces)
+        camv, int(seed), background, packed, ntab, g, d_camv, d_bg, d_packed, n_pix=n_pix,
+        max_depth=max_depth, counts=mk.counts(sizes, mk.n_noise_of(ntab)),
+        checker_depth=int(has_checker), has_noise=bool(has_noise), bounces=bounces)
     LAUNCHES += 1
     return d_camv, d_bg, d_packed
 
@@ -252,8 +264,11 @@ class DiffRender(torch.autograd.Function):
     ``apply(camv, packed, background, seed, forward, grad_kw)``: the forward
     is ``forward(camv, seed, packed, background)`` — the integrator's own
     route (v4, or the sorted wavefront above 256 records), so the result is
-    bitwise the non-differentiable render's, [n_pix, 3]. It saves only its
-    inputs; the backward is ``grad_call(..., **grad_kw)``."""
+    bitwise the non-differentiable render's, [n_pix, 3] in pixel order. It
+    saves only its inputs; the backward is ``grad_call(..., **grad_kw)``.
+    ``packed`` is packed from the current geometry at every forward, so the
+    cluster tables that steer both sweeps are never stale under
+    optimisation (JAX rebuilds them inside the same jit)."""
 
     @staticmethod
     def forward(ctx, camv, packed, background, seed, forward, grad_kw):

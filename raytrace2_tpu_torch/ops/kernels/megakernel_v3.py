@@ -97,8 +97,8 @@ def megakernel_pass(state, rid, seed_lane, min_alive, packed, background, *, max
     radiance = torch.empty((n, 3), dtype=torch.float32, device=state.device)
     build.launch_megakernel_v3(
         background.to(torch.float32).contiguous(), packed, new, rid.contiguous(), radiance,
-        seed_lane=int(seed_lane), min_alive=int(min_alive), max_depth=max_depth, sizes=sizes,
-        checker_depth=int(has_checker), has_noise=bool(has_noise))
+        seed_lane=int(seed_lane), min_alive=int(min_alive), max_depth=max_depth,
+        counts=mk.counts(sizes), checker_depth=int(has_checker), has_noise=bool(has_noise))
     LAUNCHES += 1
     return radiance, new
 

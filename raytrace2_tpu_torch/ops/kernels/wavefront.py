@@ -20,9 +20,11 @@ image, and the port's state is always one ``[17, n]`` tensor advanced by one
 thread per slot. Slots are padded to a multiple of ``SLOT_TILE``, the
 kernel's block, which also sets the grain of the tail compaction.
 
-The port's kernel sweeps every record flat, in record order; the JAX
-kernel's per-tile cluster skip (the thing the sort pays for on the TPU) is
-not ported yet (ROADMAP queue B item 4).
+The kernel's sweep is v4's: the cluster skip for spheres and AA boxes of
+32 or more records, with the visit order chosen per slot from its ray's
+direction; the sort gives neighbouring threads rays that take the same
+order and enter the same clusters. ``ntab`` switches noise to the
+reference's Perlin tables (``noise_impl="table"``).
 """
 
 from __future__ import annotations
@@ -192,14 +194,16 @@ def sort_state(state, n_samples, bb_lo, bb_hi, key_mode="pos", sort_impl="gather
 
 
 def step_plain(state, camv, seed, packed, background, *, k_bounces, max_depth,
-               sizes, has_checker, has_noise):
+               sizes, has_checker, has_noise, ntab=None, stats=None):
     """Plain PyTorch version of the kernel: up to ``k_bounces`` steps of
     regeneration plus one bounce over all slots, stopping early once no slot
     can run (a step changes nothing on a slot that cannot run). Advances
-    ``state`` in place and returns it."""
+    ``state`` in place and returns it. ``stats`` (a dict, optional) gets the
+    sweep tests of every live bounce added (``megakernel.make_bounce``)."""
     cv = [float(x) for x in camv.tolist()]
     bounce = mk.make_bounce(packed, background, max_depth=max_depth, sizes=sizes,
-                            has_checker=has_checker, has_noise=has_noise)
+                            has_checker=has_checker, has_noise=has_noise, ntab=ntab,
+                            stats=stats)
     pid = state[COL["pid"]]
     xx, yy, _ = camera.slot_to_pixel(pid, cv)
     pix = (xx, yy, rng.as_u32(pid))
@@ -219,13 +223,14 @@ def step_plain(state, camv, seed, packed, background, *, k_bounces, max_depth,
 
 
 def wavefront_step(state, camv, seed, packed, background, *, k_bounces, max_depth,
-                   sizes, has_checker, has_noise):
+                   sizes, has_checker, has_noise, ntab=None):
     """Advance the slot state [17, n] by up to ``k_bounces`` steps per slot.
     On a CPU tensor this runs the plain version; on a CUDA tensor it
     launches the Hopper kernel (built at first use), which updates ``state``
     in place, or raises. Returns the advanced state."""
     global LAUNCHES
     mk.check_inputs(camv, packed, background, state.shape[-1], sizes)
+    mk.check_ntab(ntab, packed)
     if state.dtype != torch.float32 or not state.is_contiguous() or state.dim() != 2 \
             or state.shape[0] != len(STATE_KEYS) or state.device != packed.device:
         raise ValueError("state must be a contiguous [17, n] float32 tensor on the "
@@ -233,14 +238,14 @@ def wavefront_step(state, camv, seed, packed, background, *, k_bounces, max_dept
     if packed.device.type == "cpu":
         return step_plain(state, camv, seed, packed, background, k_bounces=k_bounces,
                           max_depth=max_depth, sizes=sizes, has_checker=has_checker,
-                          has_noise=has_noise)
+                          has_noise=has_noise, ntab=ntab)
     if packed.device.type != "cuda":
         raise ValueError(f"unsupported device {packed.device}")
     from raytrace2_tpu_torch.ops.kernels import build
 
     build.launch_wavefront_step(
-        camv, int(seed), background, packed, state, n_slots=state.shape[1],
-        k_bounces=k_bounces, max_depth=max_depth, sizes=sizes,
+        camv, int(seed), background, packed, ntab, state, n_slots=state.shape[1],
+        k_bounces=k_bounces, max_depth=max_depth, counts=mk.counts(sizes, mk.n_noise_of(ntab)),
         checker_depth=int(has_checker), has_noise=bool(has_noise))
     LAUNCHES += 1
     return state
@@ -252,9 +257,9 @@ def wavefront_step(state, camv, seed, packed, background, *, k_bounces, max_dept
 
 
 def trace_wavefront_batch(camv, seed, packed, background, *, n_rays, max_depth,
-                          sizes, has_checker, has_noise=False, sort_every=SORT_EVERY,
-                          k_bounces=K_BOUNCES, key_mode="pos", tail_k=TAIL_K,
-                          tail_frac=TAIL_FRAC, tail_compact=False,
+                          sizes, has_checker, has_noise=False, ntab=None,
+                          sort_every=SORT_EVERY, k_bounces=K_BOUNCES, key_mode="pos",
+                          tail_k=TAIL_K, tail_frac=TAIL_FRAC, tail_compact=False,
                           sort_impl=SORT_IMPL, step=None):
     """Radiance summed over the batch's samples for the linear slots
     0..n_rays-1 (slot i is pixel camv[25] + i), [n_rays, 3] f32 (JAX
@@ -278,7 +283,7 @@ def trace_wavefront_batch(camv, seed, packed, background, *, n_rays, max_depth,
     n_samples = cv[22]
     bb_lo, bb_hi = scene_bounds(packed, sizes)
     kw = dict(max_depth=max_depth, sizes=sizes, has_checker=has_checker,
-              has_noise=has_noise)
+              has_noise=has_noise, ntab=ntab)
 
     def launches(state, k, go_on):
         i = 0

@@ -2,8 +2,8 @@
 ``raytrace2_tpu/ops/textures.py``): the non-kernel path's table Perlin noise
 (the per-texture permutation and gradient tables the loader bakes,
 PerlinNoiseGen.cpp:66-103), turbulence, and checker nesting resolved to the
-scene's depth. The kernels evaluate hash-gradient noise instead
-(``ops/kernels/megakernel.py``).
+scene's depth. The kernels evaluate hash-gradient noise, or with
+``noise_impl="table"`` the same tables (``ops/kernels/megakernel.py``).
 """
 
 from __future__ import annotations

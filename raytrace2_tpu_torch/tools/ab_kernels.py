@@ -15,7 +15,15 @@ one call on one card. One JSON line per run:
 * ``fwd``: the v4 kernel at Cornell 600², depth 50, 6 spp (20 launches),
   and the CLI main paths' Mpaths/s (``app.main --metrics``, ``--cli-spp``
   samples, 64 by default, depth 50; Cornell 5 runs, book 2 2 runs, in one
-  process; above 64 spp Cornell only, as book 2 takes a second per 64).
+  process; above 64 spp Cornell only, as book 2 takes a second per 64);
+* ``v4``: the v4 kernel alone, built alone, with its ptxas register line:
+  Cornell 600², depth 50, 6 spp (20 launches), and where the tree has the
+  block-tiled layout, book 2 600², depth 50, 16 spp on it with wave_frac
+  0.5 (5 launches);
+* ``wf``: the wavefront step and B4 alone, built alone, with their ptxas
+  register lines: one book-2 600² batch of 6 spp, depth 50, through the
+  wavefront (3 batches), and one B4 pass of Cornell 600² camera rays,
+  depth 50, ``min_alive`` 8 (5 passes).
 
 Needs a CUDA device; the scenes come from this checkout's
 ``tools/make_scene.py``.
@@ -115,6 +123,66 @@ def _run_fwd(paths, dev, cli_spp):
     return out
 
 
+def _run_v4(paths, dev):
+    import inspect
+
+    from raytrace2_tpu_torch.ops import camera
+    from raytrace2_tpu_torch.ops.kernels import build
+    from raytrace2_tpu_torch.ops.kernels import megakernel as mk
+    from raytrace2_tpu_torch.scene import loader
+
+    args, kw = _prepare(paths["cornell"], 6, 2, dev)
+    _, ms = _events(lambda: mk.trace_megakernel_batch(*args, **kw), 20)
+    out = {"v4_cornell_ms": ms, "ptxas": [line.strip() for line in
+                                          build.BUILD_LOGS.get("megakernel_v4", "").splitlines()
+                                          if "registers" in line or "spill" in line]}
+    if "block" in inspect.signature(mk.trace_megakernel_batch).parameters:
+        args, kw = _prepare(paths["book2"], 16, 4, dev)
+        host, _ = loader.load_scene(paths["book2"])
+        camv = camera.make_camv(host.camera, 600, 600, 0, 16, 4, 0, block=mk.BLOCK).to(dev)
+        kw["n_pix"] = mk.pixel_slots(600, 600, block=True)[0]
+        _, out["v4_book2_block_ms"] = _events(lambda: mk.trace_megakernel_batch(
+            camv, *args[1:], block=True, wave_frac=0.5, **kw), 5)
+    return out
+
+
+def _run_wf(paths, dev):
+    import torch
+
+    from raytrace2_tpu_torch.ops import camera, integrator, rng
+    from raytrace2_tpu_torch.ops.kernels import build
+    from raytrace2_tpu_torch.ops.kernels import megakernel as mk
+    from raytrace2_tpu_torch.ops.kernels import megakernel_v3 as mk3
+    from raytrace2_tpu_torch.ops.kernels import wavefront as wf
+    from raytrace2_tpu_torch.scene import loader, schema
+
+    args, kw = _prepare(paths["book2"], 6, 2, dev)
+    kw.pop("n_pix")
+    _, ms = _events(lambda: wf.trace_wavefront_batch(*args, n_rays=-(-PIX // 128) * 128, **kw), 3)
+    out = {"wf_book2_batch_ms": ms,
+           "ptxas": [f"{name}: {line.strip()}" for name in ("wavefront_step", "megakernel_v3")
+                     for line in build.BUILD_LOGS.get(name, "").splitlines()
+                     if "registers" in line]}
+    host, _ = loader.load_scene(paths["cornell"])
+    feats = host.features()
+    sizes = tuple(feats["mega_sizes"])
+    ds = schema.to_device(host, dev)
+    seed_lane = integrator.mega_seed_of(0, 0)
+    pix = torch.arange(PIX, dtype=torch.int32, device=dev)
+    u = rng.murmur_uniforms(seed_lane, pix, tuple(rng.CAMERA_CTR_BASE + k for k in range(5)))
+    o, d, tm = camera.generate_rays(ds.camera, 600, 600, 0, 4, None, uniforms=u)
+    pad = -PIX % mk3.TILE_R
+    state, rid = mk3.init_state(torch.nn.functional.pad(o, (0, 0, 0, pad)),
+                                torch.nn.functional.pad(d, (0, 0, 0, pad), value=1.0),
+                                torch.nn.functional.pad(tm, (0, pad)))
+    packed, bg = mk.pack_buffer(ds, sizes), ds.background.to(torch.float32)
+    b4_kw = dict(max_depth=50, sizes=sizes, has_checker=feats["has_checker"],
+                 has_noise=feats["has_noise"])
+    _, out["b4_cornell_pass_ms"] = _events(lambda: mk3.megakernel_pass(
+        state, rid, seed_lane, mk3.TILE_R // 16, packed, bg, **b4_kw), 5)
+    return out
+
+
 def _child(root, what, cli_spp):
     sys.path.insert(0, root)
     import torch
@@ -124,19 +192,23 @@ def _child(root, what, cli_spp):
 
     if not raytrace2_tpu_torch.__file__.startswith(os.path.abspath(root)):
         raise SystemExit(f"imported {raytrace2_tpu_torch.__file__}, not the tree at {root}")
-    build.build_all()
+    build.build_all({"v4": ("megakernel_v4",), "wf": ("wavefront_step", "megakernel_v3")}
+                    .get(what, build.KERNELS))
     dev = torch.device("cuda")
+    run = {"grad": _run_grad, "fwd": lambda p, d: _run_fwd(p, d, cli_spp), "v4": _run_v4,
+           "wf": _run_wf}[what]
     with tempfile.TemporaryDirectory() as work:
         paths = _scenes(work)
         out = {"root": root, "what": what}
-        out.update(_run_grad(paths, dev) if what == "grad" else _run_fwd(paths, dev, cli_spp))
+        out.update(run(paths, dev))
     print(json.dumps(out), flush=True)
 
 
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("roots", nargs=2, help="two directories holding a raytrace2_tpu_torch")
-    p.add_argument("--what", nargs="+", default=["grad", "fwd"], choices=["grad", "fwd"])
+    p.add_argument("--what", nargs="+", default=["grad", "fwd"],
+                   choices=["grad", "fwd", "v4", "wf"])
     p.add_argument("--cli-spp", type=int, default=64, help="samples of each CLI render")
     p.add_argument("--child", action="store_true", help=argparse.SUPPRESS)
     args = p.parse_args(argv)

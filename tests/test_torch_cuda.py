@@ -277,3 +277,111 @@ def test_pallas_and_v3_routes_on_card(tmp_path, cuda):
     finally:
         mk3.megakernel_pass = orig
     assert torch.equal(img, plain)
+
+
+# ---- B1's options: the cluster skip, the block layout with wave
+# regeneration, table Perlin --------------------------------------------------
+
+
+def _v4_args(path, w, h, spp, depth, device, block=False, **feat):
+    scene, _ = loader.load_scene(path)
+    feats = dict(scene.features(), **feat)
+    sizes = tuple(feats["mega_sizes"])
+    dev = schema.to_device(scene, device)
+    camv = camera.make_camv(scene.camera, w, h, 0, spp, max(int(spp ** 0.5), 1), 0,
+                            **({"block": mk.BLOCK} if block else {})).to(device)
+    kw = dict(max_depth=depth, sizes=sizes, has_checker=feats["has_checker"],
+              has_noise=feats["has_noise"], ntab=integrator.noise_tables(dev, feats))
+    return (camv, 0, mk.pack_buffer(dev, sizes), dev.background), kw
+
+
+@pytest.mark.parametrize("block,wave_frac", [(False, 1.0), (True, 0.5), (False, 0.5)])
+def test_v4_with_the_sweep_matches_plain(tmp_path, cuda, block, wave_frac):
+    """v4 on the grid scene (both families clustered) at 40x24, 2 spp,
+    depth 8, on each lane layout: bitwise equal to its plain version."""
+    args, kw = _v4_args(write_scene(tmp_path, "grid"), 40, 24, 2, 8, cuda, block=block)
+    assert mk.hier_flags(kw["sizes"]) == (True, True)
+    n_slots, _ = mk.pixel_slots(40, 24, block)
+    launches = mk.LAUNCHES
+    kern = mk.trace_megakernel_batch(*args, n_pix=n_slots, block=block, wave_frac=wave_frac,
+                                     **kw)
+    torch.cuda.synchronize()
+    assert mk.LAUNCHES == launches + 1
+    plain = mk.trace_plain(*args, n_pix=n_slots, block=block, wave_frac=wave_frac, **kw)
+    assert torch.isfinite(kern).all() and float(kern.max()) > 0
+    assert torch.equal(kern, plain)
+
+
+@pytest.mark.parametrize("name", ["grid", "noise_spheres"])
+def test_wavefront_step_with_the_sweep_matches_plain(tmp_path, cuda, name):
+    """Two wavefront launches (K=2, then K=16 on the sorted state) on a
+    clustered scene, table noise on the noise scene: bitwise equal to the
+    plain step on the same state."""
+    args, kw = _v4_args(write_scene(tmp_path, name), 32, 32, 2, 8, cuda,
+                        noise_impl="table")
+    state = wf.init_wavefront_state(1024, args[0].tolist(), cuda)
+    bb = wf.scene_bounds(args[2], kw["sizes"])
+    for k in (wf.K_BOUNCES, wf.TAIL_K):
+        state = wf.sort_state(state, 2.0, *bb)
+        kern = wf.wavefront_step(state.clone(), *args, k_bounces=k, **kw)
+        plain = wf.step_plain(state.clone(), *args, k_bounces=k, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(kern, plain), k
+        state = kern
+
+
+@pytest.mark.parametrize("name", ["noise_spheres", "feature"])
+def test_table_noise_v4_matches_plain(tmp_path, cuda, name):
+    """v4 with table noise (one and two noise textures), 32x32, 2 spp,
+    depth 8: bitwise equal to its plain version, and unlike hash noise."""
+    path = write_scene(tmp_path, name)
+    args, kw = _v4_args(path, 32, 32, 2, 8, cuda, noise_impl="table")
+    assert kw["ntab"] is not None
+    kern = mk.trace_megakernel_batch(*args, n_pix=1024, **kw)
+    plain = mk.trace_plain(*args, n_pix=1024, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(kern, plain)
+    hashed = mk.trace_megakernel_batch(*args, n_pix=1024, **dict(kw, ntab=None))
+    assert not torch.equal(kern, hashed)
+
+
+def test_megakernel_v3_with_the_sweep_matches_plain(tmp_path, cuda):
+    """One B4 pass of 1,024 camera rays of the grid scene: bitwise equal to
+    its plain pass (both through the cluster skip)."""
+    scene, _ = loader.load_scene(write_scene(tmp_path, "grid"))
+    feats = scene.features()
+    sizes = tuple(feats["mega_sizes"])
+    dev = schema.to_device(scene, cuda)
+    pix = torch.arange(1024, dtype=torch.int32, device=cuda)
+    u = rng.murmur_uniforms(77, pix, tuple(rng.CAMERA_CTR_BASE + k for k in range(5)))
+    o, d, tm = camera.generate_rays(dev.camera, 32, 32, 0, 1, None, uniforms=u)
+    state, rid = mk3.init_state(o, d, tm)
+    kw = dict(max_depth=8, sizes=sizes, has_checker=feats["has_checker"],
+              has_noise=feats["has_noise"])
+    packed, bg = mk.pack_buffer(dev, sizes), dev.background.to(torch.float32)
+    rad_k, new_k = mk3.megakernel_pass(state, rid, 77, 0, packed, bg, **kw)
+    rad_p, new_p = mk3.pass_plain(state, rid, 77, 0, packed, bg, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(rad_k, rad_p) and torch.equal(new_k, new_p)
+
+
+@pytest.mark.parametrize("name,feat", [("grid", {}), ("noise_spheres", {"noise_impl": "table"}),
+                                       ("grad_noise", {"noise_impl": "table"})])
+def test_grad_kernel_with_the_sweep_and_table_noise(tmp_path, cuda, name, feat):
+    """B3 against its plain version at 32x32, 2 spp, depth 8: the winner
+    search through the cluster skip (grid), table noise's adjoint
+    (noise_spheres, grad_noise): per leaf group within 1e-3 of the group's
+    largest cotangent, the same replayed bounces."""
+    args, kw = _v4_args(write_scene(tmp_path, name), 32, 32, 2, 8, cuda, **feat)
+    g = torch.from_numpy(np.random.RandomState(5).uniform(0, 1, (32 * 32, 3))
+                         .astype(np.float32)).to(cuda)
+    counts = [torch.zeros(1, dtype=torch.int64, device=cuda) for _ in range(2)]
+    bg = args[3].to(torch.float32).contiguous()
+    kern = mkg.grad_call(*args[:3], bg, g, n_pix=32 * 32, bounces=counts[0], **kw)
+    plain = mkg.grad_plain(*args[:3], bg, g, n_pix=32 * 32, bounces=counts[1], **kw)
+    torch.cuda.synchronize()
+    assert int(counts[0]) == int(counts[1]) > 0
+    for (what, a), (_, b) in zip(_grad_groups(kern, kw["sizes"]),
+                                 _grad_groups(plain, kw["sizes"])):
+        assert torch.isfinite(a).all(), what
+        assert float((a - b).abs().max()) <= 1e-3 * float(b.abs().max()) + 1e-6, what

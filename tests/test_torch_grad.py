@@ -218,6 +218,42 @@ def test_value_and_grad_matches_jax_murmur_path(tmp_path):
         assert not _get(g, leaf).any() and not np.asarray(_get(jg, leaf)).any()
 
 
+def test_table_noise_grad_matches_jax_murmur_path(tmp_path):
+    """NOISE at 6x4, 1 spp, depth 2: the port's gradient with
+    ``noise_impl="table"`` (the kernel path; its plain backward here) against
+    JAX's ``value_and_grad_scene`` on its XLA path with the kernel's murmur
+    draws (whose noise is table Perlin): the loss to 1e-5 and every float
+    leaf the loss reaches within 1e-3 of that leaf's largest cotangent; the
+    Perlin tables get none. (Depth 2: the camera ray meets the noise floor,
+    then the sky; JAX's compile takes most of the test.)
+    JAX's XLA path returns NaN for the metal sphere's radius (a square root
+    at a zero discriminant on lanes its select discards); the port's is
+    finite, and those entries are not compared."""
+    kw = dict(NOISE_KW, max_depth=2)
+    path = write_scene(tmp_path, "grad_noise")
+    jhost, _ = jax_loader.load_scene(path)
+    jfeat = dict(jhost.features(), use_megakernel=False, rng_impl="murmur")
+    jloss, jg = jax_grad.value_and_grad_scene(
+        jnp.mean, jax_schema.to_device(jhost), tuple(sorted(jfeat.items())), 0, **kw)
+    scene, feats = _load(tmp_path, "grad_noise", noise_impl="table")
+    loss, g = grad.value_and_grad_scene(torch.mean, scene, feats, 0, **kw)
+    assert float(loss) == pytest.approx(float(jloss), rel=1e-5)
+    checked = 0
+    for leaf in ("spheres.center0", "spheres.radius", "quads.q", "quads.u", "camera.center",
+                 "camera.look_at", "materials.albedo", "materials.param", "textures.albedo",
+                 "textures.scale", "background"):
+        ours, ref = _get(g, leaf).numpy(), np.asarray(_get(jg, leaf))
+        assert np.isfinite(ours).all(), leaf
+        fin = np.isfinite(ref)
+        assert fin.sum() >= ref.size - 1, leaf
+        scale = float(np.abs(ref[fin]).max())
+        np.testing.assert_allclose(ours[fin], ref[fin], rtol=0, atol=1e-3 * scale + 1e-7,
+                                   err_msg=leaf)
+        checked += scale > 0
+    assert checked >= 6, checked
+    assert not _get(g, "textures.grad").any()
+
+
 # ---------------------------------------------------------------------------
 # (d) AD vs finite differences of the port's own forward
 # ---------------------------------------------------------------------------
@@ -294,6 +330,24 @@ def test_diff_forward_equals_render(tmp_path, wavefront):
     assert (wf.SORTS > before) == wavefront
 
 
+def test_tangent_hit_gradient_is_finite():
+    """A ray tangent to a sphere (discriminant exactly 0) hits it at one
+    root; the replay's gradient there is finite, as the kernel's adjoint
+    gives the discriminant no cotangent at sq == 0 (sqrt'(0) would make the
+    center's gradient inf - inf). Book 2 at 64x64 meets such a lane."""
+    g = {"c0x": torch.tensor([0.0], requires_grad=True), "c0y": torch.tensor([0.0]),
+         "c0z": torch.tensor([0.0]), "dpx": torch.tensor([0.0]), "dpy": torch.tensor([0.0]),
+         "dpz": torch.tensor([0.0]), "rad": torch.tensor([1.0], requires_grad=True),
+         "mat": torch.tensor([0.0]), "act": torch.tensor([1.0])}
+    ox = torch.tensor([1.0], requires_grad=True)
+    one, zero = torch.ones(1), torch.zeros(1)
+    closer, rec = mk.sph_body(g, tm=zero, ox=ox, oy=zero, oz=-5.0 * one, dx=zero, dy=zero,
+                              dz=one, a=one, inv_a=one, best_t=mk.BIG, aux=one)
+    assert bool(closer) and float(rec[0].detach()) == 5.0
+    grads = torch.autograd.grad(rec[0].sum(), (ox, g["c0x"], g["rad"]))
+    assert all(bool(torch.isfinite(x).all()) for x in grads), grads
+
+
 def test_differentiable_packing_keeps_values(tmp_path, monkeypatch):
     """camv and the packed tables built from grad-carrying leaves hold the
     same bits as the forward's; the packed cotangent is zero outside the
@@ -354,8 +408,11 @@ def test_book1_gradient_through_wavefront(tmp_path):
 
 @pytest.mark.parametrize("case", ["ellipsoid", "depth65", "table_noise"])
 def test_unsupported_gradients_raise(tmp_path, case):
-    """The JAX package falls back to its XLA scan here; the port refuses,
-    naming the ROADMAP item that brings each."""
+    """The JAX package falls back to its XLA scan for ellipsoids and depth
+    above 64; the port refuses, naming the ROADMAP item that brings each.
+    Table noise, refused until B1's table Perlin was ported, now takes the
+    gradient kernel's path: the gradient is finite and reaches the noise
+    texture's scale."""
     if case == "ellipsoid":
         p = tmp_path / "ell.json"
         p.write_text(json.dumps({
@@ -369,7 +426,12 @@ def test_unsupported_gradients_raise(tmp_path, case):
         kw, item = dict(KW, max_depth=65), "A item 12"
     else:
         scene, feats = _load(tmp_path, "grad_noise", noise_impl="table")
-        kw, item = KW, "B item 5"
+        _, g = grad.value_and_grad_scene(torch.mean, scene, feats, 0, **KW)
+        floats = []
+        schema.map_leaves(g, lambda x: floats.append(x) if x is not None else None)
+        assert all(torch.isfinite(x).all() for x in floats)
+        assert float(g.textures.scale.abs().max()) > 0.0
+        return
     with pytest.raises(NotImplementedError, match=item):
         grad.value_and_grad_scene(torch.mean, scene, feats, 0, **kw)
 

@@ -133,9 +133,12 @@ def test_cli_errors(tmp_path, monkeypatch):
 
 
 def test_renderer_refuses_what_is_not_ported(tmp_path, monkeypatch):
-    """The sphere BVH, the kernel path forced above its record ceiling (its
-    tables live in shared memory) and table noise on the kernel path raise;
-    scenes the kernel path cannot take go to the non-kernel path instead."""
+    """The sphere BVH and the kernel path forced above its record ceiling
+    (its tables live in shared memory) raise; scenes the kernel path cannot
+    take go to the non-kernel path instead. Table noise, refused until B1's
+    table Perlin was ported, renders on the kernel path: v4 (forced onto
+    the block-tiled layout with wave regeneration) and the wavefront give
+    the same image bit for bit."""
     scene, _ = loader.load_scene(write_scene(tmp_path, "cornell"))
     with pytest.raises(NotImplementedError, match="ROADMAP queue A item 12, the sphere BVH"):
         Renderer(scene, 8, 8, backend="bvh", device="cpu")
@@ -147,9 +150,12 @@ def test_renderer_refuses_what_is_not_ported(tmp_path, monkeypatch):
             Renderer(big, 8, 8, device="cpu", max_records=1000, backend=backend)
     # Table Perlin noise on the kernel path.
     feats = dict(big.features(), noise_impl="table")
-    with pytest.raises(NotImplementedError, match="table"):
-        integrator.render_progressive(schema.to_device(big, "cpu"), feats, 4, 4, 0, 1, 0,
-                                      2, 1)
+    imgs = [integrator.render_progressive(schema.to_device(big, "cpu"),
+                                          dict(feats, mega_wavefront=wf), 4, 4, 0, 1, 0, 2, 1)
+            for wf in (True, False)]
+    assert integrator.mega_schedule(dict(feats, mega_wavefront=False))[1:] == (0.5, False, False)
+    assert imgs[0].shape == (4, 4, 3) and torch.isfinite(imgs[0]).all()
+    assert torch.equal(imgs[0], imgs[1])
     p = tmp_path / "ellipsoid.json"
     p.write_text(json.dumps({
         "materials": [{"type": "lambertian", "albedo": [0.5, 0.5, 0.5]}],

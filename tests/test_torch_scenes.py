@@ -161,6 +161,79 @@ GRAD_SCENES = {
     },
 }
 
+def clustered_scene_json() -> dict:
+    """~520 spheres (every fourth one moving) and ~320 AA boxes, as
+    tests/test_megakernel_v4.py::test_two_level_hierarchy_large_scene
+    builds them, plus a light: four or more superclusters per family."""
+    rs = np.random.RandomState(17)
+    prims = []
+    for i in range(520):
+        s = {"type": "sphere", "center": [float(x) for x in rs.uniform(-10, 10, 3)],
+             "radius": float(rs.uniform(0.2, 0.5)), "material": 0}
+        if i % 4 == 0:
+            s["displacement"] = [float(x) for x in rs.uniform(-0.6, 0.6, 3)]
+        prims.append(s)
+    for _ in range(320):
+        c = rs.uniform(-10, 10, 3)
+        e = rs.uniform(0.2, 0.8, 3)
+        prims.append({"type": "box", "min_point": [float(x) for x in c - e],
+                      "max_point": [float(x) for x in c + e], "material": 0})
+    prims.append({"type": "quad", "q": [-3, 13, -3], "u": [6, 0, 0], "v": [0, 0, 6],
+                  "material": 1})
+    return {
+        "background_color": [0.1, 0.12, 0.2],
+        "camera": {"fov": 60, "center": [0, 3, 26], "look_at": [0, 0, 0]},
+        "materials": [{"type": "lambertian", "albedo": [0.6, 0.5, 0.4]},
+                      {"type": "diffuse_light", "albedo": [6, 6, 6]}],
+        "primitives": prims}
+
+
+def grid_scene_json() -> dict:
+    """144 spheres (every third one moving) over 144 AA boxes, each family
+    a 12x12 grid of separated records (two superclusters each), on a ground
+    quad under a light."""
+    prims = []
+    for i in range(144):
+        x, z = -11.0 + 2.0 * (i % 12), -11.0 + 2.0 * (i // 12)
+        s = {"type": "sphere", "center": [x, 2.2, z], "radius": 0.45, "material": 1}
+        if i % 3 == 0:
+            s["displacement"] = [0.0, 0.3, 0.0]
+        prims.append(s)
+        prims.append({"type": "box", "min_point": [x - 0.4, 0.0, z - 0.4],
+                      "max_point": [x + 0.4, 0.9, z + 0.4], "material": 0})
+    prims.append({"type": "quad", "q": [-30, 0, -30], "u": [60, 0, 0], "v": [0, 0, 60],
+                  "material": 0})
+    prims.append({"type": "quad", "q": [-4, 12, -4], "u": [8, 0, 0], "v": [0, 0, 8],
+                  "material": 2})
+    return {
+        "background_color": [0.3, 0.35, 0.45],
+        "camera": {"fov": 50, "center": [3, 14, 22], "look_at": [0, 0, 0]},
+        "materials": [{"type": "lambertian", "albedo": [0.6, 0.5, 0.4]},
+                      {"type": "lambertian", "albedo": [0.3, 0.5, 0.7]},
+                      {"type": "diffuse_light", "albedo": [5, 5, 5]}],
+        "primitives": prims}
+
+
+def noise_spheres_json() -> dict:
+    """The scene of tests/test_megakernel_v4.py::test_mat_gather_with_table_noise_bitwise:
+    a marble sphere among 70 small spheres (a clustered family)."""
+    rs = np.random.RandomState(5)
+    mats = [{"type": "texture", "tex_idx": 0}]
+    prims = [{"type": "sphere", "center": [0, 1.0, 0], "radius": 1.0, "material": 0}]
+    for i in range(70):
+        mats.append({"type": "lambertian",
+                     "albedo": [float(x) for x in rs.uniform(0.2, 0.9, 3)]})
+        prims.append({"type": "sphere",
+                      "center": [float(rs.uniform(-4, 4)), 0.3, float(rs.uniform(-4, 4))],
+                      "radius": 0.3, "material": i + 1})
+    return {
+        "background_color": [0.7, 0.8, 0.9],
+        "camera": {"fov": 60, "center": [0, 2, 8], "look_at": [0, 0.5, 0]},
+        "textures": [{"type": "noise", "albedo": [0.8, 0.7, 0.6], "scale": 1.5,
+                      "noise_type": 1}],
+        "materials": mats, "primitives": prims}
+
+
 def ellipsoid_scene_json() -> dict:
     """The scene of tests/test_ellipsoid.py (a sphere under a non-uniform
     scale and a rotation, lit by a quad under a sky) with a ground quad, so
@@ -192,6 +265,9 @@ SCENES = {
     "book2": lambda: make_scene.book2_final(rng_seed=0).to_json(),
     "feature": feature_scene_json,
     "ellipsoid": ellipsoid_scene_json,
+    "clustered": clustered_scene_json,
+    "grid": grid_scene_json,
+    "noise_spheres": noise_spheres_json,
     **{f"grad_{k}": (lambda v=v: v) for k, v in GRAD_SCENES.items()},
 }
 
