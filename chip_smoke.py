@@ -7,8 +7,10 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
 
 Phases, each printed on its own line:
   1. the device, with nvidia-smi's name and power limit;
-  2. build every CUDA kernel from csrc/ with nvcc, one process per source,
-     all started together (timed, with ptxas usage);
+  2. build every library the run reaches from csrc/ with nvcc, one process
+     per library, all started together: the kernels, the gradient kernel's
+     instance for each scene feature mask the run meets, and the profiling
+     builds of phase 15 (each timed, with ptxas registers, stack and spills);
   3. closed-form scenes through both kernels (v4, and the wavefront forced),
      exact (rtol 1e-5);
   4. each kernel vs its plain PyTorch version on the card, same inputs, gate
@@ -19,7 +21,8 @@ Phases, each printed on its own line:
      64x64 2 spp depth 4, driven by the kernel and by its plain step; the
      wavefront's step at its main path's launch shapes (book 2 600x600,
      depth 50, 6-sample batch: a K=2 launch and a K=16 tail launch) bitwise
-     against the plain step on the same captured state, timed with the
+     against the plain step on the same captured state (over the flat
+     tables too, on a 32,768-slot slice), timed with the
      cluster skip and over the flat tables in turns, its bound from the
      records and cluster boxes the plain step tested; where a book-2 batch's
      time goes (kernel, sort, runnable counts, host); v4 (block-tiled
@@ -39,8 +42,8 @@ Phases, each printed on its own line:
      max|d| <= 1e-3 max|g_plain| + 1e-6 per leaf group (camv, background,
      each table family): the three gradient-test scenes at 64x64, 2 spp,
      depth 8, the noise scene with table noise too, and Cornell 600x600
-     depth 50 at 2 spp (lanes chunked), where both are timed and the
-     replayed bounces must be the plain pre-pass's; then B3 alone at the
+     depth 50 at 2 spp (lanes chunked), where both are timed; each
+     instance's replayed bounces must be the plain pre-pass's; then B3 alone at the
      main path's launch (Cornell 600x600, depth 50, 64 spp), timed with CUDA
      events;
   8. the gradient main path through grad.value_and_grad_scene: Cornell
@@ -66,8 +69,8 @@ Phases, each printed on its own line:
  13. B1's options against the plain versions on book 2: v4 on the block
      layout with wave_frac 0.5 (600x600, 2 spp, depth 50) bitwise, timed,
      bound from the tests the plain run counted; one B4 pass of its camera
-     rays bitwise; B3 (64x64, 4 spp, depth 50) within 1e-3 of the largest
-     cotangent with the same replayed bounces; table noise (noise_impl
+     rays bitwise; B3 (64x64, 4 spp, depth 50, hash and table noise) within
+     1e-3 of the largest cotangent with the same replayed bounces; table noise (noise_impl
      "table", 200x200, 2 spp) in v4 and in the wavefront's K=2 and K=16
      launches bitwise;
  14. this slice's main paths, launch counts reset before each and read
@@ -75,8 +78,14 @@ Phases, each printed on its own line:
      integrator.render_progressive on book 2 600x600 16 spp, bitwise phase
      4's image; table noise through render_progressive (the wavefront) and
      through grad.value_and_grad_scene (wavefront + B3), book 2 600x600;
- 15. one JSON line describing each kernel, with the options it carries
-     (status) and its bound (f32 operations counted from
+ 15. where the final B2 and B3 spend their time (tools/profile_wavefront.py,
+     tools/profile_grad.py): the step's per-phase clock split over a book-2
+     batch, its share of warp-steps with mixed visit orders, its variants
+     (sort, step, nosweep, linear) on two launches; B3's forward, pre-pass
+     and full times on Cornell 600x600 64 spp and book 2 64x64 4 spp;
+ 16. one JSON line describing each kernel, with the options it carries
+     (status), its built instances (registers, stack, spills; B3's feature
+     masks), the split of phase 15, and its bound (f32 operations counted from
      csrc/path_common.cuh, csrc/grad_adjoint.cuh and csrc/intersect_kernel.cu
      for the work this run's data took, or bytes moved, over the card's
      peak rates).
@@ -143,6 +152,9 @@ GRAD_RTOL, GRAD_ATOL = 1e-3, 1e-6
 # The gradient main path (bench.py --grad): 64 samples per dispatch,
 # sqrt_spp 2, depth 50.
 GRAD_SPP, GRAD_SQRT_SPP, GRAD_DEPTH = 64, 2, 50
+# Slots of the captured wavefront states on which the flat sweep's launches
+# are held bitwise against the plain step.
+FLAT_SLICE = 32768
 
 
 def fail(msg: str) -> None:
@@ -230,16 +242,6 @@ def main() -> None:
     say(card)
     say(f"phase 1 device: {kind} x{count}, torch {torch.__version__}, CUDA {torch.version.cuda}")
 
-    # ---- phase 2: build ----------------------------------------------------
-    t0 = time.perf_counter()
-    build.build_all()
-    say(f"phase 2 build: {', '.join(build.KERNELS)} in {time.perf_counter() - t0:.1f} s "
-        f"(nvcc {' '.join(build.NVCC_FLAGS)})")
-    for name, log in build.BUILD_LOGS.items():
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                say(f"  {name} ptxas: {line.strip()}")
-
     work = tempfile.mkdtemp(prefix="chip_smoke_")
 
     def scene_file(name: str, obj: dict) -> str:
@@ -247,6 +249,45 @@ def main() -> None:
         with open(path, "w") as f:
             json.dump(obj, f)
         return path
+
+    # ---- phase 2: build ----------------------------------------------------
+    # Every library the run reaches, one nvcc each, all started together:
+    # the kernels, the gradient kernel's instance for each scene feature
+    # mask the run meets, and the profiling builds of the split phase.
+    cornell = scene_file("cornell", make_scene.cornell_box_original().to_json())
+    book2 = scene_file("book2", make_scene.book2_final(rng_seed=0).to_json())
+    grad_masks = {}
+    for name, path, table in [("cornell", cornell, False), ("book2", book2, False),
+                              ("book2 (table noise)", book2, True),
+                              *((f"grad_{k}", scene_file(f"grad_{k}", GRAD_SCENES[k]), False)
+                                for k in ("solid", "noise", "media")),
+                              ("grad_noise (table noise)", os.path.join(work, "grad_noise.json"),
+                               True)]:
+        host = loader.load_scene(path)[0]
+        f = host.features()
+        ds = schema.to_device(host, "cpu")
+        ntab = integrator.noise_tables(ds, dict(f, noise_impl="table")) if table else None
+        grad_masks[name] = mkg.grad_features(mk.pack_buffer(ds, f["mega_sizes"]),
+                                             f["mega_sizes"], f["has_checker"], f["has_noise"],
+                                             ntab)
+    targets = [k for k in build.KERNELS if k != "megakernel_grad"]
+    targets += sorted({build.grad_target(m) for m in grad_masks.values()})
+    targets += ["wavefront_profile", *sorted({build.grad_target(grad_masks[k], True)
+                                              for k in ("cornell", "book2")})]
+    t0 = time.perf_counter()
+    build.build_all(targets)
+    build_s = time.perf_counter() - t0
+    say(f"phase 2 build: {len(targets)} libraries in {build_s:.1f} s, one nvcc each, all "
+        f"started together (nvcc {' '.join(build.NVCC_FLAGS)}); B3 instances by scene: "
+        + ", ".join(f"{k} {m}" for k, m in grad_masks.items()))
+    usage = {}
+    for t in targets:
+        key = build.target_key(t)
+        usage[key] = build.ptxas_usage(key)
+        for u in usage[key]:
+            say(f"  {key} ({build.BUILD_SECONDS[key]:.1f} s): {u['kernel'].split('(')[0]}: "
+                f"{u['registers']} registers, {u['stack']} B stack, spills {u['spill_stores']}"
+                f"/{u['spill_loads']} B")
 
     # ---- phase 3: closed forms through the kernel ---------------------------
     closed = [
@@ -309,7 +350,6 @@ def main() -> None:
         torch.cuda.synchronize()
         return out, start.elapsed_time(end) / reps
 
-    cornell = scene_file("cornell", make_scene.cornell_box_original().to_json())
     feature = scene_file("feature", feature_scene_json())
     results = {}
     cases = [("cornell 600x600 4spp depth 8", cornell, 600, 4, 8, 1),
@@ -348,7 +388,6 @@ def main() -> None:
               f"(|dmean| {d_mean:.3g}, PSNR {psnr:.2f} dB)")
         return d_mean, psnr, max_err
 
-    book2 = scene_file("book2", make_scene.book2_final(rng_seed=0).to_json())
     wf_cases = [("cornell 600x600 4spp depth 8 (wavefront forced)", cornell, 600, 4, 8),
                 ("book2 64x64 2spp depth 4", book2, 64, 2, 4)]
     for label, path, size, spp, depth in wf_cases:
@@ -493,6 +532,18 @@ def main() -> None:
         n_flat_diff = int(((st != st_flat).any(0)).sum())
         check(n_flat_diff <= 1e-4 * n_rays, f"wavefront {tag} launch: the flat sweep's state "
                                             f"differs in {n_flat_diff} slots")
+        # The flat sweep's launch bitwise against the plain step over the
+        # flat tables, on the first FLAT_SLICE slots (slots are independent;
+        # the plain flat sweep is too slow for the whole state here).
+        with flat_sweep():
+            st_fk = wf.wavefront_step(st0[:, :FLAT_SLICE].contiguous(), *args_flat,
+                                      k_bounces=k, **kw)
+            st_fp = wf.step_plain(st0[:, :FLAT_SLICE].contiguous(), *args_flat, k_bounces=k,
+                                  **kw)
+        torch.cuda.synchronize()
+        n_fdiff = int(((st_fk != st_fp).any(0)).sum())
+        check(n_fdiff == 0, f"wavefront {tag} launch over the flat tables: {n_fdiff} of "
+                            f"{FLAT_SLICE} slots differ from the plain step")
         bounces = stats["bounces"]
         ops = sweep_ops(stats)
         flat_ops = bounces * ops_per_bounce(kw["sizes"])
@@ -511,8 +562,9 @@ def main() -> None:
             f"{n_rays} slots): kernel {ms:.4f} ms with the cluster skip "
             f"({'/'.join(f'{t:.4f}' for t in times['skip'])}), {flat_ms:.4f} ms flat "
             f"({'/'.join(f'{t:.4f}' for t in times['flat'])}; in turns skip, flat, flat, "
-            f"skip), plain step {plain_ms:.1f} ms; state bitwise equal to the plain step's, "
-            f"{n_flat_diff} slots differ from the flat sweep's; {bounces} bounces, per bounce "
+            f"skip), plain step {plain_ms:.1f} ms; state bitwise equal to the plain step's "
+            f"(flat: bitwise on {FLAT_SLICE} slots), {n_flat_diff} slots differ from the flat "
+            f"sweep's; {bounces} bounces, per bounce "
             f"{stats['aabb'] / max(bounces, 1):.2f} AABB slab tests, "
             f"{stats['sph'] / max(bounces, 1):.2f} sphere and "
             f"{stats['box'] / max(bounces, 1):.2f} box record tests (flat: {kw['sizes'][0]} "
@@ -678,14 +730,21 @@ def main() -> None:
         args, kw = grad_args(scene_file(f"grad_{name}", GRAD_SCENES[name]), 64, 2, 8,
                              table=table)
         kern, ms = timed_grad(args, kw, 3)
+        count_k = torch.zeros(1, dtype=torch.int64, device=dev)
+        count_p = torch.zeros(1, dtype=torch.int64, device=dev)
+        mkg.grad_call(*args, bounces=count_k, **kw)
         t0 = time.perf_counter()
-        plain = mkg.grad_plain(*args, **kw)
+        plain = mkg.grad_plain(*args, bounces=count_p, **kw)
         torch.cuda.synchronize()
         plain_ms = (time.perf_counter() - t0) * 1e3
         _, detail = grad_gate(label, kern, plain, kw["sizes"])
-        say(f"phase 7 B3 vs plain, {label}: max|d|/max|g| per group: {detail} (gate "
-            f"{GRAD_RTOL:g} max|g| + {GRAD_ATOL:g}); kernel {ms:.3f} ms, plain {plain_ms:.1f} ms "
-            f"({card})")
+        check(int(count_k) == int(count_p) > 0,
+              f"{label}: B3 replayed {int(count_k)} bounces, the plain pre-pass {int(count_p)}")
+        mask = mkg.grad_features(args[2], kw["sizes"], kw["has_checker"], kw["has_noise"],
+                                 kw.get("ntab"))
+        say(f"phase 7 B3 vs plain, {label}, instance {mask}: max|d|/max|g| per group: {detail} "
+            f"(gate {GRAD_RTOL:g} max|g| + {GRAD_ATOL:g}); replayed bounces {int(count_k)} == "
+            f"{int(count_p)}; kernel {ms:.3f} ms, plain {plain_ms:.1f} ms ({card})")
 
     def grad_bound(bounces, sizes):
         ops = bounces * (ops_per_bounce(sizes) + OPS_PER_RECORD["quad"] + OPS_SHADE
@@ -822,11 +881,19 @@ def main() -> None:
     non_kernel = non_kernel_phases(dev, card, scene_file, cornell, book2, ops_per_bounce)
     book2_16["image"] = imgs[("skip", "wf")]
     b1 = b1_option_phases(dev, card, book2, book2_16)
+    splits = split_phase(card, book2, cornell)
     shutil.rmtree(work)
     for name in ("jax", "raytrace2_tpu"):
         check(name not in sys.modules, f"{name} was imported")
 
-    # ---- phase 15: the kernels ------------------------------------------------
+    def instance(key, mask=None):
+        """ptxas usage of a built target's kernels, with the B3 mask."""
+        out = {"build": key, "usage": usage.get(key, [])}
+        if mask is not None:
+            out["features"] = mask
+        return out
+
+    # ---- phase 16: the kernels ------------------------------------------------
     main_shape = results[cases[2][0]]
     k2, k16 = wf_launch["k2"], wf_launch["k16"]
     v4b = b1["v4_book2"]
@@ -846,11 +913,13 @@ def main() -> None:
                                        "wave_frac 0.5 (ms, plain_ms, bound_ms)",
                             launches_forced=b1["v4_forced_launches"]),
         "book2_16spp_ms": {"skip": book2_16["v4_ms"], "flat": book2_16["v4_flat_ms"]},
+        "instances": [instance("megakernel_v4")],
     }, {
         "name": "wavefront_step", "route": "cuda",
         "source": "raytrace2_tpu_torch/csrc/wavefront_step.cu",
         "replaces": "raytrace2_tpu/ops/pallas/wavefront_sorted.py:117 (_bounce_step_kernel)",
         "status": "ported, PR 3; PR 6 adds the cluster-skip sweep and table Perlin",
+        "design": "one visit order per warp with the lane's own tie rule, 256-thread blocks",
         "launches": wf_launches,
         "max_abs_err": k2["max_abs_err"],
         "ms": k2["ms"], "plain_ms": k2["plain_ms"],
@@ -860,12 +929,15 @@ def main() -> None:
         "k16": k16, "k2_flat_ms": k2["flat_ms"],
         "launches_table_noise": b1["table_launches"],
         "cli_mpaths_per_s": cli_mp,
+        "instances": [instance("wavefront_step")],
+        "split": splits["wavefront"],
     }, {
         "name": "megakernel_grad", "route": "cuda",
         "source": "raytrace2_tpu_torch/csrc/megakernel_grad.cu",
         "replaces": "raytrace2_tpu/ops/pallas/megakernel_grad.py:350 (_grad_kernel)",
         "status": "ported, PR 4; PR 6 adds the cluster-skip winner search and the "
                   "table-Perlin adjoint",
+        "design": "one instance per scene feature mask",
         "launches": b3_launches,
         "max_abs_err": b3_err,
         "ms": b3_ms, "plain_ms": plain_ms2,
@@ -875,8 +947,54 @@ def main() -> None:
         "plain_shape": f"cornell 600x600, depth {GRAD_DEPTH}, 2 spp (plain_ms, max_abs_err; "
                        f"the kernel there: {ms2:.3f} ms)",
         "book2_64x64_4spp": b1["b3_book2"],
+        "instances": [instance(build.target_key(build.grad_target(m)), m)
+                      for m in sorted(set(grad_masks.values()))],
+        "split": splits["grad"],
     }, *non_kernel]}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))
+
+
+def split_phase(card, book2, cornell) -> dict:
+    """Phase 15: where the final B2 and B3 spend their time, by the
+    profiling tools (raytrace2_tpu_torch/tools/profile_wavefront.py and
+    profile_grad.py): the step's per-phase split over one book-2 batch
+    (600x600, 6 spp, depth 50) and its variants on two of its launches;
+    B3's forward, pre-pass and full times on Cornell 600x600 64 spp and
+    book 2 64x64 4 spp."""
+    from raytrace2_tpu_torch.tools import profile_grad, profile_wavefront
+
+    prof = profile_wavefront.Profiler(book2, 600, 6, 50)
+    sp = prof.batch_split()
+    say(f"phase 15 B2 split, book2 600x600 6 spp depth 50, {sp['launches']} launches, the "
+        f"profiled step (its image bitwise the production one's): per-thread cycles "
+        + ", ".join(f"{k[:-6]} {v:.3f}" for k, v in sp.items() if k.endswith("_share"))
+        + f"; warp-steps over a clustered family {sp['warp_steps']}, with mixed orders "
+        f"{sp['mixed_order_share']:.3f}, orders per warp-step "
+        f"{sp['mean_orders_per_warp_step']:.2f} ({card})")
+    snaps, _, _ = prof.snapshots({3, 7})
+    rows = []
+    for i, (pre, srt, k) in sorted(snaps.items()):
+        row = {"snapshot": i, **prof.time_snapshot(pre, srt, k, 3)}
+        rows.append(row)
+        say(f"phase 15 B2 launch {i} (K={k}, {row['runnable']} runnable): sort "
+            f"{row['sort_ms']:.3f} ms, step {row['step_ms']:.3f}, nosweep "
+            f"{row['nosweep_ms']:.3f}, linear {row['linear_ms']:.3f}, profiled "
+            f"{row['profiled_ms']:.3f} ms ({card})")
+    grads = []
+    for path, res, spp in ((cornell, 600, GRAD_SPP), (book2, 64, 4)):
+        r = profile_grad.profile(path, res, spp, GRAD_SQRT_SPP, GRAD_DEPTH, 2)
+        grads.append(r)
+        regs = {k: [(u["registers"], u["stack"]) for u in v] for k, v in r["ptxas"].items()}
+        say(f"phase 15 B3 split, {os.path.basename(path)} {res}x{res} {spp} spp depth "
+            f"{GRAD_DEPTH}, instance {r['features']}: forward {r['fwd_ms']:.3f} ms, pre-pass "
+            f"{r['prepass_ms']:.3f} ms, full {r['full_ms']:.3f} ms (reverse "
+            f"{r['reverse_ms']:.3f} ms), without its cotangent atomics "
+            f"{r['full_no_atomics_ms']:.3f} ms, with its cotangents in device memory "
+            f"{r['full_device_cot_ms']:.3f} ms; {r['bounces_per_path']:.3f} replayed bounces per "
+            f"path; shared cotangent copy {r['shared_cot']}, {r['smem_bytes']} B of "
+            f"shared memory per block, {r['threads_per_sm']} threads per SM; (registers, stack) "
+            f"{regs} ({card})")
+    return {"wavefront": {"batch": sp, "launches": rows}, "grad": grads}
 
 
 def event_ms(fn, reps):
@@ -985,33 +1103,43 @@ def b1_option_phases(dev, card, book2, book2_16) -> dict:
         f"({card})")
 
     # ---- phase 13c: B3 with the cluster skip on book 2 -------------------
+    # 64x64, 4 spp: the timed launches held against the plain replay, with
+    # hash noise, and with table noise (the instance phase 14's gradient
+    # runs).
     size, spp = 64, 4
     camv = camera.make_camv(host.camera, size, size, 0, spp, 2, 0).to(dev)
     g = torch.from_numpy(np.random.RandomState(5).uniform(
         0.0, 1.0, (size * size, 3)).astype(np.float32)).to(dev)
-    gkw = dict(base_kw, n_pix=size * size)
-    counts = [torch.zeros(1, dtype=torch.int64, device=dev) for _ in range(2)]
-    mkg.grad_call(camv, 0, packed, bg, g, **gkw)  # warm-up
-    kern, b3_ms = event_ms(lambda: mkg.grad_call(camv, 0, packed, bg, g, **gkw), 3)
-    mkg.grad_call(camv, 0, packed, bg, g, bounces=counts[0], **gkw)
-    plain, b3_plain_ms = wall_ms(lambda: mkg.grad_plain(camv, 0, packed, bg, g,
-                                                        bounces=counts[1], **gkw))
-    check(int(counts[0]) == int(counts[1]) > 0,
-          f"B3 book2: replayed {int(counts[0])} bounces, the plain pre-pass {int(counts[1])}")
-    detail = []
-    for name, a, b in grad_groups(kern, plain, sizes):
-        err, scale = float((a - b).abs().max()), float(b.abs().max())
-        check(bool(torch.isfinite(a).all()) and err <= GRAD_RTOL * scale + GRAD_ATOL,
-              f"B3 book2 {name}: max|d| {err:.3g} vs max|g| {scale:.3g}")
-        if scale > 0:
-            detail.append(f"{name} {err:.3g}/{scale:.3g}")
-    say(f"phase 13 B3 vs plain, book2 {size}x{size} {spp} spp depth 50 (winner search "
-        f"through the cluster skip): {', '.join(detail)}; replayed bounces {int(counts[0])} "
-        f"== {int(counts[1])}; kernel {b3_ms:.3f} ms, plain {b3_plain_ms:.1f} ms ({card})")
-
-    # ---- phase 13d: table noise in v4 and the wavefront step ------------------
     tfeats = dict(feats, noise_impl="table")
     ntab = integrator.noise_tables(ds, tfeats)
+    for noise, gkw in (("hash", dict(base_kw, n_pix=size * size)),
+                       ("table", dict(base_kw, n_pix=size * size, ntab=ntab))):
+        counts = [torch.zeros(1, dtype=torch.int64, device=dev) for _ in range(2)]
+        mkg.grad_call(camv, 0, packed, bg, g, **gkw)  # warm-up
+        kern, ms = event_ms(lambda: mkg.grad_call(camv, 0, packed, bg, g, **gkw), 3)
+        mkg.grad_call(camv, 0, packed, bg, g, bounces=counts[0], **gkw)
+        plain, plain_ms = wall_ms(lambda: mkg.grad_plain(camv, 0, packed, bg, g,
+                                                         bounces=counts[1], **gkw))
+        check(int(counts[0]) == int(counts[1]) > 0,
+              f"B3 book2 ({noise} noise): replayed {int(counts[0])} bounces, the plain "
+              f"pre-pass {int(counts[1])}")
+        detail = []
+        for name, a, b in grad_groups(kern, plain, sizes):
+            err, scale = float((a - b).abs().max()), float(b.abs().max())
+            check(bool(torch.isfinite(a).all()) and err <= GRAD_RTOL * scale + GRAD_ATOL,
+                  f"B3 book2 ({noise} noise) {name}: max|d| {err:.3g} vs max|g| {scale:.3g}")
+            if scale > 0:
+                detail.append(f"{name} {err:.3g}/{scale:.3g}")
+        mask = mkg.grad_features(packed, sizes, feats["has_checker"], feats["has_noise"],
+                                 gkw.get("ntab"))
+        say(f"phase 13 B3 vs plain, book2 {size}x{size} {spp} spp depth 50, {noise} noise "
+            f"(winner search through the cluster skip), instance {mask}: {', '.join(detail)}; "
+            f"replayed bounces {int(counts[0])} == {int(counts[1])}; kernel {ms:.3f} ms, "
+            f"plain {plain_ms:.1f} ms ({card})")
+        if noise == "hash":
+            b3_ms, b3_plain_ms = ms, plain_ms
+
+    # ---- phase 13d: table noise in v4 and the wavefront step ------------------
     size, spp = 200, 2
     camv = camera.make_camv(host.camera, size, size, 0, spp, 1, 0).to(dev)
     kw = dict(base_kw, n_pix=size * size, ntab=ntab)

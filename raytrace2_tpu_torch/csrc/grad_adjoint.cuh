@@ -26,6 +26,8 @@
 namespace {
 
 constexpr int kGradMaxDepth = 64;
+// A profiling-only feature bit (csrc/grad_profile.cu): no cotangent atomics.
+constexpr uint32_t kFProfNoCot = 1u << 16;
 constexpr int kNCamvDiff = 19;
 
 // Table cotangents in the packed layout (shared or device memory).
@@ -45,8 +47,15 @@ __device__ inline Cot make_cot(float* base, const Counts& c) {
              const_cast<float*>(t.mat), t.lmat, const_cast<float*>(t.tex), t.ltex};
 }
 
+// Adds a table cotangent (one shared or global atomic). In the profiling
+// build's kFProfNoCot instance the atomic is compiled out, its value kept.
+template <uint32_t F>
 __device__ __forceinline__ void cot_add(float* p, float v) {
-  if (v != 0.0f) atomicAdd(p, v);
+  if constexpr ((F & kFProfNoCot) != 0) {
+    asm volatile("" ::"f"(v));
+  } else if (v != 0.0f) {
+    atomicAdd(p, v);
+  }
 }
 
 // JAX's max/min adjoint: the larger (smaller) operand takes the cotangent,
@@ -185,18 +194,20 @@ struct Adj {
 
 // The pinned winner's record, recomputed with best_t = kBig (the winner's
 // root choice and a medium's free path do not depend on the running best).
+// F: the scene features the instance holds (a winner is of a family F holds).
+template <uint32_t F>
 __device__ Rec resolve(const Tables& T, const Counts& c, uint32_t key, float bn, float tm,
                        Winner w, float ox, float oy, float oz, float dx, float dy, float dz,
                        float a, float inv_a) {
   Rec r{kBig, -1.0f, 0.0f, 0.0f, 0.0f, 0.0f, 1.0f};
-  if (w.fam == 0) {
+  if ((F & kFSph) && w.fam == 0) {
     sphere_test(T, w.idx, tm, ox, oy, oz, dx, dy, dz, a, inv_a, kBig, r);
-  } else if (w.fam == 1) {
+  } else if ((F & kFQuad) && w.fam == 1) {
     quad_test(T, w.idx, ox, oy, oz, dx, dy, dz, kBig, 1.0f, r);
-  } else if (w.fam == 2) {
+  } else if ((F & kFBox) && w.fam == 2) {
     box_test(T, w.idx, ox, oy, oz, dx, dy, dz, safe_inv(dx), safe_inv(dy), safe_inv(dz), kBig,
              1.0f, r);
-  } else if (w.fam == 3) {
+  } else if ((F & kFMed) && w.fam == 3) {
     uint32_t bctr = (uint32_t)((int)bn * (3 + c.n_med));
     medium_test(T, w.idx, key, bctr, tm, ox, oy, oz, dx, dy, dz, sqrtf(fmaxf(a, 1e-24f)), kBig,
                 1.0f, r);
@@ -207,13 +218,14 @@ __device__ Rec resolve(const Tables& T, const Counts& c, uint32_t key, float bn,
 // Adjoint of the resolve: the cotangent of the hit distance gt, of a
 // sphere's center (gc) and radius (grad), and of a quad's normal (gn) go to
 // the ray (go, gd) and the winner's table rows.
+template <uint32_t F>
 __device__ void resolve_adjoint(const Tables& T, const Counts& c, const Cot& D, uint32_t key,
                                 float bn, float tm, Winner w, float ox, float oy, float oz,
                                 float dx, float dy, float dz, float a, float inv_a, float gt,
                                 const float* gc, float grad, const float* gn, float* go,
                                 float* gd) {
   const int p = w.idx;
-  if (w.fam == 0) {
+  if ((F & kFSph) && w.fam == 0) {
     float cx = T.s(C0X, p) + tm * T.s(DPX, p);
     float cy = T.s(C0Y, p) + tm * T.s(DPY, p);
     float cz = T.s(C0Z, p) + tm * T.s(DPZ, p);
@@ -241,14 +253,14 @@ __device__ void resolve_adjoint(const Tables& T, const Counts& c, const Cot& D, 
     go[1] -= gocy;
     go[2] -= gocz;
     float gcx = gc[0] + gocx, gcy = gc[1] + gocy, gcz = gc[2] + gocz;
-    cot_add(&D.sph[C0X * D.ls + p], gcx);
-    cot_add(&D.sph[C0Y * D.ls + p], gcy);
-    cot_add(&D.sph[C0Z * D.ls + p], gcz);
-    cot_add(&D.sph[DPX * D.ls + p], tm * gcx);
-    cot_add(&D.sph[DPY * D.ls + p], tm * gcy);
-    cot_add(&D.sph[DPZ * D.ls + p], tm * gcz);
-    cot_add(&D.sph[RAD * D.ls + p], grad - 2.0f * rad * gcc);
-  } else if (w.fam == 1) {
+    cot_add<F>(&D.sph[C0X * D.ls + p], gcx);
+    cot_add<F>(&D.sph[C0Y * D.ls + p], gcy);
+    cot_add<F>(&D.sph[C0Z * D.ls + p], gcz);
+    cot_add<F>(&D.sph[DPX * D.ls + p], tm * gcx);
+    cot_add<F>(&D.sph[DPY * D.ls + p], tm * gcy);
+    cot_add<F>(&D.sph[DPZ * D.ls + p], tm * gcz);
+    cot_add<F>(&D.sph[RAD * D.ls + p], grad - 2.0f * rad * gcc);
+  } else if ((F & kFQuad) && w.fam == 1) {
     float nx = T.q(NX, p), ny = T.q(NY, p), nz = T.q(NZ, p);
     float nd = dx * nx + dy * ny + dz * nz;
     float no = ox * nx + oy * ny + oz * nz;
@@ -262,11 +274,11 @@ __device__ void resolve_adjoint(const Tables& T, const Counts& c, const Cot& D, 
     gd[0] += gnd * nx;
     gd[1] += gnd * ny;
     gd[2] += gnd * nz;
-    cot_add(&D.quad[NX * D.lq + p], gn[0] + gno * ox + gnd * dx);
-    cot_add(&D.quad[NY * D.lq + p], gn[1] + gno * oy + gnd * dy);
-    cot_add(&D.quad[NZ * D.lq + p], gn[2] + gno * oz + gnd * dz);
-    cot_add(&D.quad[QD * D.lq + p], gnum);
-  } else if (w.fam == 2) {
+    cot_add<F>(&D.quad[NX * D.lq + p], gn[0] + gno * ox + gnd * dx);
+    cot_add<F>(&D.quad[NY * D.lq + p], gn[1] + gno * oy + gnd * dy);
+    cot_add<F>(&D.quad[NZ * D.lq + p], gn[2] + gno * oz + gnd * dz);
+    cot_add<F>(&D.quad[QD * D.lq + p], gnum);
+  } else if ((F & kFBox) && w.fam == 2) {
     const float o[3] = {ox, oy, oz}, d[3] = {dx, dy, dz};
     float inv[3], ta[3], tb[3], lo[3], hi[3];
     for (int k = 0; k < 3; ++k) {
@@ -291,13 +303,13 @@ __device__ void resolve_adjoint(const Tables& T, const Counts& c, const Cot& D, 
       float gta = 0.0f, gtb = 0.0f;
       min_adj(ta[k], tb[k], glo[k], gta, gtb);
       max_adj(ta[k], tb[k], ghi[k], gta, gtb);
-      cot_add(&D.box[(BX0 + k) * D.lb + p], gta * inv[k]);
-      cot_add(&D.box[(BX1 + k) * D.lb + p], gtb * inv[k]);
+      cot_add<F>(&D.box[(BX0 + k) * D.lb + p], gta * inv[k]);
+      cot_add<F>(&D.box[(BX1 + k) * D.lb + p], gtb * inv[k]);
       go[k] -= (gta + gtb) * inv[k];
       float ginv = gta * (T.b(BX0 + k, p) - o[k]) + gtb * (T.b(BX1 + k, p) - o[k]);
       gd[k] += safe_inv_adj(d[k], inv[k], ginv);
     }
-  } else if (w.fam == 3) {
+  } else if ((F & kFMed) && w.fam == 3) {
     const int m = p;
     const float o[3] = {ox, oy, oz}, d[3] = {dx, dy, dz};
     float M[3][4], om[3], dmr[3];
@@ -341,7 +353,7 @@ __device__ void resolve_adjoint(const Tables& T, const Counts& c, const Cot& D, 
     float tw = (e0 + hd) / scale;
     // t_world = (e0 + hd) / scale
     float ge0 = gt / scale, ghd = gt / scale, gscale = -gt * tw / scale;
-    cot_add(&D.med[NID * D.lm + m], ghd * lu);
+    cot_add<F>(&D.med[NID * D.lm + m], ghd * lu);
     float gm1 = 0.0f, gz = 0.0f, gt0 = 0.0f, gts = 0.0f;
     max_adj(m1, 0.0f, ge0, gm1, gz);
     max_adj(t0_, kTMin * scale, gm1, gt0, gts);
@@ -397,6 +409,7 @@ __device__ void resolve_adjoint(const Tables& T, const Counts& c, const Cot& D, 
 // the entry carry `e` and winner `w`, then maps the exit cotangents `A`
 // (ray, throughput) and the radiance cotangent `gr` to the entry's
 // cotangents (in `A`), the background (`dbg`) and the table rows (`D`).
+template <uint32_t F>
 __device__ void bounce_adjoint(const Tables& T, const Counts& c, const float* bg,
                                uint32_t key, float tm, float bn, Winner w, const Entry& e,
                                const float* gr, Adj& A, const Cot& D, float* dbg,
@@ -405,7 +418,7 @@ __device__ void bounce_adjoint(const Tables& T, const Counts& c, const float* bg
   const float tp[3] = {e.tpr, e.tpg, e.tpb};
   const float a = dx * dx + dy * dy + dz * dz;
   const float inv_a = 1.0f / a;
-  const Rec r = resolve(T, c, key, bn, tm, w, ox, oy, oz, dx, dy, dz, a, inv_a);
+  const Rec r = resolve<F>(T, c, key, bn, tm, w, ox, oy, oz, dx, dy, dz, a, inv_a);
 
   if (!(r.fam >= 0.0f)) {
     // Miss: radiance += tp * bg; the ray and throughput pass through.
@@ -417,8 +430,8 @@ __device__ void bounce_adjoint(const Tables& T, const Counts& c, const float* bg
   }
 
   // ---- forward: shade (as path_common.cuh's bounce) ----
-  const bool is_sph = r.fam == 0.0f;
-  const bool is_med = r.fam == 2.0f;
+  const bool is_sph = (F & kFSph) && r.fam == 0.0f;
+  const bool is_med = (F & kFMed) && r.fam == 2.0f;
   const int mi = (int)r.mat;
   const float mtype = T.mt(MTYPE, mi), mparam = T.mt(MPARAM, mi), mtex = T.mt(MTEX, mi);
   const float p[3] = {ox + r.t * dx, oy + r.t * dy, oz + r.t * dz};
@@ -433,20 +446,23 @@ __device__ void bounce_adjoint(const Tables& T, const Counts& c, const float* bg
 
   float leaf = mtex;
   int ti = (int)leaf;
-  for (int lvl = 0; lvl < checker_depth; ++lvl) {
-    float t_inv = T.tx(TINV, ti);
-    float fx = floorf(t_inv * p[0]), fy = floorf(t_inv * p[1]), fz = floorf(t_inv * p[2]);
-    float parity = fx + fy + fz - 2.0f * floorf((fx + fy + fz) * 0.5f);
-    float child = parity == 0.0f ? T.tx(TEVEN, ti) : T.tx(TODD, ti);
-    if (T.tx(TTYPE, ti) == kTexChecker) leaf = child;
-    ti = (int)leaf;
+  if constexpr (F & kFChecker) {
+    for (int lvl = 0; lvl < checker_depth; ++lvl) {
+      float t_inv = T.tx(TINV, ti);
+      float fx = floorf(t_inv * p[0]), fy = floorf(t_inv * p[1]), fz = floorf(t_inv * p[2]);
+      float parity = fx + fy + fz - 2.0f * floorf((fx + fy + fz) * 0.5f);
+      float child = parity == 0.0f ? T.tx(TEVEN, ti) : T.tx(TODD, ti);
+      if (T.tx(TTYPE, ti) == kTexChecker) leaf = child;
+      ti = (int)leaf;
+    }
   }
   const float t_raw[3] = {T.tx(TALR, ti), T.tx(TALG, ti), T.tx(TALB, ti)};
-  const bool noisy = has_noise && T.tx(TTYPE, ti) == kTexNoise;
+  constexpr bool kNoise = (F & (kFHashNoise | kFTableNoise)) != 0;
+  const bool noisy = kNoise && has_noise && T.tx(TTYPE, ti) == kTexNoise;
   float nfac = 1.0f, ndp[3] = {0.0f, 0.0f, 0.0f}, ndscale = 0.0f;
   if (noisy) {
     const float t_scale = T.tx(TSCALE, ti), t_ntype = T.tx(TNTYPE, ti);
-    if (T.nt) {
+    if ((F & kFTableNoise) && (!(F & kFHashNoise) || T.nt)) {
       nfac = noise_factor_grad(p[0], p[1], p[2], t_scale, t_ntype,
                                TableLattice{T.nt, T.nld, (int)T.tx(TNSLOT, ti) * kNoiseN}, ndp,
                                ndscale);
@@ -467,8 +483,8 @@ __device__ void bounce_adjoint(const Tables& T, const Counts& c, const float* bg
   const float uv[3] = {rxy * cosf(phi), rxy * sinf(phi), z};
 
   const bool is_lamb = mtype == kMatLambertian || mtype == kMatTexture;
-  const bool is_metal = mtype == kMatMetal;
-  const bool is_diel = mtype == kMatDielectric;
+  const bool is_metal = (F & kFMetal) && mtype == kMatMetal;
+  const bool is_diel = (F & kFDiel) && mtype == kMatDielectric;
   const bool is_light = mtype == kMatLight;
   const bool uses_tex = mtype == kMatTexture || mtype == kMatIsotropic;
 
@@ -500,7 +516,7 @@ __device__ void bounce_adjoint(const Tables& T, const Counts& c, const float* bg
         gtal[k] += gat;
       } else {
         gtp[k] = gtp_out[k] * T.mt(MALR + k, mi);
-        cot_add(&D.mat[(MALR + k) * D.lmat + mi], gat);
+        cot_add<F>(&D.mat[(MALR + k) * D.lmat + mi], gat);
       }
     }
     gp[0] = A.ox; gp[1] = A.oy; gp[2] = A.oz;
@@ -583,18 +599,18 @@ __device__ void bounce_adjoint(const Tables& T, const Counts& c, const float* bg
     }
     // The isotropic phase function's direction has no gradient.
   }
-  cot_add(&D.mat[MPARAM * D.lmat + mi], gparam);
+  cot_add<F>(&D.mat[MPARAM * D.lmat + mi], gparam);
 
   // Textured albedo -> texture rows (through the noise factor).
   if (gtal[0] != 0.0f || gtal[1] != 0.0f || gtal[2] != 0.0f) {
     float gnf = 0.0f;
     for (int k = 0; k < 3; ++k) {
-      cot_add(&D.tex[(TALR + k) * D.ltex + ti], noisy ? gtal[k] * nfac : gtal[k]);
+      cot_add<F>(&D.tex[(TALR + k) * D.ltex + ti], noisy ? gtal[k] * nfac : gtal[k]);
       gnf += gtal[k] * t_raw[k];
     }
     if (noisy) {
       for (int k = 0; k < 3; ++k) gp[k] += gnf * ndp[k];
-      cot_add(&D.tex[TSCALE * D.ltex + ti], gnf * ndscale);
+      cot_add<F>(&D.tex[TSCALE * D.ltex + ti], gnf * ndscale);
     }
   }
 
@@ -610,7 +626,7 @@ __device__ void bounce_adjoint(const Tables& T, const Counts& c, const float* bg
       pr += gon * (p[k] - rp[k]);
     }
     if (r.aux != 0.0f) grad -= pr / (rad_safe * rad_safe);
-  } else if (w.fam == 1) {
+  } else if ((F & kFQuad) && w.fam == 1) {
     for (int k = 0; k < 3; ++k) gqn[k] = sgn * gn[k];
   }
 
@@ -621,7 +637,7 @@ __device__ void bounce_adjoint(const Tables& T, const Counts& c, const float* bg
     gd[k] += r.t * gp[k];
     gt += gp[k] * d[k];
   }
-  resolve_adjoint(T, c, D, key, bn, tm, w, ox, oy, oz, dx, dy, dz, a, inv_a, gt, gc, grad, gqn,
+  resolve_adjoint<F>(T, c, D, key, bn, tm, w, ox, oy, oz, dx, dy, dz, a, inv_a, gt, gc, grad, gqn,
                   go, gd);
   A = Adj{go[0], go[1], go[2], gd[0], gd[1], gd[2], gtp[0], gtp[1], gtp[2]};
 }
@@ -673,7 +689,11 @@ __device__ void camera_adjoint(const float* cv, uint32_t key, float xx, float yy
 // The backward of one pixel slot (the v4 kernel's linear slot `lane`): for
 // each of the batch's samples, the pre-pass and the reverse pass. Adds the
 // slot's cotangents to dcam[0..18], dbg[0..2] and the table rows D; returns
-// the number of bounces it replayed.
+// the number of bounces it replayed. F: the scene features the instance
+// holds. kPrepass (profiling builds only, as JAX's phase="prepass"): the
+// pre-pass alone, its last carry and winner folded into dcam so that no
+// store of it is dropped.
+template <uint32_t F, bool kPrepass = false>
 __device__ int grad_slot(const Tables& T, const Counts& c, const float* cv, const float* bg,
                           int seed, int lane, int max_depth, int checker_depth, bool has_noise,
                           const float* g, const Cot& D, float* dcam, float* dbg) {
@@ -699,13 +719,25 @@ __device__ int grad_slot(const Tables& T, const Counts& c, const float* cv, cons
     while (s.alive > 0.0f) {  // bounce() ends every path by max_depth <= kGradMaxDepth
       st[nb] = Entry{s.ox, s.oy, s.oz, s.dx, s.dy, s.dz, s.tpr, s.tpg, s.tpb};
       Winner w{-1, 0};
-      bounce<true>(s, T, c, bg, key, tm, max_depth, checker_depth, has_noise, &w);
+      bounce<Cfg<true, Sweep::kLane, F>>(s, T, c, bg, key, tm, max_depth, checker_depth,
+                                         has_noise, &w);
       ws[nb++] = w;
+    }
+    if constexpr (kPrepass) {
+      // Read the whole tape back, as the reverse pass does, so that no store
+      // of it is dropped.
+      for (int b = 0; b < nb; ++b) {
+        const Entry& e = st[b];
+        dcam[0] += e.ox + e.oy + e.oz + e.dx + e.dy + e.dz + e.tpr + e.tpg + e.tpb;
+        dcam[1] += (float)(ws[b].fam * kGradMaxDepth + ws[b].idx);
+      }
+      replayed += nb;
+      continue;
     }
     Adj A{0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
     for (int b = nb - 1; b >= 0; --b) {
-      bounce_adjoint(T, c, bg, key, tm, (float)b, ws[b], st[b], g, A, D, dbg, checker_depth,
-                     has_noise);
+      bounce_adjoint<F>(T, c, bg, key, tm, (float)b, ws[b], st[b], g, A, D, dbg, checker_depth,
+                        has_noise);
     }
     camera_adjoint(cv, key, xx, yy, sg, sqrt_spp, A, dcam);
     replayed += nb;

@@ -6,13 +6,22 @@
 // regenerated sample. Every kernel includes it, so a path computes the same
 // f32 sequence in each of them.
 //
-// The cluster skip (JAX _hier_sweep, megakernel.py:438-497) is per thread:
-// each lane picks its front-to-back visit order from its own direction and
-// skips a supercluster or cluster whose AABB its interval misses. The JAX
-// kernel decides per tile (the summed direction, any lane); a per-lane
-// decision keeps the visit order, and so the winner on exact-t ties,
+// The cluster skip (JAX _hier_sweep, megakernel.py:438-497) finds each
+// lane's winner as if the lane walked its own front-to-back visit order
+// (from its own direction), skipping a supercluster or cluster whose AABB
+// its interval misses. The JAX kernel decides per tile (the summed
+// direction, any lane); a per-lane order keeps the winner on exact-t ties
 // independent of which other lanes are live, which the divergent replay of
-// the gradient kernel needs and the plain version reproduces.
+// the gradient kernel needs and the plain version reproduces. v4, B3 and B4
+// walk that order (Sweep::kLane); the wavefront step walks one order per
+// warp (Sweep::kWarp, hier_sweep) and breaks exact ties by the record's
+// rank in the lane's own order, which gives the same winner.
+//
+// What a kernel compiles is chosen by a Cfg (below): the sweep, a mask of
+// the scene features whose code it holds (the gradient kernel is built per
+// scene from it; the forward kernels hold everything), winner tracking,
+// and an optional per-thread phase clock that only the profiling builds
+// instantiate (csrc/*_profile.cu).
 //
 // Semantics kept exactly as the JAX kernel has them: family order spheres ->
 // quads -> AA boxes -> media; comparisons sphere `root < best_t`, quad
@@ -42,6 +51,47 @@ constexpr int kCluster = 16;   // records per cluster (megakernel.py CLUSTER)
 constexpr int kSuper = 128;    // records per supercluster (SUPER)
 constexpr int kNoiseN = 256;   // entries per Perlin table (NOISE_TABLE_N)
 
+// Scene features whose code a kernel instance holds (megakernel_grad.py
+// feature_mask computes a scene's mask in Python): the record families, the
+// checker, hash or table noise, metal and dielectric materials (Lambertian,
+// textured, light and isotropic are always held).
+constexpr uint32_t kFSph = 1u, kFQuad = 2u, kFBox = 4u, kFMed = 8u, kFChecker = 16u,
+                   kFHashNoise = 32u, kFTableNoise = 64u, kFMetal = 128u, kFDiel = 256u,
+                   kFAll = 511u;
+
+// How the closest hit walks the clustered families: each lane in its own
+// order, one order per warp, or (profiling builds only) the sphere and box
+// families compiled out or swept flat in record order.
+enum class Sweep { kLane, kWarp, kNone, kFlat };
+
+// Phases of a per-thread clock (the profiling builds' PhaseClock).
+enum Phase { kPhStage, kPhLoad, kPhCamera, kPhSlab, kPhRecord, kPhShade, kPhNoise, kPhStore,
+             kPhTotal, kNPhases };
+
+// The clock of a production instance: compiled to nothing.
+struct NoClock {
+  static constexpr bool kOn = false;
+};
+
+template <bool Track = false, Sweep S = Sweep::kLane, uint32_t F = kFAll, class Clk = NoClock>
+struct Cfg {
+  static constexpr bool kTrack = Track;
+  static constexpr Sweep kSweep = S;
+  static constexpr uint32_t kFeat = F;
+  using Clock = Clk;
+};
+
+template <class Clock>
+__device__ __forceinline__ long long tick() {
+  if constexpr (Clock::kOn) return clock64();
+  return 0;
+}
+
+template <class Clock>
+__device__ __forceinline__ void tock(Clock* k, int phase, long long t0) {
+  if constexpr (Clock::kOn) k->cyc[phase] += clock64() - t0;
+}
+
 // Column ids of the packed tables (ops/kernels/megakernel.py *_KEYS).
 enum SphCol { C0X, C0Y, C0Z, DPX, DPY, DPZ, RAD, SMAT, SACT, N_SPH_COLS };
 enum QuadCol { NX, NY, NZ, QD, AAX, AAY, AAZ, ABX, ABY, ABZ, QAA, QAB, QMAT, N_QUAD_COLS };
@@ -68,9 +118,13 @@ struct Counts {
 // Cluster tables of one family (megakernel.CLUSTER_FAMILIES): AABBs
 // [6, n_cl] and [6, n_l2] (x0, y0, z0, x1, y1, z1), the supercluster visit
 // orders [6 * n_l2] and the cluster orders inside them [6 * n_cl], as f32
-// ids. n_cl = 0 for a family swept flat.
+// ids; n_cl = 0 for a family swept flat. Only the wavefront step stages
+// their inverses (iord: a supercluster's place in each order; ilord: a
+// cluster's place inside its supercluster), packed after all the tables
+// (set_inverse_orders); elsewhere they are null.
 struct Clusters {
   const float* cb; const float* sb; const float* ord; const float* lord;
+  const float* iord; const float* ilord;
   int n_cl, n_l2;
 };
 
@@ -107,6 +161,11 @@ __host__ __device__ inline int cluster_floats(int n, int on) {
   return 12 * (n_l2 * (kSuper / kCluster) + n_l2);
 }
 
+// Floats of both families' inverse visit orders, packed after the tables.
+__host__ __device__ inline int inverse_floats(const Counts& c) {
+  return (cluster_floats(c.n_sph, c.hier_sph) + cluster_floats(c.n_box, c.hier_box)) / 2;
+}
+
 __host__ __device__ inline int table_floats(const Counts& c) {
   return N_SPH_COLS * at_least_one(c.n_sph) + N_QUAD_COLS * at_least_one(c.n_quad) +
          N_BOX_COLS * at_least_one(c.n_box) + N_MED_COLS * at_least_one(c.n_med) +
@@ -130,6 +189,7 @@ __device__ inline Clusters make_clusters(const float*& p, int n, int on) {
   k.sb = k.cb + 6 * k.n_cl;
   k.ord = k.sb + 6 * k.n_l2;
   k.lord = k.ord + 6 * k.n_l2;
+  k.iord = k.ilord = nullptr;
   p = k.lord + 6 * k.n_cl;
   return k;
 }
@@ -156,6 +216,15 @@ __device__ inline Tables make_tables(const float* base, const Counts& c) {
   t.nld = kNoiseN * c.n_noise;
   t.nt = c.n_noise ? base + table_floats(c) + kCamvLen + 4 : nullptr;
   return t;
+}
+
+// Point the clustered families' iord/ilord at `inv`, the inverse visit
+// orders as packed (spheres' iord and ilord, then the boxes').
+__device__ inline void set_inverse_orders(Tables& t, const float* inv) {
+  t.scl.iord = inv;
+  t.scl.ilord = inv + 6 * t.scl.n_l2;
+  t.bcl.iord = t.scl.ilord + 6 * t.scl.n_cl;
+  t.bcl.ilord = t.bcl.iord + 6 * t.bcl.n_l2;
 }
 
 // ---- RNG (murmur3 fmix32 counter hash; ops/rng.py) -----------------------
@@ -425,7 +494,9 @@ __device__ __forceinline__ bool medium_test(const Tables& T, int m, uint32_t key
 }
 
 // Slab test of AABB `c` of a [6, n] table against the ray's interval
-// (JAX _hier_sweep.could_hit): t1 > max(t0, t_min) and t0 < best.
+// (JAX _hier_sweep.could_hit): t1 > max(t0, t_min) and t0 < best; with kLe,
+// t0 <= best (the warp walk must not skip a cluster that could hold a tie).
+template <bool kLe = false>
 __device__ __forceinline__ bool could_hit(const float* bb, int n, int c, float ox, float oy,
                                           float oz, float ix, float iy, float iz, float best) {
   float tax = (bb[c] - ox) * ix;
@@ -436,7 +507,7 @@ __device__ __forceinline__ bool could_hit(const float* bb, int n, int c, float o
   float tbz = (bb[5 * n + c] - oz) * iz;
   float t0 = fmaxf(fminf(tax, tbx), fmaxf(fminf(tay, tby), fminf(taz, tbz)));
   float t1 = fminf(fmaxf(tax, tbx), fminf(fmaxf(tay, tby), fmaxf(taz, tbz)));
-  return t1 > fmaxf(t0, kTMin) && t0 < best;
+  return t1 > fmaxf(t0, kTMin) && (kLe ? t0 <= best : t0 < best);
 }
 
 // Visit order of a ray (0..5: +x, -x, +y, -y, +z, -z) by the dominant axis
@@ -448,86 +519,170 @@ __device__ __forceinline__ int sweep_dir(float dx, float dy, float dz) {
   return is_x ? (dx >= 0.0f ? 0 : 1) : is_y ? (dy >= 0.0f ? 2 : 3) : (dz >= 0.0f ? 4 : 5);
 }
 
+// The order most of the converged lanes `act` would take (ties to the lower
+// index): the warp analogue of JAX's per-tile summed direction.
+__device__ __forceinline__ int warp_dir(unsigned act, int dir) {
+  int best = dir, best_n = 0;
+#pragma unroll
+  for (int d = 0; d < 6; ++d) {
+    const int n = __popc(__ballot_sync(act, dir == d));
+    if (n > best_n) {
+      best_n = n;
+      best = d;
+    }
+  }
+  return best;
+}
+
+// Rank of record p in the visit order `dir` of a two-level family.
+__device__ __forceinline__ int visit_rank(const Clusters& C, int dir, int p) {
+  constexpr int kRatio = kSuper / kCluster;
+  const int c1 = p / kCluster, c2 = c1 / kRatio;
+  return ((int)C.iord[dir * C.n_l2 + c2] * kRatio + (int)C.ilord[dir * C.n_cl + c1]) * kCluster +
+         p % kCluster;
+}
+
 // The two-level cluster-skip walk over the n records of a clustered family
-// (JAX _hier_sweep): superclusters in the order of `dir`, then the clusters
-// inside each in order, each entered only when its AABB passes could_hit
-// with the running best t; `test(p)` runs the record test of record p. A
-// family of one supercluster walks its clusters in index order, as JAX does.
-template <class Test>
+// (JAX _hier_sweep): superclusters in order, then the clusters inside each
+// in order, each entered only when its AABB passes could_hit with the
+// running best t. `test(p, best_t, out)` is the family's record test; a
+// hit updates r (and, with tracking, *win = {fam, p}). A family of one
+// supercluster walks its clusters in index order, as JAX does.
+//
+// kLane: the lane's own order `dir`, each record taken when strictly
+// closer. kWarp: the order of most of the warp's converged lanes, so the
+// warp reads one stream of cluster boxes and records; each lane keeps its
+// own running best and slab tests (a lane whose slab misses idles). It
+// takes the lane's own-order winner: a record's t does not depend on the
+// running best, so the winner is the least t, ties to the earliest in the
+// lane's order; the walk tests t0 <= best, so no cluster that could hold a
+// tie is skipped, and breaks an exact tie with an earlier record of this
+// family by the records' ranks in the lane's order (visit_rank).
+template <class K, class Test>
 __device__ __forceinline__ void hier_sweep(const Clusters& C, int n, int dir, float ox,
                                            float oy, float oz, float ix, float iy, float iz,
-                                           const Rec& r, Test test) {
+                                           Rec& r, int fam, Winner* win,
+                                           typename K::Clock* clk, Test test) {
+  using Clock = typename K::Clock;
   constexpr int kRatio = kSuper / kCluster;
+  constexpr bool kWarp = K::kSweep == Sweep::kWarp;
+  const int wdir = kWarp && C.n_l2 >= 2 ? warp_dir(__activemask(), dir) : dir;
+  int best_p = -1;  // kWarp: this family's record holding r.t, or -1
   auto cluster = [&](int c1) {
-    if (!could_hit(C.cb, C.n_cl, c1, ox, oy, oz, ix, iy, iz, r.t)) return;
+    long long t0 = tick<Clock>();
+    const bool enter = could_hit<kWarp>(C.cb, C.n_cl, c1, ox, oy, oz, ix, iy, iz, r.t);
+    tock(clk, kPhSlab, t0);
+    if (!enter) return;
+    t0 = tick<Clock>();
     const int p1 = min(c1 * kCluster + kCluster, n);
-    for (int p = c1 * kCluster; p < p1; ++p) test(p);
+    for (int p = c1 * kCluster; p < p1; ++p) {
+      if constexpr (kWarp) {
+        Rec cand;
+        if (test(p, kBig, cand) &&
+            (cand.t < r.t || (cand.t == r.t && best_p >= 0 && C.n_l2 >= 2 &&
+                              visit_rank(C, dir, p) < visit_rank(C, dir, best_p)))) {
+          r = cand;
+          best_p = p;
+          if constexpr (K::kTrack) *win = Winner{fam, p};
+        }
+      } else if (test(p, r.t, r)) {
+        if constexpr (K::kTrack) *win = Winner{fam, p};
+      }
+    }
+    tock(clk, kPhRecord, t0);
   };
   if (C.n_l2 < 2) {
     for (int c1 = 0; c1 < C.n_cl; ++c1) cluster(c1);
     return;
   }
   for (int i = 0; i < C.n_l2; ++i) {
-    const int c2 = (int)C.ord[dir * C.n_l2 + i];
-    if (!could_hit(C.sb, C.n_l2, c2, ox, oy, oz, ix, iy, iz, r.t)) continue;
-    for (int j = 0; j < kRatio; ++j) cluster((int)C.lord[dir * C.n_cl + c2 * kRatio + j]);
+    const int c2 = (int)C.ord[wdir * C.n_l2 + i];
+    const long long t0 = tick<Clock>();
+    const bool enter = could_hit<kWarp>(C.sb, C.n_l2, c2, ox, oy, oz, ix, iy, iz, r.t);
+    tock(clk, kPhSlab, t0);
+    if (!enter) continue;
+    for (int j = 0; j < kRatio; ++j) cluster((int)C.lord[wdir * C.n_cl + c2 * kRatio + j]);
   }
 }
 
+// A family swept in record order.
+template <class K, class Test>
+__device__ __forceinline__ void flat_sweep(int n, Rec& r, int fam, Winner* win,
+                                           typename K::Clock* clk, Test test) {
+  const long long t0 = tick<typename K::Clock>();
+  for (int p = 0; p < n; ++p) {
+    if (test(p, r.t, r)) {
+      if constexpr (K::kTrack) *win = Winner{fam, p};
+    }
+  }
+  tock(clk, kPhRecord, t0);
+}
+
 // The closest-hit sweep: quads and media flat in record order, spheres and
-// AA boxes flat or through hier_sweep where they are clustered. With kTrack
-// it also writes the winner to *win (the forward kernels instantiate it
-// without).
-template <bool kTrack = false>
+// AA boxes flat or through hier_sweep where they are clustered, each family
+// only where K's feature mask holds it. With K::kTrack it also writes the
+// winner to *win (the forward kernels instantiate it without).
+template <class K = Cfg<>>
 __device__ Rec closest_hit(const Tables& T, const Counts& c, uint32_t key, float bn,
                            float tm, float ox, float oy, float oz, float dx, float dy,
-                           float dz, float a, float inv_a, Winner* win = nullptr) {
+                           float dz, float a, float inv_a, Winner* win = nullptr,
+                           typename K::Clock* clk = nullptr) {
+  constexpr uint32_t F = K::kFeat;
+  constexpr Sweep S = K::kSweep;
+  constexpr bool kClusters = S == Sweep::kLane || S == Sweep::kWarp;
   Rec r{kBig, -1.0f, 0.0f, 0.0f, 0.0f, 0.0f, 1.0f};
-  const bool hs = T.scl.n_cl > 0, hb = T.bcl.n_cl > 0;
+  const bool hs = kClusters && (F & kFSph) && T.scl.n_cl > 0;
+  const bool hb = kClusters && (F & kFBox) && T.bcl.n_cl > 0;
   float inv_dx = 0.0f, inv_dy = 0.0f, inv_dz = 0.0f;
   int dir = 0;
-  if (hs || c.n_box) {
+  if (hs || ((F & kFBox) && c.n_box)) {
     inv_dx = safe_inv(dx);
     inv_dy = safe_inv(dy);
     inv_dz = safe_inv(dz);
   }
-  if (hs || hb) dir = sweep_dir(dx, dy, dz);
-
-  auto sph = [&](int p) {
-    if (sphere_test(T, p, tm, ox, oy, oz, dx, dy, dz, a, inv_a, r.t, r)) {
-      if constexpr (kTrack) *win = Winner{0, p};
-    }
-  };
-  if (hs) {
-    hier_sweep(T.scl, c.n_sph, dir, ox, oy, oz, inv_dx, inv_dy, inv_dz, r, sph);
-  } else {
-    for (int p = 0; p < c.n_sph; ++p) sph(p);
+  if (hs || hb) {
+    dir = sweep_dir(dx, dy, dz);
+    if constexpr (K::Clock::kOn) clk->dirs(dir);
   }
 
-  for (int p = 0; p < c.n_quad; ++p) {
-    if (quad_test(T, p, ox, oy, oz, dx, dy, dz, r.t, r.aux, r)) {
-      if constexpr (kTrack) *win = Winner{1, p};
+  if constexpr ((F & kFSph) && S != Sweep::kNone) {
+    auto sph = [&](int p, float best, Rec& out) {
+      return sphere_test(T, p, tm, ox, oy, oz, dx, dy, dz, a, inv_a, best, out);
+    };
+    if (hs) {
+      hier_sweep<K>(T.scl, c.n_sph, dir, ox, oy, oz, inv_dx, inv_dy, inv_dz, r, 0, win, clk,
+                    sph);
+    } else {
+      flat_sweep<K>(c.n_sph, r, 0, win, clk, sph);
     }
   }
 
-  auto box = [&](int bi) {
-    if (box_test(T, bi, ox, oy, oz, dx, dy, dz, inv_dx, inv_dy, inv_dz, r.t, r.aux, r)) {
-      if constexpr (kTrack) *win = Winner{2, bi};
-    }
-  };
-  if (hb) {
-    hier_sweep(T.bcl, c.n_box, dir, ox, oy, oz, inv_dx, inv_dy, inv_dz, r, box);
-  } else {
-    for (int bi = 0; bi < c.n_box; ++bi) box(bi);
+  if constexpr (F & kFQuad) {
+    flat_sweep<K>(c.n_quad, r, 1, win, clk, [&](int p, float best, Rec& out) {
+      return quad_test(T, p, ox, oy, oz, dx, dy, dz, best, out.aux, out);
+    });
   }
 
-  if (c.n_med) {
-    float d_len = sqrtf(fmaxf(a, 1e-24f));
-    uint32_t bctr = (uint32_t)((int)bn * (3 + c.n_med));
-    for (int m = 0; m < c.n_med; ++m) {
-      if (medium_test(T, m, key, bctr, tm, ox, oy, oz, dx, dy, dz, d_len, r.t, r.aux, r)) {
-        if constexpr (kTrack) *win = Winner{3, m};
-      }
+  if constexpr ((F & kFBox) && S != Sweep::kNone) {
+    auto box = [&](int bi, float best, Rec& out) {
+      return box_test(T, bi, ox, oy, oz, dx, dy, dz, inv_dx, inv_dy, inv_dz, best, r.aux, out);
+    };
+    if (hb) {
+      hier_sweep<K>(T.bcl, c.n_box, dir, ox, oy, oz, inv_dx, inv_dy, inv_dz, r, 2, win, clk,
+                    box);
+    } else {
+      flat_sweep<K>(c.n_box, r, 2, win, clk, box);
+    }
+  }
+
+  if constexpr (F & kFMed) {
+    if (c.n_med) {
+      float d_len = sqrtf(fmaxf(a, 1e-24f));
+      uint32_t bctr = (uint32_t)((int)bn * (3 + c.n_med));
+      flat_sweep<K>(c.n_med, r, 3, win, clk, [&](int m, float best, Rec& out) {
+        return medium_test(T, m, key, bctr, tm, ox, oy, oz, dx, dy, dz, d_len, best, r.aux,
+                           out);
+      });
     }
   }
   return r;
@@ -539,15 +694,34 @@ struct Path {
   float bn, alive, ox, oy, oz, dx, dy, dz, tpr, tpg, tpb, rr, rg, rb;
 };
 
+// The noise factor of texture `ti` (leaf id `leaf`) at p: table Perlin
+// where the tables are staged, else hash Perlin, as far as the mask F holds
+// either.
+template <uint32_t F>
+__device__ __forceinline__ float texture_noise(const Tables& T, int ti, float leaf, float px,
+                                               float py, float pz) {
+  const float t_scale = T.tx(TSCALE, ti), t_ntype = T.tx(TNTYPE, ti);
+  if ((F & kFTableNoise) && (!(F & kFHashNoise) || T.nt)) {
+    return noise_factor(px, py, pz, t_scale, t_ntype,
+                        TableLattice{T.nt, T.nld, (int)T.tx(TNSLOT, ti) * kNoiseN});
+  }
+  return noise_factor(px, py, pz, t_scale, t_ntype,
+                      HashLattice{mix((uint32_t)(int32_t)leaf ^ 0x5EEDBA5Eu)});
+}
+
 // One bounce of a live path (the kernel only calls it with alive > 0). With
-// kTrack the sweep's winner is written to *win.
-template <bool kTrack = false>
+// K::kTrack the sweep's winner is written to *win.
+template <class K = Cfg<>>
 __device__ void bounce(Path& s, const Tables& T, const Counts& c, const float* bg,
                        uint32_t key, float tm, int max_depth, int checker_depth,
-                       bool has_noise, Winner* win = nullptr) {
+                       bool has_noise, Winner* win = nullptr,
+                       typename K::Clock* clk = nullptr) {
+  using Clock = typename K::Clock;
+  constexpr uint32_t F = K::kFeat;
   float a = s.dx * s.dx + s.dy * s.dy + s.dz * s.dz;
-  Rec r = closest_hit<kTrack>(T, c, key, s.bn, tm, s.ox, s.oy, s.oz, s.dx, s.dy, s.dz, a,
-                              1.0f / a, win);
+  Rec r = closest_hit<K>(T, c, key, s.bn, tm, s.ox, s.oy, s.oz, s.dx, s.dy, s.dz, a, 1.0f / a,
+                         win, clk);
+  const long long t_shade = tick<Clock>();
   bool valid = r.fam >= 0.0f;
   bool is_sph = r.fam == 0.0f;
   bool is_med = r.fam == 2.0f;
@@ -571,28 +745,26 @@ __device__ void bounce(Path& s, const Tables& T, const Counts& c, const float* b
   // Texture resolve: direct index, one checker level per nesting level.
   float leaf = mtex;
   int ti = (int)leaf;
-  for (int lvl = 0; lvl < checker_depth; ++lvl) {
-    float t_inv = T.tx(TINV, ti);
-    float fx = floorf(t_inv * px), fy = floorf(t_inv * py), fz = floorf(t_inv * pz);
-    float parity = fx + fy + fz - 2.0f * floorf((fx + fy + fz) * 0.5f);
-    float child = parity == 0.0f ? T.tx(TEVEN, ti) : T.tx(TODD, ti);
-    if (T.tx(TTYPE, ti) == kTexChecker) leaf = child;
-    ti = (int)leaf;
+  if constexpr (F & kFChecker) {
+    for (int lvl = 0; lvl < checker_depth; ++lvl) {
+      float t_inv = T.tx(TINV, ti);
+      float fx = floorf(t_inv * px), fy = floorf(t_inv * py), fz = floorf(t_inv * pz);
+      float parity = fx + fy + fz - 2.0f * floorf((fx + fy + fz) * 0.5f);
+      float child = parity == 0.0f ? T.tx(TEVEN, ti) : T.tx(TODD, ti);
+      if (T.tx(TTYPE, ti) == kTexChecker) leaf = child;
+      ti = (int)leaf;
+    }
   }
   float t_alr = T.tx(TALR, ti), t_alg = T.tx(TALG, ti), t_alb = T.tx(TALB, ti);
-  if (has_noise && valid && T.tx(TTYPE, ti) == kTexNoise) {
-    float t_scale = T.tx(TSCALE, ti), t_ntype = T.tx(TNTYPE, ti);
-    float nfac;
-    if (T.nt) {
-      nfac = noise_factor(px, py, pz, t_scale, t_ntype,
-                          TableLattice{T.nt, T.nld, (int)T.tx(TNSLOT, ti) * kNoiseN});
-    } else {
-      nfac = noise_factor(px, py, pz, t_scale, t_ntype,
-                          HashLattice{mix((uint32_t)(int32_t)leaf ^ 0x5EEDBA5Eu)});
+  if constexpr (F & (kFHashNoise | kFTableNoise)) {
+    if (has_noise && valid && T.tx(TTYPE, ti) == kTexNoise) {
+      const long long t_noise = tick<Clock>();
+      const float nfac = texture_noise<F>(T, ti, leaf, px, py, pz);
+      tock(clk, kPhNoise, t_noise);
+      t_alr = t_alr * nfac;
+      t_alg = t_alg * nfac;
+      t_alb = t_alb * nfac;
     }
-    t_alr = t_alr * nfac;
-    t_alg = t_alg * nfac;
-    t_alb = t_alb * nfac;
   }
 
   uint32_t bctr = (uint32_t)((int)s.bn * (3 + c.n_med));
@@ -603,8 +775,8 @@ __device__ void bounce(Path& s, const Tables& T, const Counts& c, const float* b
   float uvx = rxy * cosf(phi), uvy = rxy * sinf(phi), uvz = z;
 
   bool is_lamb = mtype == kMatLambertian || mtype == kMatTexture;
-  bool is_metal = mtype == kMatMetal;
-  bool is_diel = mtype == kMatDielectric;
+  bool is_metal = (F & kFMetal) && mtype == kMatMetal;
+  bool is_diel = (F & kFDiel) && mtype == kMatDielectric;
   bool is_iso = mtype == kMatIsotropic;
   bool is_light = mtype == kMatLight;
   bool uses_tex = mtype == kMatTexture || is_iso;
@@ -687,6 +859,7 @@ __device__ void bounce(Path& s, const Tables& T, const Counts& c, const float* b
   bool scatter_live = valid && !is_light;
   s.bn = s.bn + 1.0f;
   s.alive = (scatter_live && s.bn < (float)max_depth) ? 1.0f : 0.0f;
+  tock(clk, kPhShade, t_shade);
 }
 
 // Camera ray of sample `sg` through pixel (xx, yy) (camera_ray,
@@ -736,12 +909,14 @@ __host__ __device__ inline int block_smem_bytes(const Counts& c) {
 }
 
 // Stage the packed tables, camv, background and ntab (c.n_noise tables of
-// `ntab_g`) in shared memory; returns the staged camv (zeros where `camv_g`
-// is null: a kernel without a camera). Every thread of the block must call
-// it.
+// `ntab_g`) in shared memory, and with `inverse` the inverse visit orders
+// after them (at smem + stage_floats(c)); returns the staged camv (zeros
+// where `camv_g` is null: a kernel without a camera). Every thread of the
+// block must call it.
 __device__ __forceinline__ const float* stage_tables(float* smem, const float* camv_g,
                                                      const float* bg_g, const float* tables_g,
-                                                     const float* ntab_g, const Counts& c) {
+                                                     const float* ntab_g, const Counts& c,
+                                                     bool inverse = false) {
   const int n_tab = table_floats(c);
   float* cv = smem + n_tab;
   float* bg = cv + kCamvLen;
@@ -750,6 +925,10 @@ __device__ __forceinline__ const float* stage_tables(float* smem, const float* c
   for (int i = threadIdx.x; i < kCamvLen; i += blockDim.x) cv[i] = camv_g ? camv_g[i] : 0.0f;
   if (threadIdx.x < 3) bg[threadIdx.x] = bg_g[threadIdx.x];
   for (int i = threadIdx.x; i < ntab_floats(c); i += blockDim.x) nt[i] = ntab_g[i];
+  if (inverse) {
+    float* inv = nt + ntab_floats(c);
+    for (int i = threadIdx.x; i < inverse_floats(c); i += blockDim.x) inv[i] = tables_g[n_tab + i];
+  }
   __syncthreads();
   return cv;
 }

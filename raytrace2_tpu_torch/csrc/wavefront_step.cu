@@ -20,14 +20,23 @@
 // What bounds it on this card: the closest-hit sweep's operations, as in
 // megakernel_v4.cu (whose device code it shares through path_common.cuh —
 // the cluster skip and table noise included — so a path computes the same
-// f32 sequence in both kernels and the images are bitwise equal). The sort
-// between launches gives neighbouring threads nearby origins and the same
-// direction octant, so they tend to take the same visit order and enter the
-// same clusters. The state traffic is 136 B per slot per launch, read and
-// written: about 49 MB at 600x600, some 15 us at 3.35 TB/s, small beside the
-// sweep. The scene tables, cluster tables, camv and ntab are staged in
-// dynamic shared memory per block as v4 does (book 2: about 60 KB, inside
-// the 227 KB opt-in).
+// f32 sequence in both kernels and the images are bitwise equal). The state
+// traffic is 136 B per slot per launch, read and written: about 49 MB at
+// 600x600, some 15 us at 3.35 TB/s, small beside the sweep.
+//
+// Design. The sort between launches gives neighbouring threads nearby
+// origins and the same direction octant, but lanes of one warp may still
+// take up to six visit orders of the cluster skip, and each order is its own
+// stream of cluster boxes and records. So the step walks the clusters in one
+// order per warp (Sweep::kWarp: the order most of its converged lanes
+// take), each lane keeping its own running best and slab tests, and breaks
+// exact ties by the record's rank in the lane's own order: the winner is
+// the per-lane walk's, bit for bit (path_common.cuh hier_sweep). The scene
+// tables, cluster tables, camv, ntab and the inverse visit orders (which
+// only this kernel stages) are staged in dynamic shared memory once per
+// block of 256 threads (book 2: about 63 KB). In turns on book 2, the
+// per-lane walk at these blocks was 8 % (K=2) and 12 % (K=16) slower
+// (PERF.md).
 //
 // Build: as megakernel_v4.cu (ops/kernels/build.py, -fmad=false), bound
 //        through ctypes.
@@ -40,27 +49,42 @@ namespace {
 enum StateCol { S_LANE, PID, BN, AL, OX, OY, OZ, DX, DY, DZ, TM, TPR, TPG, TPB,
                 RR, RG, RB, N_STATE_COLS };
 
-__global__ void __launch_bounds__(kThreads)
-wavefront_step(const float* __restrict__ camv_g, int seed, const float* __restrict__ bg_g,
-               const float* __restrict__ tables_g, const float* __restrict__ ntab_g, Counts c,
-               float* __restrict__ state, int n_slots, int k_bounces, int max_depth,
-               int checker_depth, int has_noise) {
-  extern __shared__ float smem[];
-  const float* cv = stage_tables(smem, camv_g, bg_g, tables_g, ntab_g, c);
-  const float* bg = cv + kCamvLen;
+// The production step: one visit order per warp (hier_sweep), 256 threads
+// per block over one staged copy of the tables.
+using StepCfg = Cfg<false, Sweep::kWarp>;
+constexpr int kStepThreads = 256;
 
-  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= n_slots) return;
-  const Tables T = make_tables(smem, c);
+// Dynamic shared memory of one block: block_smem_bytes and the inverse
+// visit orders.
+__host__ __device__ inline int step_smem_bytes(const Counts& c) {
+  return block_smem_bytes(c) + inverse_floats(c) * (int)sizeof(float);
+}
+
+// Up to k_bounces steps of slot `lane`.
+template <class K>
+__device__ __forceinline__ void step_slot(const Tables& T, const Counts& c, const float* cv,
+                                          const float* bg, int seed, float* state, int lane,
+                                          int n_slots, int k_bounces, int max_depth,
+                                          int checker_depth, int has_noise,
+                                          typename K::Clock* clk) {
+  using Clock = typename K::Clock;
   float* col = state + lane;
   const size_t n = (size_t)n_slots;
 
+  long long t0 = tick<Clock>();
   float s_lane = col[S_LANE * n];
   const float pid = col[PID * n];
   Path s{col[BN * n],  col[AL * n],  col[OX * n],  col[OY * n],  col[OZ * n],
          col[DX * n],  col[DY * n],  col[DZ * n],  col[TPR * n], col[TPG * n],
          col[TPB * n], col[RR * n],  col[RG * n],  col[RB * n]};
   float tm = col[TM * n];
+  if constexpr (Clock::kOn) {
+    // Wait for every load before reading the clock.
+    const float sink = s_lane + pid + s.bn + s.alive + s.ox + s.oy + s.oz + s.dx + s.dy + s.dz +
+                       s.tpr + s.tpg + s.tpb + s.rr + s.rg + s.rb + tm;
+    asm volatile("" ::"f"(sink));
+  }
+  tock(clk, kPhLoad, t0);
 
   const float width = cv[19];
   const float s0 = cv[21], n_samples = cv[22], sqrt_spp = cv[23];
@@ -74,15 +98,18 @@ wavefront_step(const float* __restrict__ camv_g, int seed, const float* __restri
   int steps = 0;
   while (steps < k_bounces && (s.alive > 0.0f || (s_lane < n_samples - 1.0f && in_grid))) {
     if (s.alive <= 0.0f) {
+      t0 = tick<Clock>();
       s_lane += 1.0f;
       const float sg = s0 + s_lane;
       key = sample_key(seed, pid_u, (int)sg);
       camera_ray(s, tm, cv, key, xx, yy, sg, sqrt_spp);
+      tock(clk, kPhCamera, t0);
     }
-    bounce(s, T, c, bg, key, tm, max_depth, checker_depth, has_noise != 0);
+    bounce<K>(s, T, c, bg, key, tm, max_depth, checker_depth, has_noise != 0, nullptr, clk);
     ++steps;
   }
   if (steps == 0) return;
+  t0 = tick<Clock>();
   col[S_LANE * n] = s_lane;
   col[BN * n] = s.bn;
   col[AL * n] = s.alive;
@@ -99,6 +126,58 @@ wavefront_step(const float* __restrict__ camv_g, int seed, const float* __restri
   col[RR * n] = s.rr;
   col[RG * n] = s.rg;
   col[RB * n] = s.rb;
+  tock(clk, kPhStore, t0);
+}
+
+// `prof` takes the phase clock's sums in an instrumented instance (the
+// profiling build's PhaseClock); production instances get null.
+template <class K>
+__global__ void __launch_bounds__(kStepThreads)
+wavefront_step(const float* __restrict__ camv_g, int seed, const float* __restrict__ bg_g,
+               const float* __restrict__ tables_g, const float* __restrict__ ntab_g, Counts c,
+               float* __restrict__ state, int n_slots, int k_bounces, int max_depth,
+               int checker_depth, int has_noise, unsigned long long* __restrict__ prof) {
+  using Clock = typename K::Clock;
+  Clock clk;
+  const long long t_all = tick<Clock>();
+  extern __shared__ float smem[];
+  const float* cv = stage_tables(smem, camv_g, bg_g, tables_g, ntab_g, c, true);
+  tock(&clk, kPhStage, t_all);
+  const float* bg = cv + kCamvLen;
+
+  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
+  if (lane < n_slots) {
+    Tables T = make_tables(smem, c);
+    set_inverse_orders(T, smem + stage_floats(c));
+    step_slot<K>(T, c, cv, bg, seed, state, lane, n_slots, k_bounces, max_depth, checker_depth,
+                 has_noise, &clk);
+  }
+  if constexpr (Clock::kOn) {
+    tock(&clk, kPhTotal, t_all);
+    clk.flush(prof);
+  }
+}
+
+// Launch instance K on `stream`; returns the cudaError_t of the launch.
+template <class K>
+int launch_step(int device, const float* camv, int seed, const float* bg, const float* tables,
+                const Counts& c, const float* ntab, float* state, int n_slots, int k_bounces,
+                int max_depth, int checker_depth, int has_noise, unsigned long long* prof,
+                void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (n_slots <= 0 || k_bounces <= 0) return (int)cudaSuccess;
+  int smem = step_smem_bytes(c);
+  if (smem > 48 * 1024) {
+    err = cudaFuncSetAttribute(wavefront_step<K>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  int blocks = (n_slots + kStepThreads - 1) / kStepThreads;
+  wavefront_step<K><<<blocks, kStepThreads, smem, (cudaStream_t)stream>>>(
+      camv, seed, bg, tables, ntab, c, state, n_slots, k_bounces, max_depth, checker_depth,
+      has_noise, prof);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -108,11 +187,25 @@ extern "C" {
 // Bytes of dynamic shared memory one block of the kernel needs.
 int wavefront_step_smem_bytes(int n_sph, int n_quad, int n_mat, int n_tex, int n_med,
                               int n_box, int hier_sph, int hier_box, int n_noise) {
-  return block_smem_bytes(
+  return step_smem_bytes(
       Counts{n_sph, n_quad, n_mat, n_tex, n_med, n_box, hier_sph, hier_box, n_noise});
 }
 
 int wavefront_step_state_cols() { return N_STATE_COLS; }
+
+// Resident threads per SM of the production step at `smem` bytes of shared
+// memory per block (the occupancy calculator), or -1 on an error.
+int wavefront_step_threads_per_sm(int smem) {
+  int blocks = 0;
+  if (smem > 48 * 1024 &&
+      cudaFuncSetAttribute(wavefront_step<StepCfg>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           smem) != cudaSuccess)
+    return -1;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, wavefront_step<StepCfg>,
+                                                    kStepThreads, smem) != cudaSuccess)
+    return -1;
+  return blocks * kStepThreads;
+}
 
 // Advance `state` [17, n_slots] in place on `stream`; returns the cudaError_t
 // of the launch. `ntab` holds n_noise Perlin tables (null for hash noise).
@@ -121,21 +214,10 @@ int wavefront_step_launch(int device, const float* camv, int seed, const float* 
                           int n_med, int n_box, int hier_sph, int hier_box, const float* ntab,
                           int n_noise, float* state, int n_slots, int k_bounces, int max_depth,
                           int checker_depth, int has_noise, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  if (n_slots <= 0 || k_bounces <= 0) return (int)cudaSuccess;
-  Counts c{n_sph, n_quad, n_mat, n_tex, n_med, n_box, hier_sph, hier_box, n_noise};
-  int smem = block_smem_bytes(c);
-  if (smem > 48 * 1024) {
-    err = cudaFuncSetAttribute(wavefront_step, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  int blocks = (n_slots + kThreads - 1) / kThreads;
-  wavefront_step<<<blocks, kThreads, smem, (cudaStream_t)stream>>>(
-      camv, seed, bg, tables, ntab, c, state, n_slots, k_bounces, max_depth, checker_depth,
-      has_noise);
-  return (int)cudaGetLastError();
+  return launch_step<StepCfg>(
+      device, camv, seed, bg, tables,
+      Counts{n_sph, n_quad, n_mat, n_tex, n_med, n_box, hier_sph, hier_box, n_noise}, ntab,
+      state, n_slots, k_bounces, max_depth, checker_depth, has_noise, nullptr, stream);
 }
 
 const char* wavefront_step_error_string(int err) {

@@ -141,8 +141,9 @@ def _render_batch_megakernel(scene, packed, features, width, height, sample0,
             **kw)[:n_pix]
 
     if differentiable:
-        radiance = mkg.DiffRender.apply(camv, packed, background, int(seed), forward,
-                                        dict(n_pix=n_pix, **kw))
+        radiance = mkg.DiffRender.apply(
+            camv, packed, background, int(seed), forward,
+            dict(n_pix=n_pix, mat_types=mkg.scene_material_types(scene.materials.mtype), **kw))
     else:
         radiance = forward(camv, int(seed), packed, background)
     return radiance.reshape(height, width, 3)

@@ -2,11 +2,14 @@
 
 Each ``csrc/<name>.cu`` has a plain ``extern "C"`` interface. It is compiled
 at first use with ``nvcc`` into a shared library under ``_build/`` (listed in
-``.gitignore``), named by a hash of its source, the ``csrc/*.cuh`` headers it
-includes and the flags, so that an edit of any of them rebuilds it, and
-loaded with ``ctypes``. Kernels launch on PyTorch's current
-stream. There is no fallback: a missing ``nvcc``, a failed build or a
-refused launch raises.
+``.gitignore``), named by a hash of its source, the ``csrc/*`` files it
+includes, the flags and its defines, so that an edit of any of them rebuilds
+it, and loaded with ``ctypes``. A build target is a source name, or a
+(name, defines) pair: the gradient kernel is built once per scene feature
+mask (``-DGRAD_FEATURES=<mask>``), and the profiling sources
+(``wavefront_profile``, ``grad_profile``) only by the profiling tools.
+Kernels launch on PyTorch's current stream. There is no fallback: a missing
+``nvcc``, a failed build or a refused launch raises.
 """
 
 from __future__ import annotations
@@ -18,6 +21,7 @@ import re
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
 
 import torch
@@ -37,7 +41,9 @@ MAX_SMEM_BYTES = 232448
 
 _LOCK = threading.Lock()
 _LIBS: dict[str, ctypes.CDLL] = {}
+# Per built target (target_key): nvcc's output, and its build time in s.
 BUILD_LOGS: dict[str, str] = {}
+BUILD_SECONDS: dict[str, float] = {}
 
 
 def nvcc_path() -> str:
@@ -62,39 +68,97 @@ def _sources(path: Path, seen: dict) -> dict:
     return seen
 
 
-def library_path(name: str) -> Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+def _target(t) -> tuple:
+    """(name, defines) of a build target: a name or a (name, defines) pair."""
+    return (t, ()) if isinstance(t, str) else (t[0], tuple(t[1]))
+
+
+def target_key(t) -> str:
+    """``name``, or ``name[D1,D2]`` for a target with defines."""
+    name, defines = _target(t)
+    return f"{name}[{','.join(defines)}]" if defines else name
+
+
+def library_path(t) -> Path:
+    name, defines = _target(t)
+    h = hashlib.sha256(" ".join((*NVCC_FLAGS, *defines)).encode())
     for path, src in sorted(_sources(CSRC_DIR / f"{name}.cu", {}).items()):
         h.update(path.name.encode() + b"\0" + src)
-    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+    tag = "".join(f"-{d.replace('=', '')}" for d in defines)
+    return BUILD_DIR / f"lib{name}{tag}-{h.hexdigest()[:16]}.so"
 
 
-def build_all(names=KERNELS) -> dict[str, Path]:
-    """Compile every kernel that is not built yet, one ``nvcc`` per source,
-    all started together. Returns name → library path."""
-    paths = {name: library_path(name) for name in names}
-    todo = {name: p for name, p in paths.items() if not p.exists()}
+def build_all(targets=KERNELS) -> dict[str, Path]:
+    """Compile every target that is not built yet, one ``nvcc`` per target,
+    all started together. Returns target_key → library path. nvcc's output
+    is kept beside each library, so a cached one still reports it."""
+    paths = {target_key(t): library_path(t) for t in targets}
+    todo = {target_key(t): _target(t) for t in targets if not library_path(t).exists()}
+    for key, path in paths.items():
+        log = path.with_name(path.name + ".log")
+        if key not in todo and key not in BUILD_LOGS and log.exists():
+            BUILD_LOGS[key] = log.read_text()
     if not todo:
         return paths
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = nvcc_path()
     procs = {}
-    for name, out in todo.items():
+    for key, (name, defines) in todo.items():
+        out = paths[key]
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                        stderr=subprocess.STDOUT, text=True), tmp)
+        cmd = [nvcc, *NVCC_FLAGS, *(f"-D{d}" for d in defines), "-o", str(tmp),
+               str(CSRC_DIR / f"{name}.cu")]
+        procs[key] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                       stderr=subprocess.STDOUT, text=True), tmp,
+                      time.perf_counter())
     failed = []
-    for name, (proc, tmp) in procs.items():
+    for key, (proc, tmp, t0) in procs.items():
         log, _ = proc.communicate()
-        BUILD_LOGS[name] = log
+        BUILD_LOGS[key] = log
+        BUILD_SECONDS[key] = time.perf_counter() - t0
         if proc.returncode:
-            failed.append(f"{name} (nvcc exit {proc.returncode}):\n{log}")
+            failed.append(f"{key} (nvcc exit {proc.returncode}):\n{log}")
         else:
-            os.replace(tmp, todo[name])
+            paths[key].with_name(paths[key].name + ".log").write_text(log)
+            os.replace(tmp, paths[key])
     if failed:
         raise RuntimeError("kernel build failed: " + "\n".join(failed))
     return paths
+
+
+_ENTRY = re.compile(r"Compiling entry function '([^']+)'")
+_STACK = re.compile(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads")
+_REGS = re.compile(r"Used (\d+) registers")
+
+
+def _demangle(names: list) -> list:
+    tool = shutil.which("cu++filt") or "/usr/local/cuda/bin/cu++filt"
+    if not names or not os.path.exists(tool):
+        return names
+    out = subprocess.run([tool], input="\n".join(names), capture_output=True, text=True)
+    lines = out.stdout.splitlines()
+    return lines if out.returncode == 0 and len(lines) == len(names) else names
+
+
+def ptxas_usage(key: str) -> list:
+    """Per kernel entry of a target built in this process (``-Xptxas=-v``):
+    {kernel (demangled where the toolkit's cu++filt is found), registers,
+    stack, spill_stores, spill_loads}."""
+    entries, cur = [], None
+    for line in BUILD_LOGS.get(key, "").splitlines():
+        if m := _ENTRY.search(line):
+            cur = {"kernel": m.group(1), "registers": None, "stack": None,
+                   "spill_stores": None, "spill_loads": None}
+            entries.append(cur)
+        elif cur is not None and (m := _STACK.search(line)) and cur["stack"] is None:
+            cur.update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                       spill_loads=int(m.group(3)))
+        elif cur is not None and (m := _REGS.search(line)):
+            cur["registers"] = int(m.group(1))
+            cur = None
+    for e, name in zip(entries, _demangle([e["kernel"] for e in entries])):
+        e["kernel"] = name
+    return entries
 
 
 # ctypes types of the kernels' Counts (csrc/path_common.cuh), as
@@ -122,6 +186,8 @@ def _bind_wavefront_step(lib: ctypes.CDLL) -> None:
     lib.wavefront_step_smem_bytes.restype = i
     lib.wavefront_step_state_cols.argtypes = []
     lib.wavefront_step_state_cols.restype = i
+    lib.wavefront_step_threads_per_sm.argtypes = [i]
+    lib.wavefront_step_threads_per_sm.restype = i
     lib.wavefront_step_error_string.argtypes = [i]
     lib.wavefront_step_error_string.restype = ctypes.c_char_p
 
@@ -133,8 +199,28 @@ def _bind_megakernel_grad(lib: ctypes.CDLL) -> None:
     lib.megakernel_grad_launch.restype = i
     lib.megakernel_grad_smem_bytes.argtypes = _COUNTS + [i]
     lib.megakernel_grad_smem_bytes.restype = i
+    lib.megakernel_grad_features.argtypes = []
+    lib.megakernel_grad_features.restype = i
+    lib.megakernel_grad_threads_per_sm.argtypes = [i]
+    lib.megakernel_grad_threads_per_sm.restype = i
     lib.megakernel_grad_error_string.argtypes = [i]
     lib.megakernel_grad_error_string.restype = ctypes.c_char_p
+
+
+def _bind_grad_profile(lib: ctypes.CDLL) -> None:
+    _bind_megakernel_grad(lib)
+    for name in ("megakernel_grad_prepass_launch", "megakernel_grad_no_atomics_launch"):
+        getattr(lib, name).argtypes = lib.megakernel_grad_launch.argtypes
+        getattr(lib, name).restype = ctypes.c_int
+
+
+def _bind_wavefront_profile(lib: ctypes.CDLL) -> None:
+    _bind_wavefront_step(lib)
+    i, p = ctypes.c_int, ctypes.c_void_p
+    lib.wavefront_profile_launch.argtypes = [i, *lib.wavefront_step_launch.argtypes[:-1], p, p]
+    lib.wavefront_profile_launch.restype = i
+    lib.wavefront_profile_counters.argtypes = []
+    lib.wavefront_profile_counters.restype = i
 
 
 def _bind_intersect_kernel(lib: ctypes.CDLL) -> None:
@@ -160,18 +246,19 @@ def _bind_megakernel_v3(lib: ctypes.CDLL) -> None:
 
 _BINDERS = {"megakernel_v4": _bind_megakernel_v4, "wavefront_step": _bind_wavefront_step,
             "megakernel_grad": _bind_megakernel_grad, "intersect_kernel": _bind_intersect_kernel,
-            "megakernel_v3": _bind_megakernel_v3}
+            "megakernel_v3": _bind_megakernel_v3, "grad_profile": _bind_grad_profile,
+            "wavefront_profile": _bind_wavefront_profile}
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The kernel's library, built and bound at first use."""
+def load(t) -> ctypes.CDLL:
+    """The library of build target ``t``, built and bound at first use."""
+    key = target_key(t)
     with _LOCK:
-        if name not in _LIBS:
-            path = build_all((name,))[name]
-            lib = ctypes.CDLL(str(path))
-            _BINDERS[name](lib)
-            _LIBS[name] = lib
-        return _LIBS[name]
+        if key not in _LIBS:
+            lib = ctypes.CDLL(str(build_all((t,))[key]))
+            _BINDERS[_target(t)[0]](lib)
+            _LIBS[key] = lib
+        return _LIBS[key]
 
 
 def _require_cuda(**tensors) -> torch.device:
@@ -250,15 +337,26 @@ def launch_wavefront_step(camv, seed: int, background, packed, ntab, state, *, n
         raise RuntimeError(f"wavefront_step launch failed: {msg} (cudaError {err})")
 
 
+def grad_target(features: int, profiling: bool = False) -> tuple:
+    """Build target of the gradient kernel's instance for a feature mask
+    (``megakernel_grad.grad_features``); with ``profiling`` its profiling
+    build (``csrc/grad_profile.cu``), which also exports the variants'
+    launches (``tools/profile_grad.py``)."""
+    return ("grad_profile" if profiling else "megakernel_grad",
+            (f"GRAD_FEATURES={features}",))
+
+
 def launch_megakernel_grad(camv, seed: int, background, packed, ntab, g, d_camv, d_bg,
                            d_packed, *, n_pix, max_depth, counts, checker_depth, has_noise,
-                           bounces=None) -> None:
-    """Launch ``megakernel_grad``, adding the render's vector-Jacobian product
-    with ``g`` [n_pix, 3] to ``d_camv`` [28], ``d_bg`` [3] and ``d_packed``
-    (zeroed by the caller); raises on a refused launch. The table cotangents
-    accumulate in shared memory where two copies of the tables fit, else in
-    device memory. ``ntab`` takes no cotangent. ``bounces`` (an int64 [1]
-    CUDA tensor, optional) gets the number of replayed bounces added."""
+                           features, bounces=None) -> None:
+    """Launch ``megakernel_grad``'s instance for the feature mask
+    ``features`` (built at first use), adding the render's vector-Jacobian
+    product with ``g`` [n_pix, 3] to ``d_camv`` [28], ``d_bg`` [3] and
+    ``d_packed`` (zeroed by the caller); raises on a refused launch. The
+    table cotangents accumulate in shared memory where two copies of the
+    tables fit, else in device memory. ``ntab`` takes no cotangent.
+    ``bounces`` (an int64 [1] CUDA tensor, optional) gets the number of
+    replayed bounces added."""
     device = _require_cuda(camv=camv, background=background, packed=packed, g=g,
                            d_camv=d_camv, d_bg=d_bg, d_packed=d_packed)
     if g.numel() != 3 * n_pix or d_camv.numel() != camv.numel() \
@@ -270,7 +368,7 @@ def launch_megakernel_grad(camv, seed: int, background, packed, ntab, g, d_camv,
     nt, n_noise = _ntab_args(ntab, device)
     if n_noise != counts[8]:
         raise ValueError("counts and ntab disagree on the number of noise tables")
-    lib = load("megakernel_grad")
+    lib = load(grad_target(features))
     shared_cot = int(lib.megakernel_grad_smem_bytes(*counts, 1) <= MAX_SMEM_BYTES)
     _check_smem(lib.megakernel_grad_smem_bytes(*counts, shared_cot))
     stream = torch.cuda.current_stream(device).cuda_stream

@@ -64,6 +64,11 @@ FAMILIES = (("sph", SPH_KEYS), ("quad", QUAD_KEYS), ("box", BOX_KEYS),
 # superclusters (``ord``, 6 x n_l2) and of the clusters inside each
 # supercluster (``lord``, 6 x n_cl), as f32 ids. JAX stores each as a row of
 # the record table's width; the port stores n_cl or n_l2 entries per key.
+# Their inverses, a supercluster's place in each order (``iord``) and a
+# cluster's place inside its supercluster in each order (``ilord``), are
+# packed last (``INVERSE_FAMILIES``): only the wavefront step stages them,
+# and its warp-ordered walk ranks records in a lane's own order with them
+# (csrc/path_common.cuh visit_rank).
 CLUSTER = 16
 SUPER = 128
 # A family sweeps through its clusters from this many records (JAX
@@ -72,7 +77,8 @@ HIER_MIN = 2 * CLUSTER
 AABB_KEYS = ("x0", "y0", "z0", "x1", "y1", "z1")
 CLUSTER_FAMILIES = tuple((f + part, keys) for f in ("s", "b") for part, keys in (
     ("cb", AABB_KEYS), ("sb", AABB_KEYS), ("ord", ("ord",)), ("lord", ("lord",))))
-ALL_FAMILIES = FAMILIES + CLUSTER_FAMILIES
+INVERSE_FAMILIES = tuple((f + k, (k,)) for f in ("s", "b") for k in ("iord", "ilord"))
+ALL_FAMILIES = FAMILIES + CLUSTER_FAMILIES + INVERSE_FAMILIES
 # Floats of one block's staging area beside the tables: camv (28), the
 # background (3, padded to 4), and the gradient kernel's block sums (24).
 _STAGE_EXTRA = camera.CAMV_LEN + 4 + 24
@@ -206,27 +212,30 @@ def hier_flags(sizes) -> tuple:
     """(spheres, AA boxes): whether each family takes the cluster-skip sweep.
     A family does from ``HIER_MIN`` records, as in JAX, as long as the
     tables with the cluster tables still fit one block's shared memory
-    (``build.MAX_SMEM_BYTES``, the gradient kernel's block sums included).
-    Near the kernel path's record ceiling they may not: then both families
+    (``build.MAX_SMEM_BYTES``, the gradient kernel's block sums and the
+    wavefront step's inverse orders included: every kernel takes the same
+    flags, so that their images agree bitwise). Near the kernel path's
+    record ceiling they may not: then both families
     stay on the flat sweep, which finds the same hits, and no scene the flat
     sweep took is refused."""
     want = (sizes[0] >= HIER_MIN, sizes[5] >= HIER_MIN)
     floats = _record_floats(sizes) + _STAGE_EXTRA + sum(
-        12 * sum(cluster_counts(n)) for n, on in zip((sizes[0], sizes[5]), want) if on)
+        18 * sum(cluster_counts(n)) for n, on in zip((sizes[0], sizes[5]), want) if on)
     return want if 4 * floats <= MAX_SMEM_BYTES else (False, False)
 
 
 def family_rows(sizes) -> dict:
     """Rows per column of each family in the packed buffer: the active
     records (at least one row, as in the JAX tables), then the cluster
-    tables of each family that ``hier_flags`` clusters (no rows otherwise)."""
+    tables and inverse orders of each family that ``hier_flags`` clusters
+    (no rows otherwise)."""
     n_sph, n_quad, n_mat, n_tex, n_med, n_box = sizes
     rows = {"sph": max(n_sph, 1), "quad": max(n_quad, 1), "box": max(n_box, 1),
             "med": max(n_med, 1), "mat": n_mat, "tex": n_tex}
     for f, n, on in zip("sb", (n_sph, n_box), hier_flags(sizes)):
         n_cl, n_l2 = cluster_counts(n) if on else (0, 0)
         rows.update({f + "cb": n_cl, f + "sb": n_l2, f + "ord": 6 * n_l2,
-                     f + "lord": 6 * n_cl})
+                     f + "lord": 6 * n_cl, f + "iord": 6 * n_l2, f + "ilord": 6 * n_cl})
     return rows
 
 
@@ -256,9 +265,12 @@ def cluster_tables(lo, hi, act):
     record AABBs, P a multiple of ``SUPER``; ``act``: [P] bool. Inactive
     records get ±BIG bounds; a cluster left empty collapses to the point
     BIG, because an inverted box does not fail the slab test. Returns
-    {cb: [6, n_cl], sb: [6, n_l2], ord: [6 n_l2], lord: [6 n_cl]}, f32;
-    ``ord`` and ``lord`` are ascending centroid orders along +x, then their
-    reverse for -x, and so on for y and z."""
+    {cb: [6, n_cl], sb: [6, n_l2], ord: [6 n_l2], lord: [6 n_cl],
+    iord: [6 n_l2], ilord: [6 n_cl]}, f32; ``ord`` and ``lord`` are ascending
+    centroid orders along +x, then their reverse for -x, and so on for y and
+    z; ``iord[d n_l2 + c2]`` is the place of supercluster c2 in order d and
+    ``ilord[d n_cl + c1]`` the place of cluster c1 among its supercluster's
+    clusters in order d."""
     lo = torch.where(act[:, None], lo, BIG)
     hi = torch.where(act[:, None], hi, -BIG)
     n_cl, n_l2 = lo.shape[0] // CLUSTER, lo.shape[0] // SUPER
@@ -281,18 +293,26 @@ def cluster_tables(lo, hi, act):
         orders += [asc, asc.flip(0)]
         asc_local = torch.argsort(ccen[:, axis].reshape(n_l2, ratio), dim=1, stable=True)
         lorders += [(base + asc_local).reshape(-1), (base + asc_local.flip(1)).reshape(-1)]
+    ords, lords = torch.stack(orders), torch.stack(lorders)
+    iord = torch.empty_like(ords).scatter_(
+        1, ords, torch.arange(n_l2, device=lo.device).expand(6, n_l2))
+    ilord = torch.empty_like(lords).scatter_(
+        1, lords, (torch.arange(n_cl, device=lo.device) % ratio).expand(6, n_cl))
     return {"cb": torch.cat([cl_lo.t(), cl_hi.t()]), "sb": torch.cat([sb_lo.t(), sb_hi.t()]),
-            "ord": torch.cat(orders).to(torch.float32),
-            "lord": torch.cat(lorders).to(torch.float32)}
+            "ord": ords.reshape(-1).to(torch.float32),
+            "lord": lords.reshape(-1).to(torch.float32),
+            "iord": iord.reshape(-1).to(torch.float32),
+            "ilord": ilord.reshape(-1).to(torch.float32)}
 
 
 def pack_clusters(sph, box, sizes) -> list:
-    """The ``CLUSTER_FAMILIES`` dicts for ``pack_tables``' sphere and box
-    columns: the cluster tables of each family that ``hier_flags`` clusters,
+    """The ``CLUSTER_FAMILIES`` and ``INVERSE_FAMILIES`` dicts for
+    ``pack_tables``' sphere and box columns: the cluster tables of each
+    family that ``hier_flags`` clusters,
     from detached geometry (they only steer the sweep, and are rebuilt from
     the current geometry whenever the tables are packed), sphere bounds
     covering the motion from c0 to c0 + dp (JAX :305-320, :338-348)."""
-    out = []
+    out, inverse = [], []
     for f, cols, n, on in zip("sb", (sph, box), (sizes[0], sizes[5]), hier_flags(sizes)):
         if on:
             pad = -n % SUPER
@@ -313,10 +333,12 @@ def pack_clusters(sph, box, sizes) -> list:
             t = cluster_tables(lo, hi, act)
         else:
             empty = torch.zeros(0, dtype=torch.float32, device=cols["act"].device)
-            t = {"cb": empty.view(6, 0), "sb": empty.view(6, 0), "ord": empty, "lord": empty}
+            t = {"cb": empty.view(6, 0), "sb": empty.view(6, 0), "ord": empty, "lord": empty,
+                 "iord": empty, "ilord": empty}
         out += [dict(zip(AABB_KEYS, t["cb"])), dict(zip(AABB_KEYS, t["sb"])),
                 {"ord": t["ord"]}, {"lord": t["lord"]}]
-    return out
+        inverse += [{"iord": t["iord"]}, {"ilord": t["ilord"]}]
+    return out + inverse
 
 
 def pack_buffer(scene, sizes) -> torch.Tensor:

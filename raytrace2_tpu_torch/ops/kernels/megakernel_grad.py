@@ -28,12 +28,20 @@ carries them on to the scene leaves through ``camera.make_camv`` and
 JAX's replay runs big scenes in 8-bounce segments to fit the TPU's VMEM;
 the plain version here replays whole paths in lane chunks, and the kernel
 keeps one thread's per-bounce carries in local memory.
+
+The JAX kernel is traced per scene (family sizes, ``has_checker`` and
+``has_noise`` static), so it holds only the code the scene needs; the
+kernel here is built per scene feature mask (``feature_mask``): which
+families the scene holds, a checker, and hash or table noise.
 """
 
 from __future__ import annotations
 
+import weakref
+
 import torch
 
+from raytrace2_tpu_torch import defs
 from raytrace2_tpu_torch.ops import camera, rng
 from raytrace2_tpu_torch.ops.kernels import megakernel as mk
 
@@ -57,6 +65,54 @@ LANE_CHUNK = 1 << 17
 
 # Launches of the CUDA kernel (the plain version does not count).
 LAUNCHES = 0
+
+# Feature bits of the kernel's instances (csrc/path_common.cuh kF*).
+(F_SPH, F_QUAD, F_BOX, F_MED, F_CHECKER, F_HASH_NOISE, F_TABLE_NOISE, F_METAL,
+ F_DIEL) = (1 << i for i in range(9))
+F_ALL = (1 << 9) - 1
+
+
+def feature_mask(sizes, has_checker, has_noise, ntab=None, mat_types=None) -> int:
+    """The features whose code the scene's gradient kernel needs: each
+    family with records, the checker, hash noise or (with ``ntab``) table
+    noise, and metal and dielectric where ``mat_types`` (the material type
+    ids present; None: any) holds them."""
+    n_sph, n_quad, _, _, n_med, n_box = sizes
+    metal, diel = float(defs.MAT_METAL), float(defs.MAT_DIELECTRIC)
+    mats = {metal, diel} if mat_types is None else {float(t) for t in mat_types}
+    return ((F_SPH if n_sph else 0) | (F_QUAD if n_quad else 0) | (F_BOX if n_box else 0)
+            | (F_MED if n_med else 0) | (F_CHECKER if has_checker else 0)
+            | ((F_TABLE_NOISE if ntab is not None else F_HASH_NOISE) if has_noise else 0)
+            | (F_METAL if metal in mats else 0) | (F_DIEL if diel in mats else 0))
+
+
+def material_types(packed, sizes) -> set:
+    """The material type ids of the packed tables (one host read)."""
+    return set(mk.unpack_buffer(packed, sizes)["mat"]["mtype"].unique().tolist())
+
+
+# Material type ids per scene mtype tensor, by id while the tensor lives.
+_MAT_TYPES: dict = {}
+
+
+def scene_material_types(mtype) -> frozenset:
+    """The material type ids of a scene's ``materials.mtype`` leaf, read from
+    the device once per tensor: an integer leaf stays the same tensor across
+    gradient steps, so the backward of each step needs no host read."""
+    key = id(mtype)
+    if key not in _MAT_TYPES:
+        _MAT_TYPES[key] = frozenset(float(t) for t in mtype.unique().tolist())
+        weakref.finalize(mtype, _MAT_TYPES.pop, key, None)
+    return _MAT_TYPES[key]
+
+
+def grad_features(packed, sizes, has_checker, has_noise, ntab=None, mat_types=None) -> int:
+    """The feature mask of the kernel instance ``grad_call`` launches for
+    these packed tables (``mat_types``, where given, spares reading the
+    material types from them)."""
+    if mat_types is None:
+        mat_types = material_types(packed, sizes)
+    return feature_mask(sizes, has_checker, has_noise, ntab, mat_types)
 
 
 def grad_supported(sizes, max_depth) -> bool:
@@ -155,16 +211,17 @@ def resolve_shade(key, tm, carry, winner, cols, bg, *, sizes, has_checker, has_n
 
 
 def grad_plain(camv, seed, packed, background, g, *, n_pix, max_depth, sizes,
-               has_checker, has_noise, ntab=None, bounces=None):
+               has_checker, has_noise, ntab=None, bounces=None, mat_types=None):
     """Plain PyTorch version of the backward kernel: the vector-Jacobian
     product of the v4 render (radiance summed over ``camv[22]`` samples,
     [n_pix, 3]) with the cotangent ``g`` [n_pix, 3]. Per sample: the pre-pass
     without gradient records every bounce's winner, then the path is
     replayed under ``torch.autograd``. Returns (d_camv [28], d_background
     [3], d_packed): zero beyond camv entry 18 and outside the GRAD keys.
-    Lanes replay ``LANE_CHUNK`` at a time. ``bounces`` (an int64 [1]
+    The (pixel slot, sample) lanes replay ``LANE_CHUNK`` at a time. ``bounces`` (an int64 [1]
     tensor, optional) gets the number of live bounces of the pre-pass added,
-    as the kernel counts them. ``ntab`` (table noise) takes no cotangent."""
+    as the kernel counts them. ``ntab`` (table noise) takes no cotangent.
+    ``mat_types``, which picks the kernel's instance, changes nothing here."""
     device = packed.device
     cv = [float(x) for x in camv.tolist()]
     bounce = mk.make_bounce(packed, background, max_depth=max_depth, sizes=sizes,
@@ -176,41 +233,40 @@ def grad_plain(camv, seed, packed, background, g, *, n_pix, max_depth, sizes,
     acc = [torch.zeros_like(x) for x in leaves]
     shade_kw = dict(sizes=sizes, has_checker=has_checker, has_noise=has_noise,
                     max_depth=max_depth, ntab=ntab)
-    for l0 in range(0, n_pix, LANE_CHUNK):
-        n = min(LANE_CHUNK, n_pix - l0)
-        slot_f = (torch.arange(l0, l0 + n, dtype=torch.int32, device=device)
-                  + int(cv[25])).to(torch.float32)
-        xx, yy, in_grid = camera.slot_to_pixel(slot_f, cv)
+    n_lanes = n_pix * int(cv[22])
+    for l0 in range(0, n_lanes, LANE_CHUNK):
+        q = torch.arange(l0, min(l0 + LANE_CHUNK, n_lanes), dtype=torch.int32, device=device)
+        slot = q % n_pix
+        xx, yy, in_grid = camera.slot_to_pixel((slot + int(cv[25])).to(torch.float32), cv)
         pid_u = rng.as_u32(yy * cv[19] + xx)
-        gl = g[l0:l0 + n].to(torch.float32)
-        for si in range(int(cv[22])):
-            s_f = torch.full_like(xx, cv[21] + si)
-            key = rng.v4_sample_key(seed, pid_u, s_f)
-            with torch.no_grad():
-                carry, tm = camera_rays(cv, xx, yy, in_grid, s_f, key, cv[23])
-                winners = []
-                while len(winners) < max_depth and bool((carry[1] > 0.0).any()):
-                    if bounces is not None:
-                        bounces += (carry[1] > 0.0).sum()
-                    carry, w = bounce(key, tm, carry, track=True)
-                    winners.append(w)
-            with torch.enable_grad():  # also inside an autograd backward
-                cols = mk.unpack_buffer(packed_l, sizes)
-                carry, tm = camera_rays(camv_l, xx, yy, in_grid, s_f, key, cv[23])
-                for w in winners:
-                    # Only the lanes alive at this bounce replay it, as in
-                    # the kernel: a dead lane's bounce changes nothing, but
-                    # its masked branches can hold 0 * inf in the backward.
-                    live = torch.nonzero(carry[1].detach() > 0.0).squeeze(1)
-                    sub = resolve_shade(key[live], tm[live], tuple(c[live] for c in carry),
-                                        tuple(x[live] for x in w), cols, bg_l, **shade_kw)
-                    carry = tuple(c.index_copy(0, live, v) for c, v in zip(carry, sub))
-                out = (carry[11] * gl[:, 0] + carry[12] * gl[:, 1]
-                       + carry[13] * gl[:, 2]).sum()
-                grads = torch.autograd.grad(out, leaves, allow_unused=True)
-            for a, d in zip(acc, grads):
-                if d is not None:
-                    a += d
+        gl = g[slot].to(torch.float32)
+        s_f = (q // n_pix).to(torch.float32) + cv[21]
+        key = rng.v4_sample_key(seed, pid_u, s_f)
+        with torch.no_grad():
+            carry, tm = camera_rays(cv, xx, yy, in_grid, s_f, key, cv[23])
+            winners = []
+            while len(winners) < max_depth and bool((carry[1] > 0.0).any()):
+                if bounces is not None:
+                    bounces += (carry[1] > 0.0).sum()
+                carry, w = bounce(key, tm, carry, track=True)
+                winners.append(w)
+        with torch.enable_grad():  # also inside an autograd backward
+            cols = mk.unpack_buffer(packed_l, sizes)
+            carry, tm = camera_rays(camv_l, xx, yy, in_grid, s_f, key, cv[23])
+            for w in winners:
+                # Only the lanes alive at this bounce replay it, as in
+                # the kernel: a dead lane's bounce changes nothing, but
+                # its masked branches can hold 0 * inf in the backward.
+                live = torch.nonzero(carry[1].detach() > 0.0).squeeze(1)
+                sub = resolve_shade(key[live], tm[live], tuple(c[live] for c in carry),
+                                    tuple(x[live] for x in w), cols, bg_l, **shade_kw)
+                carry = tuple(c.index_copy(0, live, v) for c, v in zip(carry, sub))
+            out = (carry[11] * gl[:, 0] + carry[12] * gl[:, 1]
+                   + carry[13] * gl[:, 2]).sum()
+            grads = torch.autograd.grad(out, leaves, allow_unused=True)
+        for a, d in zip(acc, grads):
+            if d is not None:
+                a += d
     d_camv, d_bg, d_packed = acc
     d_camv[N_CAMV_DIFF:] = 0.0
     return d_camv, d_bg, torch.where(grad_mask(sizes, device), d_packed, 0.0)
@@ -222,13 +278,16 @@ def grad_plain(camv, seed, packed, background, g, *, n_pix, max_depth, sizes,
 
 
 def grad_call(camv, seed, packed, background, g, *, n_pix, max_depth, sizes,
-              has_checker, has_noise, ntab=None, bounces=None):
+              has_checker, has_noise, ntab=None, bounces=None, mat_types=None):
     """(d_camv [28], d_background [3], d_packed) of the render's
     vector-Jacobian product with ``g`` [n_pix, 3]. On a CPU tensor this runs
-    the plain version; on a CUDA tensor it launches the Hopper kernel (built
-    at first use) or raises. ``bounces`` (an int64 [1] tensor on the same
+    the plain version; on a CUDA tensor it launches the Hopper kernel's
+    instance for the scene's ``feature_mask`` (built at first use) or
+    raises. ``bounces`` (an int64 [1] tensor on the same
     device, optional) gets the number of replayed bounces added. ``ntab``
-    (``megakernel.pack_noise_tables``) selects table noise."""
+    (``megakernel.pack_noise_tables``) selects table noise. ``mat_types``
+    (``scene_material_types``; None: read from ``packed``) are the material
+    type ids the scene holds."""
     global LAUNCHES
     mk.check_inputs(camv, packed, background, n_pix, sizes)
     mk.check_ntab(ntab, packed)
@@ -253,7 +312,9 @@ def grad_call(camv, seed, packed, background, g, *, n_pix, max_depth, sizes,
     build.launch_megakernel_grad(
         camv, int(seed), background, packed, ntab, g, d_camv, d_bg, d_packed, n_pix=n_pix,
         max_depth=max_depth, counts=mk.counts(sizes, mk.n_noise_of(ntab)),
-        checker_depth=int(has_checker), has_noise=bool(has_noise), bounces=bounces)
+        checker_depth=int(has_checker), has_noise=bool(has_noise),
+        features=grad_features(packed, sizes, has_checker, has_noise, ntab, mat_types),
+        bounces=bounces)
     LAUNCHES += 1
     return d_camv, d_bg, d_packed
 

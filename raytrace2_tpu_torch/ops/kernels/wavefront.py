@@ -17,13 +17,14 @@ equal to the v4 kernel's whatever the schedule, sort or key.
 The JAX package's TPU layout knobs choose nothing here: ``mega_sublanes``
 (tile height) and ``mega_state_packed`` (17 state blocks or one) change no
 image, and the port's state is always one ``[17, n]`` tensor advanced by one
-thread per slot. Slots are padded to a multiple of ``SLOT_TILE``, the
-kernel's block, which also sets the grain of the tail compaction.
+thread per slot. Slots are padded to a multiple of ``SLOT_TILE``, which
+also sets the grain of the tail compaction.
 
-The kernel's sweep is v4's: the cluster skip for spheres and AA boxes of
-32 or more records, with the visit order chosen per slot from its ray's
-direction; the sort gives neighbouring threads rays that take the same
-order and enter the same clusters. ``ntab`` switches noise to the
+The kernel's sweep finds v4's winners: the cluster skip for spheres and AA
+boxes of 32 or more records, each slot's winner that of its own visit order
+(from its ray's direction), walked in one order per warp; the sort gives
+neighbouring threads rays that take the same order and enter the same
+clusters. ``ntab`` switches noise to the
 reference's Perlin tables (``noise_impl="table"``).
 """
 
@@ -50,7 +51,7 @@ TAIL_K = 16
 TAIL_FRAC = 0.65
 SORT_EVERY = 1
 SORT_IMPL = "gather"
-# Slots per CUDA block of the kernel (kThreads in path_common.cuh).
+# Slot padding grain (the kernel's blocks of 256 threads take a ragged end).
 SLOT_TILE = 128
 # Keys of the three slot classes (JAX sort_keys).
 _REGEN_KEY = 1 << 28

@@ -10,8 +10,9 @@ its kernels into its own ``_build/``, so two versions are compared inside
 one call on one card. One JSON line per run:
 
 * ``grad``: the gradient kernel (B3) at Cornell 600², depth 50, 64 spp,
-  sqrt_spp 2, and book 2 600², depth 50, 4 spp, CUDA events over 3
-  launches after a warm-up, with the sums of its outputs;
+  sqrt_spp 2, and book 2 64², depth 50, 4 spp, CUDA events over 3
+  launches after a warm-up, with the sums of its outputs and the ptxas
+  lines of each instance built;
 * ``fwd``: the v4 kernel at Cornell 600², depth 50, 6 spp (20 launches),
   and the CLI main paths' Mpaths/s (``app.main --metrics``, ``--cli-spp``
   samples, 64 by default, depth 50; Cornell 5 runs, book 2 2 runs, in one
@@ -22,8 +23,10 @@ one call on one card. One JSON line per run:
   0.5 (5 launches);
 * ``wf``: the wavefront step and B4 alone, built alone, with their ptxas
   register lines: one book-2 600² batch of 6 spp, depth 50, through the
-  wavefront (3 batches), and one B4 pass of Cornell 600² camera rays,
-  depth 50, ``min_alive`` 8 (5 passes).
+  wavefront (3 batches); the step's fifth launch (K=2) and its first K=16
+  launch of that batch, each on the state the batch gave it (5 launches
+  each); and one B4 pass of Cornell 600² camera rays, depth 50,
+  ``min_alive`` 8 (5 passes).
 
 Needs a CUDA device; the scenes come from this checkout's
 ``tools/make_scene.py``.
@@ -57,7 +60,7 @@ def _scenes(work):
     return paths
 
 
-def _prepare(path, spp, sqrt_spp, dev):
+def _prepare(path, spp, sqrt_spp, dev, size=600):
     from raytrace2_tpu_torch.ops import camera
     from raytrace2_tpu_torch.ops.kernels import megakernel as mk
     from raytrace2_tpu_torch.scene import loader, schema
@@ -66,8 +69,8 @@ def _prepare(path, spp, sqrt_spp, dev):
     feats = host.features()
     sizes = tuple(feats["mega_sizes"])
     scene = schema.to_device(host, dev)
-    camv = camera.make_camv(host.camera, 600, 600, 0, spp, sqrt_spp, 0).to(dev)
-    kw = dict(n_pix=PIX, max_depth=50, sizes=sizes, has_checker=feats["has_checker"],
+    camv = camera.make_camv(host.camera, size, size, 0, spp, sqrt_spp, 0).to(dev)
+    kw = dict(n_pix=size * size, max_depth=50, sizes=sizes, has_checker=feats["has_checker"],
               has_noise=feats["has_noise"])
     return (camv, 0, mk.pack_buffer(scene, sizes), scene.background), kw
 
@@ -90,15 +93,19 @@ def _run_grad(paths, dev):
     import numpy as np
     import torch
 
+    from raytrace2_tpu_torch.ops.kernels import build
     from raytrace2_tpu_torch.ops.kernels import megakernel_grad as mkg
 
     out = {}
-    g = torch.from_numpy(np.random.RandomState(5).uniform(0, 1, (PIX, 3))
-                         .astype(np.float32)).to(dev)
-    for name, spp in (("cornell", 64), ("book2", 4)):
-        args, kw = _prepare(paths[name], spp, 2, dev)
+    for name, spp, size in (("cornell", 64, 600), ("book2", 4, 64)):
+        g = torch.from_numpy(np.random.RandomState(5).uniform(0, 1, (size * size, 3))
+                             .astype(np.float32)).to(dev)
+        args, kw = _prepare(paths[name], spp, 2, dev, size)
         res, out[f"b3_{name}_ms"] = _events(lambda: mkg.grad_call(*args, g, **kw), 3)
         out[f"b3_{name}_sums"] = [float(res[1].sum()), float(res[2].abs().sum())]
+    out["ptxas"] = [f"{key}: {line.strip()}" for key, log in build.BUILD_LOGS.items()
+                    if "grad" in key for line in log.splitlines()
+                    if "registers" in line or "stack frame" in line]
     return out
 
 
@@ -158,8 +165,26 @@ def _run_wf(paths, dev):
 
     args, kw = _prepare(paths["book2"], 6, 2, dev)
     kw.pop("n_pix")
-    _, ms = _events(lambda: wf.trace_wavefront_batch(*args, n_rays=-(-PIX // 128) * 128, **kw), 3)
-    out = {"wf_book2_batch_ms": ms,
+    n_rays = -(-PIX // 128) * 128
+    _, ms = _events(lambda: wf.trace_wavefront_batch(*args, n_rays=n_rays, **kw), 3)
+    captured = {}
+
+    def capture(state, *a, k_bounces, **k):
+        captured["n"] = captured.get("n", 0) + 1
+        tag = f"k{k_bounces}"
+        if tag not in captured and (k_bounces != wf.K_BOUNCES or captured["n"] == 5):
+            captured[tag] = state.clone()
+        return wf.wavefront_step(state, *a, k_bounces=k_bounces, **k)
+
+    wf.trace_wavefront_batch(*args, n_rays=n_rays, step=capture, **kw)
+    launch_ms = {}
+    for tag, k in (("k2", wf.K_BOUNCES), ("k16", wf.TAIL_K)):
+        states = [captured[tag].clone() for _ in range(6)]
+        it = iter(states)
+        _, launch_ms[tag] = _events(lambda: wf.wavefront_step(next(it), *args, k_bounces=k,
+                                                              **kw), 5)
+    out = {"wf_book2_batch_ms": ms, "wf_k2_launch_ms": launch_ms["k2"],
+           "wf_k16_launch_ms": launch_ms["k16"],
            "ptxas": [f"{name}: {line.strip()}" for name in ("wavefront_step", "megakernel_v3")
                      for line in build.BUILD_LOGS.get(name, "").splitlines()
                      if "registers" in line]}
@@ -192,8 +217,8 @@ def _child(root, what, cli_spp):
 
     if not raytrace2_tpu_torch.__file__.startswith(os.path.abspath(root)):
         raise SystemExit(f"imported {raytrace2_tpu_torch.__file__}, not the tree at {root}")
-    build.build_all({"v4": ("megakernel_v4",), "wf": ("wavefront_step", "megakernel_v3")}
-                    .get(what, build.KERNELS))
+    build.build_all({"v4": ("megakernel_v4",), "wf": ("wavefront_step", "megakernel_v3"),
+                     "grad": ("megakernel_v4",)}.get(what, build.KERNELS))
     dev = torch.device("cuda")
     run = {"grad": _run_grad, "fwd": lambda p, d: _run_fwd(p, d, cli_spp), "v4": _run_v4,
            "wf": _run_wf}[what]

@@ -156,8 +156,12 @@ def test_grad_kernel_matches_plain(tmp_path, cuda, name):
     """B3 against the replay under autograd, same inputs and cotangent, at
     32x32, 2 spp, depth 8: per leaf group within 1e-3 of the group's largest
     cotangent (float atomics sum in another order), and the same replayed
-    bounces."""
+    bounces. The launch runs the scene's own instance (its feature mask)."""
+    from raytrace2_tpu_torch.ops.kernels import build
+
     args, kw = _wavefront_args(write_scene(tmp_path, name), 32, 32, 2, 8, cuda)
+    mask = mkg.grad_features(args[2], kw["sizes"], kw["has_checker"], kw["has_noise"])
+    assert build.load(build.grad_target(mask)).megakernel_grad_features() == mask
     g = torch.from_numpy(np.random.RandomState(5).uniform(0, 1, (32 * 32, 3))
                          .astype(np.float32)).to(cuda)
     counts = [torch.zeros(1, dtype=torch.int64, device=cuda) for _ in range(2)]
@@ -385,3 +389,33 @@ def test_grad_kernel_with_the_sweep_and_table_noise(tmp_path, cuda, name, feat):
                                  _grad_groups(plain, kw["sizes"])):
         assert torch.isfinite(a).all(), what
         assert float((a - b).abs().max()) <= 1e-3 * float(b.abs().max()) + 1e-6, what
+
+
+@pytest.mark.parametrize("k", [2, 16])
+def test_warp_walk_with_six_orders_and_ties_matches_plain(tmp_path, cuda, k):
+    """The step's warp-ordered cluster walk on a state whose warps hold all
+    six visit orders (lane j of a warp takes order j % 6), aimed at the tie
+    scene's groups of identical records that span clusters: bitwise equal to
+    the plain step, which walks each lane's own order."""
+    args, kw = _v4_args(write_scene(tmp_path, "ties"), 32, 32, 2, 8, cuda)
+    n = 1024
+    rs = np.random.RandomState(9)
+    targets = np.array([[1.5, 0.5, -1.0], [-4.0, 2.0, 3.0], [-1.5, -0.5, 3.0]])
+    t = targets[np.arange(n) % 3] + rs.uniform(-1.2, 1.2, (n, 3))
+    order = np.arange(n) % 6
+    u = rs.uniform(-0.4, 0.4, (n, 3))
+    u[np.arange(n), order // 2] = np.where(order % 2 == 0, 1.0, -1.0)
+    u /= np.linalg.norm(u, axis=1, keepdims=True)
+    state = wf.init_wavefront_state(n, args[0].tolist(), cuda)
+    cols = {"ox": t[:, 0] - 18 * u[:, 0], "oy": t[:, 1] - 18 * u[:, 1],
+            "oz": t[:, 2] - 18 * u[:, 2], "dx": u[:, 0], "dy": u[:, 1], "dz": u[:, 2],
+            "tm": rs.uniform(0, 1, n), "al": np.ones(n), "s_lane": np.zeros(n),
+            "tpr": np.ones(n), "tpg": np.ones(n), "tpb": np.ones(n)}
+    for name, v in cols.items():
+        state[wf.COL[name]] = torch.from_numpy(v.astype(np.float32)).to(cuda)
+    d = state[wf.COL["dx"]:wf.COL["dz"] + 1]
+    assert torch.equal(mk.sweep_dir(*d).cpu(), torch.from_numpy(order))
+    kern = wf.wavefront_step(state.clone(), *args, k_bounces=k, **kw)
+    plain = wf.step_plain(state.clone(), *args, k_bounces=k, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(kern, plain)

@@ -234,6 +234,35 @@ def noise_spheres_json() -> dict:
         "materials": mats, "primitives": prims}
 
 
+def tie_scene_json() -> dict:
+    """Exact-t ties between records of different clusters: 150 and 40
+    copies of two spheres and 150 copies of an AA box (each group longer
+    than a cluster, the first ones than a supercluster) among 300 random
+    spheres and 100 random boxes, under a light."""
+    rs = np.random.RandomState(23)
+    prims = [{"type": "sphere", "center": [float(x) for x in rs.uniform(-12, 12, 3)],
+              "radius": float(rs.uniform(0.2, 0.6)), "material": 0} for _ in range(300)]
+    prims += [{"type": "sphere", "center": [1.5, 0.5, -1.0], "radius": 1.25,
+               "material": 1}] * 150
+    prims += [{"type": "sphere", "center": [-4.0, 2.0, 3.0], "radius": 0.75,
+               "material": 0}] * 40
+    for _ in range(100):
+        c, e = rs.uniform(-12, 12, 3), rs.uniform(0.2, 0.7, 3)
+        prims.append({"type": "box", "min_point": [float(x) for x in c - e],
+                      "max_point": [float(x) for x in c + e], "material": 0})
+    prims += [{"type": "box", "min_point": [-2.5, -1.5, 2.0], "max_point": [-0.5, 0.5, 4.0],
+               "material": 1}] * 150
+    prims.append({"type": "quad", "q": [-4, 14, -4], "u": [8, 0, 0], "v": [0, 0, 8],
+                  "material": 2})
+    return {
+        "background_color": [0.3, 0.35, 0.45],
+        "camera": {"fov": 50, "center": [0, 4, 24], "look_at": [0, 0, 0]},
+        "materials": [{"type": "lambertian", "albedo": [0.6, 0.5, 0.4]},
+                      {"type": "lambertian", "albedo": [0.3, 0.5, 0.7]},
+                      {"type": "diffuse_light", "albedo": [5, 5, 5]}],
+        "primitives": prims}
+
+
 def ellipsoid_scene_json() -> dict:
     """The scene of tests/test_ellipsoid.py (a sphere under a non-uniform
     scale and a rotation, lit by a quad under a sky) with a ground quad, so
@@ -268,6 +297,7 @@ SCENES = {
     "clustered": clustered_scene_json,
     "grid": grid_scene_json,
     "noise_spheres": noise_spheres_json,
+    "ties": tie_scene_json,
     **{f"grad_{k}": (lambda v=v: v) for k, v in GRAD_SCENES.items()},
 }
 
