@@ -8,15 +8,18 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
 Phases, each printed on its own line:
   1. the device, with nvidia-smi's name and power limit;
   2. build every library the run reaches from csrc/ with nvcc, one process
-     per library, all started together: the kernels, the gradient kernel's
-     instance for each scene feature mask the run meets, and the profiling
-     builds of phase 15 (each timed, with ptxas registers, stack and spills);
+     per library, all started together: the kernels, the instance of v4, B4
+     and the gradient kernel for each scene feature mask the run meets, and
+     the profiling builds and ceiling microkernels of phases 15-16 (each
+     timed, with ptxas registers, stack and spills);
   3. closed-form scenes through both kernels (v4, and the wavefront forced),
-     exact (rtol 1e-5);
+     exact (rtol 1e-5), and each scene's v4 instance bitwise against its
+     plain version;
   4. each kernel vs its plain PyTorch version on the card, same inputs, gate
-     |Δmean| < 1e-3 and PSNR ≥ 45 dB: v4 on Cornell 600x600 4 spp depth 8,
-     the feature scene 256x256 4 spp depth 8, and Cornell at its main path's
-     launch shape (600x600, depth 50, the CLI's 6-sample batch), both timed;
+     |Δmean| < 1e-3 and PSNR ≥ 45 dB, and v4 bitwise: v4 on Cornell 600x600
+     4 spp depth 8, the feature scene 256x256 4 spp depth 8, and Cornell at
+     its main path's launch shape (600x600, depth 50, the CLI's 6-sample
+     batch), both timed;
      the wavefront on Cornell 600x600 4 spp depth 8 (forced) and book 2
      64x64 2 spp depth 4, driven by the kernel and by its plain step; the
      wavefront's step at its main path's launch shapes (book 2 600x600,
@@ -58,7 +61,8 @@ Phases, each printed on its own line:
      and of its first launch on a 65,536-ray Cornell chunk; kernel (CUDA
      events), plain version and the xla route's dense sweep timed, bound;
  11. the v3 state-passing kernel B4 vs its plain version, bitwise, on one
-     pass of Cornell 600x600 depth 50 camera rays, timed, bound;
+     pass of Cornell 600x600 depth 50 camera rays (Cornell's instance),
+     timed, bound;
  12. the non-kernel main paths: app.main --backend pallas on Cornell
      600x600 4 spp and book 2 600x600 1 spp (B5 launches > 0, no other
      kernel, means in their bands), with where a pallas Cornell sample
@@ -83,12 +87,18 @@ Phases, each printed on its own line:
      batch, its share of warp-steps with mixed visit orders, its variants
      (sort, step, nosweep, linear) on two launches; B3's forward, pre-pass
      and full times on Cornell 600x600 64 spp and book 2 64x64 4 spp;
- 16. one JSON line describing each kernel, with the options it carries
-     (status), its built instances (registers, stack, spills; B3's feature
-     masks), the split of phase 15, and its bound (f32 operations counted from
+ 16. the card's measured ceilings (tools/roofline.py --mode ceilings: FMA,
+     separate multiply and add, murmur mix, copy) and where the final v4 and
+     B4 spend their time (--mode split: v4 on Cornell 600x600 6 spp and on
+     book 2's block layout, one B4 Cornell pass; idle-lane shares);
+ 17. one JSON line describing each kernel, with the options it carries
+     (status, design), its built instances (registers, stack, spills,
+     feature masks; threads per SM of the main paths' v4 and B4 instances),
+     the splits of phases 15-16, and its bound (f32 operations counted from
      csrc/path_common.cuh, csrc/grad_adjoint.cuh and csrc/intersect_kernel.cu
      for the work this run's data took, or bytes moved, over the card's
-     peak rates).
+     peak rates; beside it the same operations over the measured -fmad=false
+     ceiling of phase 16), and the ceilings.
 The last line is {"ok": true, "device": {...}}. Any failure exits non-zero
 before printing it, as does a machine without CUDA or a directory without
 the package.
@@ -155,6 +165,42 @@ GRAD_SPP, GRAD_SQRT_SPP, GRAD_DEPTH = 64, 2, 50
 # Slots of the captured wavefront states on which the flat sweep's launches
 # are held bitwise against the plain step.
 FLAT_SLICE = 32768
+# GPU cycles the stream spins before a timed run of launches (about 25 ms),
+# so that the host queues the launches meanwhile and the events bracket
+# back-to-back kernels, not the host's pace (tools/roofline.py).
+QUEUE_AHEAD_CYCLES = 50_000_000
+# The designs of B1 and B4 (csrc/megakernel_v4.cu, csrc/megakernel_v3.cu).
+V4_DESIGN = ("instant regeneration: persistent blocks (at most 6 resident blocks an SM x "
+             "the SMs) with per-lane pixel fetch from a device counter, one instance per "
+             "scene feature mask; wave regeneration: the parent's per-tile lockstep with "
+             "every feature")
+V3_DESIGN = ("on scenes without a clustered family: live rays compacted into the first warps "
+             "of their block through shared memory, one instance per scene feature mask; "
+             "else the parent's pass with every feature")
+
+# Closed-form scenes (phase 3): JSON and the exact linear radiance.
+CLOSED = [
+    ("enclosure", {"background_color": [0, 0, 0],
+                   "camera": {"fov": 90, "center": [0, 0, 0], "look_at": [0, 0, -1]},
+                   "materials": [{"type": "diffuse_light", "albedo": [2.0, 3.0, 4.0]}],
+                   "primitives": [{"type": "sphere", "center": [0, 0, 0],
+                                   "radius": 10.0, "material": 0}]},
+     [2.0, 3.0, 4.0]),
+    ("lambertian_plane", {"background_color": [1.0, 0.8, 0.6],
+                          "camera": {"fov": 40, "center": [0, 5, 0],
+                                     "look_at": [0, 0, -10]},
+                          "materials": [{"type": "lambertian", "albedo": [0.3, 0.5, 0.7]}],
+                          "primitives": [{"type": "quad", "q": [-1000, 0, -1000],
+                                          "u": [2000, 0, 0], "v": [0, 0, 2000],
+                                          "material": 0}]},
+     [0.3 * 1.0, 0.5 * 0.8, 0.7 * 0.6]),
+    ("aa_box", {"background_color": [0, 0, 0],
+                "camera": {"fov": 90, "center": [0, 0, 0], "look_at": [0, 0, -1]},
+                "materials": [{"type": "diffuse_light", "albedo": [1.5, 2.5, 3.5]}],
+                "primitives": [{"type": "box", "a": [-5, -5, -5], "b": [5, 5, 5],
+                                "material": 0}]},
+     [1.5, 2.5, 3.5]),
+]
 
 
 def fail(msg: str) -> None:
@@ -218,6 +264,7 @@ def main() -> None:
         from raytrace2_tpu_torch.ops.kernels import build
         from raytrace2_tpu_torch.ops.kernels import megakernel as mk
         from raytrace2_tpu_torch.ops.kernels import megakernel_grad as mkg
+        from raytrace2_tpu_torch.ops.kernels import megakernel_v3 as mk3
         from raytrace2_tpu_torch.ops.kernels import wavefront as wf
         from raytrace2_tpu_torch.render import Renderer
         from raytrace2_tpu_torch.scene import loader, schema
@@ -252,67 +299,57 @@ def main() -> None:
 
     # ---- phase 2: build ----------------------------------------------------
     # Every library the run reaches, one nvcc each, all started together:
-    # the kernels, the gradient kernel's instance for each scene feature
-    # mask the run meets, and the profiling builds of the split phase.
+    # the kernels, the instance of v4, B4 and the gradient kernel for each
+    # scene feature mask the run meets, the profiling builds of the split
+    # phases and the ceiling microkernels.
     cornell = scene_file("cornell", make_scene.cornell_box_original().to_json())
     book2 = scene_file("book2", make_scene.book2_final(rng_seed=0).to_json())
-    grad_masks = {}
-    for name, path, table in [("cornell", cornell, False), ("book2", book2, False),
-                              ("book2 (table noise)", book2, True),
-                              *((f"grad_{k}", scene_file(f"grad_{k}", GRAD_SCENES[k]), False)
-                                for k in ("solid", "noise", "media")),
-                              ("grad_noise (table noise)", os.path.join(work, "grad_noise.json"),
-                               True)]:
+    feature = scene_file("feature", feature_scene_json())
+    v4, v3, b3 = "megakernel_v4", "megakernel_v3", "megakernel_grad"
+    masks = {v4: {}, v3: {}, b3: {}}
+    for name, path, table, kernels in [
+            ("cornell", cornell, False, (v4, v3, b3)), ("book2", book2, False, (v4, v3, b3)),
+            ("book2 (table noise)", book2, True, (v4, b3)), ("feature", feature, False, (v4,)),
+            *((f"closed {n}", scene_file(n, obj), False, (v4,)) for n, obj, _ in CLOSED),
+            *((f"grad_{k}", scene_file(f"grad_{k}", GRAD_SCENES[k]), False, (b3,))
+              for k in ("solid", "noise", "media")),
+            ("grad_noise (table noise)", os.path.join(work, "grad_noise.json"), True, (b3,))]:
         host = loader.load_scene(path)[0]
         f = host.features()
         ds = schema.to_device(host, "cpu")
         ntab = integrator.noise_tables(ds, dict(f, noise_impl="table")) if table else None
-        grad_masks[name] = mkg.grad_features(mk.pack_buffer(ds, f["mega_sizes"]),
-                                             f["mega_sizes"], f["has_checker"], f["has_noise"],
-                                             ntab)
-    targets = [k for k in build.KERNELS if k != "megakernel_grad"]
-    targets += sorted({build.grad_target(m) for m in grad_masks.values()})
+        packed = mk.pack_buffer(ds, f["mega_sizes"])
+        args = (packed, f["mega_sizes"], f["has_checker"], f["has_noise"])
+        for k in kernels:
+            masks[k][name] = (mk3.instance_features(*args) if k == v3
+                              else mk.scene_features(*args, ntab))
+    grad_masks = masks[b3]
+    targets = ["wavefront_step", "intersect_kernel"]
+    targets += sorted({build.feature_target(k, m) for k in masks for m in masks[k].values()})
     targets += ["wavefront_profile", *sorted({build.grad_target(grad_masks[k], True)
-                                              for k in ("cornell", "book2")})]
+                                              for k in ("cornell", "book2")}),
+                *(build.profile_target(masks[v4][k], masks[v3][k]) for k in ("cornell", "book2")),
+                "roofline"]
     t0 = time.perf_counter()
     build.build_all(targets)
     build_s = time.perf_counter() - t0
     say(f"phase 2 build: {len(targets)} libraries in {build_s:.1f} s, one nvcc each, all "
-        f"started together (nvcc {' '.join(build.NVCC_FLAGS)}); B3 instances by scene: "
-        + ", ".join(f"{k} {m}" for k, m in grad_masks.items()))
+        f"started together (nvcc {' '.join(build.NVCC_FLAGS)}); instances by scene: "
+        + "; ".join(f"{k} " + ", ".join(f"{n} {m}" for n, m in masks[k].items())
+                    for k in masks))
     usage = {}
     for t in targets:
         key = build.target_key(t)
         usage[key] = build.ptxas_usage(key)
         for u in usage[key]:
-            say(f"  {key} ({build.BUILD_SECONDS[key]:.1f} s): {u['kernel'].split('(')[0]}: "
+            secs = build.BUILD_SECONDS.get(key)
+            say(f"  {key} ({'cached' if secs is None else f'{secs:.1f} s'}): "
+                f"{u['kernel'].split('(')[0]}: "
                 f"{u['registers']} registers, {u['stack']} B stack, spills {u['spill_stores']}"
                 f"/{u['spill_loads']} B")
 
     # ---- phase 3: closed forms through the kernel ---------------------------
-    closed = [
-        ("enclosure", {"background_color": [0, 0, 0],
-                       "camera": {"fov": 90, "center": [0, 0, 0], "look_at": [0, 0, -1]},
-                       "materials": [{"type": "diffuse_light", "albedo": [2.0, 3.0, 4.0]}],
-                       "primitives": [{"type": "sphere", "center": [0, 0, 0],
-                                       "radius": 10.0, "material": 0}]},
-         [2.0, 3.0, 4.0]),
-        ("lambertian_plane", {"background_color": [1.0, 0.8, 0.6],
-                              "camera": {"fov": 40, "center": [0, 5, 0],
-                                         "look_at": [0, 0, -10]},
-                              "materials": [{"type": "lambertian", "albedo": [0.3, 0.5, 0.7]}],
-                              "primitives": [{"type": "quad", "q": [-1000, 0, -1000],
-                                              "u": [2000, 0, 0], "v": [0, 0, 2000],
-                                              "material": 0}]},
-         [0.3 * 1.0, 0.5 * 0.8, 0.7 * 0.6]),
-        ("aa_box", {"background_color": [0, 0, 0],
-                    "camera": {"fov": 90, "center": [0, 0, 0], "look_at": [0, 0, -1]},
-                    "materials": [{"type": "diffuse_light", "albedo": [1.5, 2.5, 3.5]}],
-                    "primitives": [{"type": "box", "a": [-5, -5, -5], "b": [5, 5, 5],
-                                    "material": 0}]},
-         [1.5, 2.5, 3.5]),
-    ]
-    for name, obj, want in closed:
+    for name, obj, want in CLOSED:
         scene, _ = loader.load_scene(scene_file(name, obj))
         for backend, module in (("auto", mk), ("wavefront", wf)):
             before = module.LAUNCHES
@@ -323,6 +360,18 @@ def main() -> None:
             check(err <= 1e-5, f"{name} ({backend}): relative error {err:.3g} > 1e-5")
             say(f"phase 3 closed form {name} through {module.__name__.rsplit('.', 1)[1]}: "
                 f"max relative error {err:.3g} (rtol 1e-5) ok")
+        # The scene's own v4 instance against its plain version, bitwise.
+        f = scene.features()
+        ds = schema.to_device(scene, dev)
+        camv = camera.make_camv(scene.camera, 32, 32, 0, 3, 1, 0).to(dev)
+        args = (camv, 0, mk.pack_buffer(ds, f["mega_sizes"]), ds.background)
+        kw = dict(n_pix=1024, max_depth=4, sizes=tuple(f["mega_sizes"]),
+                  has_checker=f["has_checker"], has_noise=f["has_noise"])
+        kern = mk.trace_megakernel_batch(*args, **kw)
+        check(torch.equal(kern, mk.trace_plain(*args, **kw)),
+              f"{name}: v4 instance {masks[v4]['closed ' + name]} differs from its plain version")
+        say(f"phase 3 closed form {name}: v4 instance {masks[v4]['closed ' + name]} bitwise "
+            f"equal to its plain version")
 
     # ---- phase 4: kernel vs plain on the card --------------------------------
     def prepare(path, w, h, spp, depth, table=False):
@@ -341,8 +390,15 @@ def main() -> None:
             kw["ntab"] = integrator.noise_tables(ds, dict(feats, noise_impl="table"))
         return (camv, 0, packed, ds.background), kw
 
+    def with_types(kw, args):
+        """``kw`` with the scene's material types, read once as the renderer
+        reads them, so that a timed v4 launch does no host read."""
+        return dict(kw, mat_types=mk.material_types(args[2], kw["sizes"]))
+
     def timed(fn, reps):
+        torch.cuda.synchronize()
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(QUEUE_AHEAD_CYCLES)
         start.record()
         for _ in range(reps):
             out = fn()
@@ -350,17 +406,18 @@ def main() -> None:
         torch.cuda.synchronize()
         return out, start.elapsed_time(end) / reps
 
-    feature = scene_file("feature", feature_scene_json())
     results = {}
     cases = [("cornell 600x600 4spp depth 8", cornell, 600, 4, 8, 1),
              ("feature 256x256 4spp depth 8", feature, 256, 4, 8, 1),
              ("cornell 600x600 6spp depth 50 (main-path launch)", cornell, 600, 6, 50, 5)]
     for label, path, size, spp, depth, reps in cases:
         args, kw = prepare(path, size, size, spp, depth)
+        kw = with_types(kw, args)
         mk.trace_megakernel_batch(*args, **kw)  # warm-up (and first launch)
         torch.cuda.synchronize()
         kern, ms = timed(lambda: mk.trace_megakernel_batch(*args, **kw), reps)
         plain, plain_ms = timed(lambda: mk.trace_plain(*args, **kw), 1)
+        n_bits = int((kern != plain).any(-1).sum())
         k = kern.cpu().numpy() / spp
         p = plain.cpu().numpy() / spp
         check(np.isfinite(k).all(), f"{label}: kernel output not finite")
@@ -368,11 +425,15 @@ def main() -> None:
         psnr = compare.psnr(k, p)
         max_err = float(np.max(np.abs(k - p)))
         n_diff = int((np.abs(k - p).max(-1) > 1e-4).sum())
-        say(f"phase 4 kernel vs plain, {label}: |dmean| {d_mean:.3g}, PSNR {psnr:.2f} dB, "
-            f"max abs err {max_err:.3g}, pixels differing >1e-4: {n_diff} of {size * size}; "
-            f"kernel {ms:.3f} ms, plain {plain_ms:.1f} ms ({card})")
+        mask = mk.scene_features(args[2], kw["sizes"], kw["has_checker"], kw["has_noise"],
+                                 mat_types=kw["mat_types"])
+        say(f"phase 4 kernel vs plain, {label}, instance {mask}: |dmean| {d_mean:.3g}, PSNR "
+            f"{psnr:.2f} dB, max abs err {max_err:.3g}, pixels differing >1e-4: {n_diff}, "
+            f"in any bit: {n_bits} of {size * size}; kernel {ms:.3f} ms, plain "
+            f"{plain_ms:.1f} ms ({card})")
         check(d_mean < MATCH_MEAN and psnr >= MATCH_PSNR,
               f"{label}: kernel disagrees with its plain version")
+        check(n_bits == 0, f"{label}: {n_bits} slots differ from the plain version")
         results[label] = dict(max_abs_err=max_err, psnr=psnr, ms=ms, plain_ms=plain_ms)
 
     def n_rays_of(n_pix):
@@ -584,9 +645,12 @@ def main() -> None:
         n_slots, slot_of_pixel = mk.pixel_slots(600, 600, block=True)
         slot_of_pixel = slot_of_pixel.reshape(-1).to(dev)
 
+        types = mk.material_types(packed_, kw_["sizes"])
+
         def v4():
             return mk.trace_megakernel_batch(camv_b, seed_, packed_, bg_, n_pix=n_slots,
-                                             block=True, wave_frac=0.5, **kw_)[slot_of_pixel]
+                                             block=True, wave_frac=0.5, mat_types=types,
+                                             **kw_)[slot_of_pixel]
 
         def wavefront():
             return wf.trace_wavefront_batch(camv_, seed_, packed_, bg_,
@@ -882,27 +946,35 @@ def main() -> None:
     book2_16["image"] = imgs[("skip", "wf")]
     b1 = b1_option_phases(dev, card, book2, book2_16)
     splits = split_phase(card, book2, cornell)
+    ceil, roof = roofline_phase(card)
     shutil.rmtree(work)
     for name in ("jax", "raytrace2_tpu"):
         check(name not in sys.modules, f"{name} was imported")
 
     def instance(key, mask=None):
-        """ptxas usage of a built target's kernels, with the B3 mask."""
+        """ptxas usage of a built target's kernels, with the feature mask."""
         out = {"build": key, "usage": usage.get(key, [])}
         if mask is not None:
             out["features"] = mask
         return out
 
-    # ---- phase 16: the kernels ------------------------------------------------
+    def instances(kernel):
+        """Every instance of ``kernel`` the run built, by feature mask."""
+        return [instance(build.target_key(build.feature_target(kernel, m)), m)
+                for m in sorted(set(masks[kernel].values()))]
+
+    # ---- phase 17: the kernels ------------------------------------------------
     main_shape = results[cases[2][0]]
     k2, k16 = wf_launch["k2"], wf_launch["k16"]
     v4b = b1["v4_book2"]
-    say(json.dumps({"kernels": [{
+    kernels = [{
         "name": "megakernel_v4", "route": "cuda",
         "source": "raytrace2_tpu_torch/csrc/megakernel_v4.cu",
         "replaces": "raytrace2_tpu/ops/pallas/megakernel.py:1786 (_render_kernel_v4)",
-        "status": "ported, PR 2; PR 6 adds the cluster-skip sweep (_hier_sweep), table "
-                  "Perlin (ntab) and the block-tiled layout with wave regeneration",
+        "status": "ported, with the cluster-skip sweep (_hier_sweep), table Perlin (ntab) "
+                  "and the block-tiled layout with wave regeneration; redesigned for Hopper "
+                  "(design)",
+        "design": V4_DESIGN,
         "launches": launches,
         "max_abs_err": main_shape["max_abs_err"],
         "ms": main_shape["ms"], "plain_ms": main_shape["plain_ms"],
@@ -913,7 +985,10 @@ def main() -> None:
                                        "wave_frac 0.5 (ms, plain_ms, bound_ms)",
                             launches_forced=b1["v4_forced_launches"]),
         "book2_16spp_ms": {"skip": book2_16["v4_ms"], "flat": book2_16["v4_flat_ms"]},
-        "instances": [instance("megakernel_v4")],
+        "instances": instances(v4),
+        "occupancy": {k: {x: roof[k][x] for x in ("features", "smem_bytes", "threads_per_sm")}
+                      for k in ("v4_cornell", "v4_book2_block")},
+        "split": {k: roof[k] for k in ("v4_cornell", "v4_book2_block")},
     }, {
         "name": "wavefront_step", "route": "cuda",
         "source": "raytrace2_tpu_torch/csrc/wavefront_step.cu",
@@ -947,10 +1022,21 @@ def main() -> None:
         "plain_shape": f"cornell 600x600, depth {GRAD_DEPTH}, 2 spp (plain_ms, max_abs_err; "
                        f"the kernel there: {ms2:.3f} ms)",
         "book2_64x64_4spp": b1["b3_book2"],
-        "instances": [instance(build.target_key(build.grad_target(m)), m)
-                      for m in sorted(set(grad_masks.values()))],
+        "instances": instances(b3),
         "split": splits["grad"],
-    }, *non_kernel]}))
+    }, *non_kernel]
+    b4 = kernels[-1]
+    b4.update(status=b4["status"] + "; redesigned for Hopper (design)", design=V3_DESIGN,
+              instances=instances(v3),
+              occupancy={x: roof["v3_cornell_pass"][x]
+                         for x in ("features", "smem_bytes", "threads_per_sm")},
+              split=roof["v3_cornell_pass"])
+    for k in kernels:
+        # The same bound against the card's measured ceiling for code built
+        # with -fmad=false (a multiply and an add issued apart; phase 16).
+        if k["bound_by"] == "operations":
+            k["bound_ms_fmad_false"] = k["bound_ms"] * PEAK_F32_OPS / ceil["mul_add_ops_per_s"]
+    say(json.dumps({"kernels": kernels, "ceilings": ceil}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))
 
 
@@ -997,12 +1083,39 @@ def split_phase(card, book2, cornell) -> dict:
     return {"wavefront": {"batch": sp, "launches": rows}, "grad": grads}
 
 
+def roofline_phase(card):
+    """Phase 16: the card's measured ceilings and where the final v4 and B4
+    spend their time (raytrace2_tpu_torch/tools/roofline.py): the FMA, the
+    separate multiply-add and the murmur-mix chains and a streaming copy;
+    the per-phase clock split of v4 at Cornell 600x600 6 spp and on book 2's
+    block layout (2 spp), and of one B4 Cornell pass, each profiled
+    instance's results bitwise the production one's."""
+    from raytrace2_tpu_torch.tools import roofline
+
+    ceil = roofline.ceilings(5)
+    say(f"phase 16 ceilings: FMA chain {ceil['fma_ops_per_s'] / 1e12:.2f} TFLOP/s, a multiply "
+        f"and an add apart (-fmad=false) {ceil['mul_add_ops_per_s'] / 1e12:.2f} TFLOP/s, murmur "
+        f"mix {ceil['mix_ops_per_s'] / 1e12:.2f} T int ops/s, copy "
+        f"{ceil['copy_bytes_per_s'] / 1e12:.3f} TB/s ({card})")
+    roof = roofline.split(3)
+    for name in ("v4_cornell", "v4_book2_block", "v3_cornell_pass"):
+        r = roof[name]
+        say(f"phase 16 split, {name} ({r['shape']}), instance {r['features']}, "
+            f"{r['threads_per_sm']} threads per SM: production {r['ms']:.3f} ms, profiled "
+            f"{r['profiled_ms']:.3f} ms (bitwise); thread-cycle shares "
+            + ", ".join(f"{k[:-6]} {v:.3f}" for k, v in r.items() if k.endswith("_share"))
+            + f" ({card})")
+    return ceil, roof
+
+
 def event_ms(fn, reps):
-    """(last result, mean ms per call) of ``reps`` calls timed by CUDA events."""
+    """(last result, mean ms per call) of ``reps`` calls timed by CUDA events,
+    queued behind a device spin (QUEUE_AHEAD_CYCLES)."""
     import torch
 
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
+    torch.cuda._sleep(QUEUE_AHEAD_CYCLES)
     start.record()
     for _ in range(reps):
         out = fn()
@@ -1049,13 +1162,14 @@ def b1_option_phases(dev, card, book2, book2_16) -> dict:
     bg = ds.background.to(torch.float32).contiguous()
     base_kw = dict(max_depth=50, sizes=sizes, has_checker=feats["has_checker"],
                    has_noise=feats["has_noise"])
+    types = mk.scene_material_types(ds.materials.mtype)
     out = {}
 
     # ---- phase 13a: v4 on the block layout with wave regeneration ----------
     spp = 2
     camv = camera.make_camv(host.camera, 600, 600, 0, spp, 1, 0, block=mk.BLOCK).to(dev)
     n_slots, _ = mk.pixel_slots(600, 600, block=True)
-    kw = dict(base_kw, n_pix=n_slots, block=True, wave_frac=0.5)
+    kw = dict(base_kw, n_pix=n_slots, block=True, wave_frac=0.5, mat_types=types)
     mk.trace_megakernel_batch(camv, 0, packed, bg, **kw)  # warm-up
     kern, ms = event_ms(lambda: mk.trace_megakernel_batch(camv, 0, packed, bg, **kw), 3)
     stats = {}
@@ -1089,9 +1203,10 @@ def b1_option_phases(dev, card, book2, book2_16) -> dict:
     tm = torch.nn.functional.pad(tm, (0, pad))
     state, rid = mk3.init_state(o, d, tm)
     min_alive = mk3.TILE_R // 16
-    mk3.megakernel_pass(state, rid, seed_lane, min_alive, packed, bg, **base_kw)  # warm-up
+    b4_kw = dict(base_kw, mat_types=types)
+    mk3.megakernel_pass(state, rid, seed_lane, min_alive, packed, bg, **b4_kw)  # warm-up
     (rad_k, new_k), b4_ms = event_ms(
-        lambda: mk3.megakernel_pass(state, rid, seed_lane, min_alive, packed, bg, **base_kw), 3)
+        lambda: mk3.megakernel_pass(state, rid, seed_lane, min_alive, packed, bg, **b4_kw), 3)
     (rad_p, new_p), b4_plain_ms = wall_ms(
         lambda: mk3.pass_plain(state, rid, seed_lane, min_alive, packed, bg, **base_kw))
     check(torch.equal(rad_k, rad_p) and torch.equal(new_k, new_p),
@@ -1334,7 +1449,9 @@ def non_kernel_phases(dev, card, scene_file, cornell, book2, ops_per_bounce) -> 
     bg = ds.background.to(torch.float32)
     min_alive = mk3.TILE_R // 16  # the first of the integrator's two passes
     kw = dict(max_depth=50, sizes=sizes, has_checker=feats["has_checker"],
-              has_noise=feats["has_noise"])
+              has_noise=feats["has_noise"], mat_types=mk.scene_material_types(ds.materials.mtype))
+    b4_mask = mk3.instance_features(packed, sizes, feats["has_checker"], feats["has_noise"],
+                                    kw["mat_types"])
     mk3.megakernel_pass(state, rid, seed_lane, min_alive, packed, bg, **kw)  # warm-up
     (rad_k, new_k), b4_ms = event_ms(
         lambda: mk3.megakernel_pass(state, rid, seed_lane, min_alive, packed, bg, **kw), 5)
@@ -1352,7 +1469,8 @@ def non_kernel_phases(dev, card, scene_file, cornell, book2, ops_per_bounce) -> 
     b4_bound_ms = max(b4_ops / PEAK_F32_OPS, b4_bytes / PEAK_BYTES) * 1e3
     b4_bound_by = "operations" if b4_ops / PEAK_F32_OPS >= b4_bytes / PEAK_BYTES else "bytes"
     say(f"phase 11 B4 vs plain, one pass of cornell 600x600 depth 50 ({n} rays, min_alive "
-        f"{min_alive} of {mk3.TILE_R}): radiance and state bitwise, {int(live.sum())} rays "
+        f"{min_alive} of {mk3.TILE_R}), instance {b4_mask}: radiance and state bitwise, "
+        f"{int(live.sum())} rays "
         f"live after; kernel {b4_ms:.3f} ms (mean of 5), plain {b4_plain_ms:.1f} ms; "
         f"{b4_bounces} bounces x {ops_per_bounce(sizes)} f32 ops, {b4_bytes} B -> bound "
         f"{b4_bound_ms:.4f} ms by {b4_bound_by} ({card})")

@@ -20,7 +20,7 @@
 // per-thread loop computes the TPU kernel's result: the TPU loop runs a
 // whole tile while any lane is runnable, but every update of a bounce is
 // masked by the lane's own `alive`, and regeneration then depends only on
-// the lane's own state. So each lane's sequence of bounces is the same, and
+// the lane's own state. So each pixel's sequence of bounces is the same, and
 // the tile-wide iterations are no-ops on lanes that are done. With
 // wave_frac < 1 (:1838-1847) a tile refills its dead lanes only when its
 // live count has fallen to wave_frac of its in-image lanes, so fresh camera
@@ -29,58 +29,88 @@
 // lanes with __syncthreads_count each step, as the TPU tile does. The image
 // is the same for every wave_frac.
 //
-// What bounds it on this card: ALU and special-function work in the
+// What bounds it on this card: f32 ALU and special-function work in the
 // closest-hit sweep and the shading (sqrt, sin/cos, log, the murmur hashes
 // and, for noise textures, 7 octaves x 8 lattice corners of hashing or
-// table gathers). The cluster skip cuts the sweep of a clustered family to
-// the clusters whose boxes the ray's interval meets. Device memory traffic
-// is the 12-byte output per slot plus one staging copy of the scene tables
-// per block. The design keeps the whole path state in registers for all
-// bounces, and stages the packed tables, the cluster tables and the ntab
-// operand in shared memory: where the lanes of a warp visit the same
-// record, the read is a shared-memory broadcast.
+// table gathers), issued as separate multiplies and adds (-fmad=false).
+// The cluster skip cuts the sweep of a clustered family to the clusters
+// whose boxes the ray's interval meets. Device memory traffic is the
+// 12-byte output per slot plus one staging copy of the scene tables per
+// block. The whole path state stays in registers for all bounces, and the
+// packed tables, the cluster tables and the ntab operand are staged in
+// shared memory: where the lanes of a warp visit the same record, the read
+// is a shared-memory broadcast.
+//
+// Design for Hopper (tools/roofline.py --mode split measured the earlier
+// one-pixel-per-thread kernel: on Cornell 43 % of lane-cycles idle while
+// warp-mates finished longer pixels, and a 3.55-wave grid; each choice
+// below won in turns against the alternatives, PERF.md):
+//   * Persistent blocks with per-lane pixel fetch (instant regeneration, on
+//     either layout): the grid is the resident block count
+//     (cudaOccupancyMaxActiveBlocksPerMultiprocessor, at most
+//     kPersistentBlocksPerSM) x the SMs. A thread starts on
+//     slot blockIdx.x * blockDim.x + threadIdx.x; when all samples of its
+//     pixel are done it stores the pixel's sum and takes the next slot from
+//     a device counter (grid threads + a warp-aggregated atomicAdd of the
+//     lanes fetching together). A pixel's samples still run in order on one
+//     thread and are summed in the same order, so the image is bitwise the
+//     one-pixel-per-thread kernel's; only which thread runs which pixel
+//     changes. The counter is scratch of the caller's, zeroed on the
+//     launch's stream by the launch itself.
+//   * One instance per scene feature mask (-DV4_FEATURES=<mask>, built at
+//     first use; path_common.cuh kF*): Cornell's holds the quad test,
+//     Lambertian and light only.
+//   * The kernel with wave regeneration keeps its per-tile lockstep, the
+//     per-lane cluster walk (the wavefront step's warp walk measured no
+//     faster there) and every feature: book 2's mask instance of it
+//     spilled and ran 1-10 % slower than the parent's in turns.
 //
 // The device code it shares with wavefront_step.cu (tables, RNG, noise, the
 // sweep, one bounce, the camera ray) is in path_common.cuh.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -fmad=false
-//        -shared -Xcompiler -fPIC (no --use_fast_math; ops/kernels/build.py).
-//        Bound through ctypes.
+//        -shared -Xcompiler -fPIC -DV4_FEATURES=<mask> (no --use_fast_math;
+//        ops/kernels/build.py, one library per mask). Bound through ctypes.
+
+#include <cooperative_groups.h>
 
 #include "path_common.cuh"
 
+#ifndef V4_FEATURES
+#define V4_FEATURES 511
+#endif
+
 namespace {
 
+namespace cg = cooperative_groups;
+
+constexpr uint32_t kV4Feat = V4_FEATURES;
 constexpr int kBlockTile = 256;  // lanes of a block-tiled tile (megakernel.BLOCK_TILE)
 constexpr int kBlockSide = 16;   // its pixel block's side (megakernel.BLOCK)
 
-// kWave: wave regeneration, the block's threads in lockstep (a block is a
-// tile: kBlockTile threads on the block layout, kThreads on the linear one);
-// else instant per-thread regeneration in blocks of kThreads on either
-// layout (the slot -> pixel map does not depend on the block). The minimum
-// of 6 (3) resident blocks holds either at 80 registers a thread without a
-// spill; left free, ptxas took ~120 for the cluster walk, and the Cornell
-// launch ran 13 % slower at 4 blocks per SM (tools/ab_kernels.py --what v4).
-template <bool kWave>
-__global__ void __launch_bounds__(kWave ? kBlockTile : kThreads, kWave ? 3 : 6)
-megakernel_v4(const float* __restrict__ camv_g, int seed, const float* __restrict__ bg_g,
-              const float* __restrict__ tables_g, const float* __restrict__ ntab_g, Counts c,
-              int n_slots, int block_layout, float wave_frac, int max_depth, int checker_depth,
-              int has_noise, float* __restrict__ out) {
-  extern __shared__ float smem[];
-  const float* cv = stage_tables(smem, camv_g, bg_g, tables_g, ntab_g, c);
-  const float* bg = cv + kCamvLen;
-  const Tables T = make_tables(smem, c);
+// The persistent kernel's register budget and grid. __launch_bounds__ asks
+// for 6 resident 128-thread blocks (80 registers): an instance that holds
+// the cluster walk uses all 80 without a spill (ptxas took ~120 left free,
+// 13 % slower); Cornell's takes 64 under any cap from 80 to 128 and ran 6 %
+// slower held to 56 (8 blocks). The grid keeps at most 6 blocks an SM
+// resident: Cornell's instance, which fits 8, ran 8 % faster at 6 (fewer
+// threads, each taking more pixels, shorten the tail after the last fetch).
+constexpr int kPersistentMinBlocks = 6;
+constexpr int kPersistentBlocksPerSM = 6;
 
-  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  // Outside the lockstep loop a thread past the end has nothing to do.
-  if (!kWave && lane >= n_slots) return;
-
-  // Slot -> pixel; every value < 2^24, exact in f32.
-  const float slot_f = (float)(lane + (int)cv[25]);
-  const float width = cv[19];
+// Slot -> pixel (JAX slot_to_pixel, :1729-1747); every value < 2^24, exact
+// in f32. Linear: slot == pixel id; block-tiled: each kBlockTile slots one
+// kBlockSide^2 pixel block, lanes past the image's edge out of the grid.
+struct Pixel {
   float xx, yy;
   bool in_grid;
+  uint32_t pid;
+};
+
+__device__ __forceinline__ Pixel slot_pixel(int slot, const float* cv, int block_layout) {
+  const float slot_f = (float)(slot + (int)cv[25]);
+  const float width = cv[19];
+  Pixel px;
   if (block_layout) {
     const float tile_f = floorf(slot_f * (1.0f / kBlockTile));
     const float within = slot_f - tile_f * kBlockTile;
@@ -88,47 +118,204 @@ megakernel_v4(const float* __restrict__ camv_g, int seed, const float* __restric
     const float bx = tile_f - by * cv[26];
     const float ly = floorf(within * (1.0f / kBlockSide));
     const float lx = within - ly * kBlockSide;
-    xx = bx * kBlockSide + lx;
-    yy = by * kBlockSide + ly;
-    in_grid = xx < width && yy < cv[27];
+    px.xx = bx * kBlockSide + lx;
+    px.yy = by * kBlockSide + ly;
+    px.in_grid = px.xx < width && px.yy < cv[27];
   } else {
-    yy = floorf(slot_f / width);
-    xx = slot_f - yy * width;
-    in_grid = slot_f < cv[20];
+    px.yy = floorf(slot_f / width);
+    px.xx = slot_f - px.yy * width;
+    px.in_grid = slot_f < cv[20];
   }
-  const uint32_t pid = (uint32_t)(int32_t)(yy * width + xx);
+  px.pid = (uint32_t)(int32_t)(px.yy * width + px.xx);
+  return px;
+}
+
+// The next slot for each lane that calls it together: one atomicAdd per
+// group of coalesced lanes, each taking the group's base plus its rank.
+__device__ __forceinline__ int fetch_slot(int* counter) {
+  cg::coalesced_group g = cg::coalesced_threads();
+  int base = 0;
+  if (g.thread_rank() == 0) base = atomicAdd(counter, (int)g.size());
+  return g.shfl(base, 0) + (int)g.thread_rank();
+}
+
+// Instant regeneration on persistent blocks of kThreads. `next_slot` is the
+// zeroed fetch counter. Clock: the profiling build's phase clock
+// (megakernel_profile.cu), whose sums go to `prof`; NoClock here.
+template <uint32_t F, class Clock>
+__global__ void __launch_bounds__(kThreads, kPersistentMinBlocks)
+megakernel_v4(const float* __restrict__ camv_g, int seed, const float* __restrict__ bg_g,
+              const float* __restrict__ tables_g, const float* __restrict__ ntab_g, Counts c,
+              int n_slots, int block_layout, int max_depth, int checker_depth, int has_noise,
+              int* __restrict__ next_slot, float* __restrict__ out,
+              unsigned long long* __restrict__ prof) {
+  using K = Cfg<false, Sweep::kLane, F, Clock>;
+  Clock clk;
+  const long long t_all = tick<Clock>();
+  extern __shared__ float smem[];
+  const float* cv = stage_tables(smem, camv_g, bg_g, tables_g, ntab_g, c);
+  const float* bg = cv + kCamvLen;
+  const Tables T = make_tables(smem, c);
+  tock(&clk, kPhStage, t_all);
+
+  const int grid_threads = gridDim.x * blockDim.x;
+  int slot = blockIdx.x * blockDim.x + threadIdx.x;
+  Pixel px = slot_pixel(slot, cv, block_layout);
   const float s0 = cv[21], n_samples = cv[22], sqrt_spp = cv[23];
 
   Path s{0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
   float s_lane = -1.0f, tm = 0.0f;
   uint32_t key = 0u;
-  auto regen = [&]() {
-    s_lane += 1.0f;
-    const float sg = s0 + s_lane;
-    key = sample_key(seed, pid, (int)sg);
-    camera_ray(s, tm, cv, key, xx, yy, sg, sqrt_spp);
-  };
-  if constexpr (!kWave) {
-    while (s.alive > 0.0f || (s_lane < n_samples - 1.0f && in_grid)) {
-      if (s.alive <= 0.0f) regen();
-      bounce(s, T, c, bg, key, tm, max_depth, checker_depth, has_noise != 0);
+  if constexpr (Clock::kOn) clk.begin();
+  while (slot < n_slots) {
+    if (s.alive <= 0.0f) {
+      if (!(s_lane < n_samples - 1.0f && px.in_grid)) {
+        // Every sample of this pixel is done: store its sum, take the next.
+        const long long t0 = tick<Clock>();
+        out[3 * slot + 0] = s.rr;
+        out[3 * slot + 1] = s.rg;
+        out[3 * slot + 2] = s.rb;
+        slot = grid_threads + fetch_slot(next_slot);
+        px = slot_pixel(slot, cv, block_layout);
+        s_lane = -1.0f;
+        s.rr = s.rg = s.rb = 0.0f;
+        tock(&clk, kPhStore, t0);
+        continue;
+      }
+      const long long t0 = tick<Clock>();
+      s_lane += 1.0f;
+      const float sg = s0 + s_lane;
+      key = sample_key(seed, px.pid, (int)sg);
+      camera_ray(s, tm, cv, key, px.xx, px.yy, sg, sqrt_spp);
+      tock(&clk, kPhCamera, t0);
     }
-  } else {
-    // Lockstep over the block: every thread takes part in every count.
-    const float n_img = (float)__syncthreads_count(in_grid);
-    while (true) {
-      const bool runnable = s.alive > 0.0f || (s_lane < n_samples - 1.0f && in_grid);
-      const float live = (float)__syncthreads_count(s.alive > 0.0f);
-      if (!__syncthreads_or(runnable)) break;
-      if (s.alive <= 0.0f && s_lane < n_samples - 1.0f && in_grid && live <= wave_frac * n_img)
-        regen();
-      if (s.alive > 0.0f) bounce(s, T, c, bg, key, tm, max_depth, checker_depth, has_noise != 0);
-    }
-    if (lane >= n_slots) return;
+    bounce<K>(s, T, c, bg, key, tm, max_depth, checker_depth, has_noise != 0, nullptr, &clk);
+    if constexpr (Clock::kOn) clk.mark();
   }
-  out[3 * lane + 0] = s.rr;
-  out[3 * lane + 1] = s.rg;
-  out[3 * lane + 2] = s.rb;
+  if constexpr (Clock::kOn) {
+    clk.lanes_done();
+    tock(&clk, kPhTotal, t_all);
+    clk.flush(prof);
+  }
+}
+
+// Wave regeneration (wave_frac < 1): the block's threads in lockstep (a
+// block is a tile: kBlockTile threads on the block layout, kThreads on the
+// linear one), every feature held. The minimum of 3 resident blocks holds
+// it at 80 registers a thread without a spill.
+template <class Clock>
+__global__ void __launch_bounds__(kBlockTile, 3)
+megakernel_v4_wave(const float* __restrict__ camv_g, int seed, const float* __restrict__ bg_g,
+                   const float* __restrict__ tables_g, const float* __restrict__ ntab_g,
+                   Counts c, int n_slots, int block_layout, float wave_frac, int max_depth,
+                   int checker_depth, int has_noise, float* __restrict__ out,
+                   unsigned long long* __restrict__ prof) {
+  using K = Cfg<false, Sweep::kLane, kFAll, Clock>;
+  Clock clk;
+  const long long t_all = tick<Clock>();
+  extern __shared__ float smem[];
+  const float* cv = stage_tables(smem, camv_g, bg_g, tables_g, ntab_g, c);
+  const float* bg = cv + kCamvLen;
+  const Tables T = make_tables(smem, c);
+  tock(&clk, kPhStage, t_all);
+
+  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
+  const Pixel px = slot_pixel(lane, cv, block_layout);
+  const float s0 = cv[21], n_samples = cv[22], sqrt_spp = cv[23];
+
+  Path s{0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+  float s_lane = -1.0f, tm = 0.0f;
+  uint32_t key = 0u;
+  if constexpr (Clock::kOn) clk.begin();
+  // Every thread takes part in every count.
+  const float n_img = (float)__syncthreads_count(px.in_grid);
+  while (true) {
+    const bool runnable = s.alive > 0.0f || (s_lane < n_samples - 1.0f && px.in_grid);
+    long long t0 = tick<Clock>();
+    const float live = (float)__syncthreads_count(s.alive > 0.0f);
+    const bool any = __syncthreads_or(runnable);
+    tock(&clk, kPhWait, t0);
+    if (!any) break;
+    if (s.alive <= 0.0f && s_lane < n_samples - 1.0f && px.in_grid &&
+        live <= wave_frac * n_img) {
+      t0 = tick<Clock>();
+      s_lane += 1.0f;
+      const float sg = s0 + s_lane;
+      key = sample_key(seed, px.pid, (int)sg);
+      camera_ray(s, tm, cv, key, px.xx, px.yy, sg, sqrt_spp);
+      tock(&clk, kPhCamera, t0);
+    }
+    if (s.alive > 0.0f) {
+      bounce<K>(s, T, c, bg, key, tm, max_depth, checker_depth, has_noise != 0, nullptr, &clk);
+      if constexpr (Clock::kOn) clk.mark();
+    }
+  }
+  const long long t0 = tick<Clock>();
+  if (lane < n_slots) {
+    out[3 * lane + 0] = s.rr;
+    out[3 * lane + 1] = s.rg;
+    out[3 * lane + 2] = s.rb;
+  }
+  tock(&clk, kPhStore, t0);
+  if constexpr (Clock::kOn) {
+    clk.lanes_done();
+    tock(&clk, kPhTotal, t_all);
+    clk.flush(prof);
+  }
+}
+
+// Resident blocks of the persistent kernel per SM at `smem` bytes of shared
+// memory a block (the occupancy calculator), or 0 on an error.
+template <uint32_t F, class Clock>
+int persistent_blocks_per_sm(int smem) {
+  int blocks = 0;
+  if (cudaFuncSetAttribute(megakernel_v4<F, Clock>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           smem) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, megakernel_v4<F, Clock>, kThreads,
+                                                    smem) != cudaSuccess)
+    return 0;
+  return blocks;
+}
+
+// Launch instance <F, Clock> on `stream`; returns the cudaError_t of the
+// launch. `next_slot` (one int of the caller's) is the persistent kernel's
+// fetch counter, zeroed here on the stream.
+template <uint32_t F, class Clock>
+int launch_v4(int device, const float* camv, int seed, const float* bg, const float* tables,
+              const Counts& c, const float* ntab, int n_slots, int block_layout,
+              float wave_frac, int max_depth, int checker_depth, int has_noise,
+              int* next_slot, float* out, unsigned long long* prof, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (n_slots <= 0) return (int)cudaSuccess;
+  if (block_layout && n_slots % kBlockTile) return (int)cudaErrorInvalidValue;
+  const int smem = block_smem_bytes(c);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (wave_frac < 1.0f) {
+    if (smem > 48 * 1024) {
+      err = cudaFuncSetAttribute(megakernel_v4_wave<Clock>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      if (err != cudaSuccess) return (int)err;
+    }
+    const int threads = block_layout ? kBlockTile : kThreads;
+    megakernel_v4_wave<Clock><<<(n_slots + threads - 1) / threads, threads, smem, s>>>(
+        camv, seed, bg, tables, ntab, c, n_slots, block_layout, wave_frac, max_depth,
+        checker_depth, has_noise, out, prof);
+    return (int)cudaGetLastError();
+  }
+  int sms = 0;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return (int)err;
+  const int per_sm = persistent_blocks_per_sm<F, Clock>(smem);
+  if (per_sm <= 0) return (int)cudaErrorInvalidConfiguration;
+  const int blocks =
+      min(min(per_sm, kPersistentBlocksPerSM) * sms, (n_slots + kThreads - 1) / kThreads);
+  err = cudaMemsetAsync(next_slot, 0, sizeof(int), s);
+  if (err != cudaSuccess) return (int)err;
+  megakernel_v4<F, Clock><<<blocks, kThreads, smem, s>>>(
+      camv, seed, bg, tables, ntab, c, n_slots, block_layout, max_depth, checker_depth,
+      has_noise, next_slot, out, prof);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -142,34 +329,32 @@ int megakernel_v4_smem_bytes(int n_sph, int n_quad, int n_mat, int n_tex, int n_
       Counts{n_sph, n_quad, n_mat, n_tex, n_med, n_box, hier_sph, hier_box, n_noise});
 }
 
+// The feature mask this library was built for.
+int megakernel_v4_features() { return (int)kV4Feat; }
+
+// Resident threads per SM of the persistent kernel's grid at `smem` bytes
+// of shared memory per block (the occupancy calculator, at most
+// kPersistentBlocksPerSM blocks), or -1 on an error.
+int megakernel_v4_threads_per_sm(int smem) {
+  const int blocks = persistent_blocks_per_sm<kV4Feat, NoClock>(smem);
+  return blocks > 0 ? min(blocks, kPersistentBlocksPerSM) * kThreads : -1;
+}
+
 // Launch on `stream`; returns the cudaError_t of the launch. `ntab` holds
 // n_noise Perlin tables ([6, n_noise * 256]; null for hash noise);
 // `block_layout` selects the block-tiled layout (n_slots a multiple of 256),
-// `wave_frac` < 1 wave regeneration.
+// `wave_frac` < 1 wave regeneration; `next_slot` is one int of scratch.
 int megakernel_v4_launch(int device, const float* camv, int seed, const float* bg,
                          const float* tables, int n_sph, int n_quad, int n_mat, int n_tex,
                          int n_med, int n_box, int hier_sph, int hier_box, const float* ntab,
                          int n_noise, int n_slots, int block_layout, float wave_frac,
-                         int max_depth, int checker_depth, int has_noise, float* out,
-                         void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  if (n_slots <= 0) return (int)cudaSuccess;
-  if (block_layout && n_slots % kBlockTile) return (int)cudaErrorInvalidValue;
-  Counts c{n_sph, n_quad, n_mat, n_tex, n_med, n_box, hier_sph, hier_box, n_noise};
-  const bool wave = wave_frac < 1.0f;
-  auto kernel = wave ? megakernel_v4<true> : megakernel_v4<false>;
-  int smem = block_smem_bytes(c);
-  if (smem > 48 * 1024) {
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  const int threads = wave && block_layout ? kBlockTile : kThreads;
-  int blocks = (n_slots + threads - 1) / threads;
-  kernel<<<blocks, threads, smem, (cudaStream_t)stream>>>(
-      camv, seed, bg, tables, ntab, c, n_slots, block_layout, wave_frac, max_depth,
-      checker_depth, has_noise, out);
-  return (int)cudaGetLastError();
+                         int max_depth, int checker_depth, int has_noise, int* next_slot,
+                         float* out, void* stream) {
+  return launch_v4<kV4Feat, NoClock>(
+      device, camv, seed, bg, tables,
+      Counts{n_sph, n_quad, n_mat, n_tex, n_med, n_box, hier_sph, hier_box, n_noise}, ntab,
+      n_slots, block_layout, wave_frac, max_depth, checker_depth, has_noise, next_slot, out,
+      nullptr, stream);
 }
 
 const char* megakernel_v4_error_string(int err) {

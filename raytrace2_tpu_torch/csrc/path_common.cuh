@@ -64,9 +64,10 @@ constexpr uint32_t kFSph = 1u, kFQuad = 2u, kFBox = 4u, kFMed = 8u, kFChecker = 
 // families compiled out or swept flat in record order.
 enum class Sweep { kLane, kWarp, kNone, kFlat };
 
-// Phases of a per-thread clock (the profiling builds' PhaseClock).
+// Phases of a per-thread clock (the profiling builds' PhaseClock,
+// phase_clock.cuh); kPhWait is time in a block-wide lockstep count.
 enum Phase { kPhStage, kPhLoad, kPhCamera, kPhSlab, kPhRecord, kPhShade, kPhNoise, kPhStore,
-             kPhTotal, kNPhases };
+             kPhWait, kPhTotal, kNPhases };
 
 // The clock of a production instance: compiled to nothing.
 struct NoClock {

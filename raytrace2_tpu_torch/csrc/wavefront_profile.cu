@@ -9,55 +9,11 @@
 //     record tests, shading (noise included), noise and state store, and,
 //     at each closest hit over a clustered family, whether the warp's
 //     converged lanes take more than one visit order and how many.
-// The profiled instance computes the production instance's state bit for
-// bit; the clock reads cost it time, so its phases are shares, and its
-// kernel time is not the production time.
+// The clock is phase_clock.cuh's PhaseClock: the profiled instance computes
+// the production instance's state bit for bit.
 
 #include "wavefront_step.cu"
-
-namespace {
-
-// Slots of the profile counters after the kNPhases cycle sums.
-enum ProfSlot { kWarpSteps = kNPhases, kMixedSteps, kDistinctOrders, kWarpLanes, kNProf };
-
-struct PhaseClock {
-  static constexpr bool kOn = true;
-  long long cyc[kNPhases] = {};
-  unsigned long long steps = 0, mixed = 0, distinct = 0, lanes = 0;
-
-  // One warp-step of the closest hit: the converged lanes' visit orders.
-  __device__ void dirs(int dir) {
-    const unsigned act = __activemask();
-    const unsigned same = __match_any_sync(act, dir);
-    const int lane = threadIdx.x & 31;
-    const unsigned leaders = __ballot_sync(act, lane == __ffs(same) - 1);
-    if (lane == __ffs(act) - 1) {
-      steps += 1;
-      mixed += same != act;
-      distinct += __popc(leaders);
-      lanes += __popc(act);
-    }
-  }
-
-  // Warp sums, one atomic per warp and counter. Every thread of the block
-  // calls it.
-  __device__ void flush(unsigned long long* out) {
-    __syncwarp();
-    unsigned long long v[kNProf];
-    for (int i = 0; i < kNPhases; ++i) v[i] = (unsigned long long)cyc[i];
-    v[kWarpSteps] = steps;
-    v[kMixedSteps] = mixed;
-    v[kDistinctOrders] = distinct;
-    v[kWarpLanes] = lanes;
-    for (int i = 0; i < kNProf; ++i) {
-      unsigned long long x = v[i];
-      for (int off = 16; off > 0; off >>= 1) x += __shfl_down_sync(0xffffffffu, x, off);
-      if ((threadIdx.x & 31) == 0 && x) atomicAdd(&out[i], x);
-    }
-  }
-};
-
-}  // namespace
+#include "phase_clock.cuh"
 
 extern "C" {
 

@@ -86,6 +86,16 @@ def _check_kernel_features(features) -> None:
             "use the non-kernel path (use_megakernel unset, backend 'xla' or 'auto')")
 
 
+def _material_types(scene, features) -> frozenset:
+    """The material type ids that pick the kernels' instances
+    (``megakernel.scene_features``): the Renderer's, read from the host
+    scene, or else read from the device once per scene
+    (``megakernel.scene_material_types``), so no launch reads the device."""
+    if features.get("mat_types") is not None:
+        return features["mat_types"]
+    return mk.scene_material_types(scene.materials.mtype)
+
+
 def noise_tables(scene, features):
     """The ``ntab`` operand of table noise (JAX :389-397): the noise
     textures' Perlin tables when the scene has noise and ``noise_impl`` is
@@ -116,6 +126,7 @@ def _render_batch_megakernel(scene, packed, features, width, height, sample0,
               has_checker=int(features.get("has_checker", 1)),
               has_noise=bool(features.get("has_noise", False)), ntab=ntab)
     background = scene.background.to(torch.float32).contiguous()
+    mat_types = _material_types(scene, features)
     if block:
         n_slots, slot_of_pixel = mk.pixel_slots(width, height, block=True)
         slot_of_pixel = slot_of_pixel.reshape(-1).to(packed.device)
@@ -123,11 +134,12 @@ def _render_batch_megakernel(scene, packed, features, width, height, sample0,
     def forward(camv, seed, packed, background):
         if block:
             out = mk.trace_megakernel_batch(camv, seed, packed, background, n_pix=n_slots,
-                                            block=True, wave_frac=wave_frac, **kw)
+                                            block=True, wave_frac=wave_frac,
+                                            mat_types=mat_types, **kw)
             return out[slot_of_pixel]  # de-tile: each pixel's slot (JAX :463-465)
         if not wavefront:
-            return mk.trace_megakernel_batch(camv, seed, packed, background,
-                                             n_pix=n_pix, wave_frac=wave_frac, **kw)
+            return mk.trace_megakernel_batch(camv, seed, packed, background, n_pix=n_pix,
+                                             wave_frac=wave_frac, mat_types=mat_types, **kw)
         return wf.trace_wavefront_batch(
             camv, seed, packed, background,
             n_rays=-(-n_pix // wf.SLOT_TILE) * wf.SLOT_TILE,
@@ -143,7 +155,7 @@ def _render_batch_megakernel(scene, packed, features, width, height, sample0,
     if differentiable:
         radiance = mkg.DiffRender.apply(
             camv, packed, background, int(seed), forward,
-            dict(n_pix=n_pix, mat_types=mkg.scene_material_types(scene.materials.mtype), **kw))
+            dict(n_pix=n_pix, mat_types=mat_types, **kw))
     else:
         radiance = forward(camv, int(seed), packed, background)
     return radiance.reshape(height, width, 3)
@@ -241,7 +253,8 @@ def _trace_megakernel(scene, features, o, d, time, seed_lane, max_depth):
         has_checker=int(features.get("has_checker", 1)),
         has_noise=bool(features.get("has_noise", False)),
         phases=int(features.get("mega_phases", 2)),
-        compaction_ratio=int(features.get("mega_ratio", 16)))
+        compaction_ratio=int(features.get("mega_ratio", 16)),
+        mat_types=_material_types(scene, features))
     return radiance[:n]
 
 

@@ -5,9 +5,11 @@ at first use with ``nvcc`` into a shared library under ``_build/`` (listed in
 ``.gitignore``), named by a hash of its source, the ``csrc/*`` files it
 includes, the flags and its defines, so that an edit of any of them rebuilds
 it, and loaded with ``ctypes``. A build target is a source name, or a
-(name, defines) pair: the gradient kernel is built once per scene feature
-mask (``-DGRAD_FEATURES=<mask>``), and the profiling sources
-(``wavefront_profile``, ``grad_profile``) only by the profiling tools.
+(name, defines) pair: v4, B4 and the gradient kernel are built once per
+scene feature mask (``feature_target``: ``-DV4_FEATURES=<mask>``,
+``-DV3_FEATURES``, ``-DGRAD_FEATURES``), and the profiling sources
+(``wavefront_profile``, ``grad_profile``, ``megakernel_profile``) and the
+ceiling microkernels (``roofline``) only by the profiling tools.
 Kernels launch on PyTorch's current stream. There is no fallback: a missing
 ``nvcc``, a failed build or a refused launch raises.
 """
@@ -29,8 +31,6 @@ import torch
 PKG_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
-KERNELS = ("megakernel_v4", "wavefront_step", "megakernel_grad", "intersect_kernel",
-           "megakernel_v3")
 # -fmad=false: no contraction of a*b+c into one FMA, so the kernel rounds
 # op for op as its plain PyTorch version does on the card (whose elementwise
 # ops are separate kernels); path-tracing near-ties otherwise flip paths.
@@ -38,6 +38,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 # A block's shared memory on Hopper (232,448 bytes with the opt-in).
 MAX_SMEM_BYTES = 232448
+# The define that picks each per-scene kernel's feature mask
+# (megakernel.scene_features; csrc/path_common.cuh kF*).
+FEATURE_DEFINES = {"megakernel_v4": "V4_FEATURES", "megakernel_v3": "V3_FEATURES",
+                   "megakernel_grad": "GRAD_FEATURES"}
 
 _LOCK = threading.Lock()
 _LIBS: dict[str, ctypes.CDLL] = {}
@@ -88,7 +92,7 @@ def library_path(t) -> Path:
     return BUILD_DIR / f"lib{name}{tag}-{h.hexdigest()[:16]}.so"
 
 
-def build_all(targets=KERNELS) -> dict[str, Path]:
+def build_all(targets) -> dict[str, Path]:
     """Compile every target that is not built yet, one ``nvcc`` per target,
     all started together. Returns target_key → library path. nvcc's output
     is kept beside each library, so a cached one still reports it."""
@@ -169,10 +173,14 @@ _COUNTS = [ctypes.c_int] * 9
 def _bind_megakernel_v4(lib: ctypes.CDLL) -> None:
     i, p, f = ctypes.c_int, ctypes.c_void_p, ctypes.c_float
     lib.megakernel_v4_launch.argtypes = [i, p, i, p, p, *_COUNTS[:8], p, i, i, i, f, i, i, i,
-                                         p, p]
+                                         p, p, p]
     lib.megakernel_v4_launch.restype = i
     lib.megakernel_v4_smem_bytes.argtypes = _COUNTS
     lib.megakernel_v4_smem_bytes.restype = i
+    for name in ("megakernel_v4_features", "megakernel_v4_threads_per_sm"):
+        getattr(lib, name).restype = i
+    lib.megakernel_v4_features.argtypes = []
+    lib.megakernel_v4_threads_per_sm.argtypes = [i]
     lib.megakernel_v4_error_string.argtypes = [i]
     lib.megakernel_v4_error_string.restype = ctypes.c_char_p
 
@@ -223,6 +231,30 @@ def _bind_wavefront_profile(lib: ctypes.CDLL) -> None:
     lib.wavefront_profile_counters.restype = i
 
 
+def _bind_megakernel_profile(lib: ctypes.CDLL) -> None:
+    _bind_megakernel_v4(lib)
+    _bind_megakernel_v3(lib)
+    p = ctypes.c_void_p
+    lib.megakernel_v4_profile_launch.argtypes = [*lib.megakernel_v4_launch.argtypes[:-1], p, p]
+    lib.megakernel_v3_profile_launch.argtypes = [*lib.megakernel_v3_launch.argtypes[:-1], p, p]
+    for name in ("megakernel_v4_profile_launch", "megakernel_v3_profile_launch",
+                 "megakernel_profile_counters"):
+        getattr(lib, name).restype = ctypes.c_int
+    lib.megakernel_profile_counters.argtypes = []
+
+
+def _bind_roofline(lib: ctypes.CDLL) -> None:
+    i, p = ctypes.c_int, ctypes.c_void_p
+    lib.roofline_chains.argtypes = []
+    lib.roofline_chains.restype = i
+    lib.roofline_chain_launch.argtypes = [i, i, p, i, i, i, p]
+    lib.roofline_chain_launch.restype = i
+    lib.roofline_copy_launch.argtypes = [i, p, p, ctypes.c_longlong, i, p]
+    lib.roofline_copy_launch.restype = i
+    lib.roofline_error_string.argtypes = [i]
+    lib.roofline_error_string.restype = ctypes.c_char_p
+
+
 def _bind_intersect_kernel(lib: ctypes.CDLL) -> None:
     i, p = ctypes.c_int, ctypes.c_void_p
     lib.intersect_kernel_launch.argtypes = [i, p, p, p, p, p, p, i, p, i, i, p, p, p]
@@ -237,9 +269,11 @@ def _bind_megakernel_v3(lib: ctypes.CDLL) -> None:
     lib.megakernel_v3_launch.restype = i
     lib.megakernel_v3_smem_bytes.argtypes = _COUNTS[:8]
     lib.megakernel_v3_smem_bytes.restype = i
-    for name in ("megakernel_v3_state_cols", "megakernel_v3_tile"):
+    for name in ("megakernel_v3_state_cols", "megakernel_v3_tile", "megakernel_v3_features"):
         getattr(lib, name).argtypes = []
         getattr(lib, name).restype = i
+    lib.megakernel_v3_threads_per_sm.argtypes = [i]
+    lib.megakernel_v3_threads_per_sm.restype = i
     lib.megakernel_v3_error_string.argtypes = [i]
     lib.megakernel_v3_error_string.restype = ctypes.c_char_p
 
@@ -247,7 +281,8 @@ def _bind_megakernel_v3(lib: ctypes.CDLL) -> None:
 _BINDERS = {"megakernel_v4": _bind_megakernel_v4, "wavefront_step": _bind_wavefront_step,
             "megakernel_grad": _bind_megakernel_grad, "intersect_kernel": _bind_intersect_kernel,
             "megakernel_v3": _bind_megakernel_v3, "grad_profile": _bind_grad_profile,
-            "wavefront_profile": _bind_wavefront_profile}
+            "wavefront_profile": _bind_wavefront_profile,
+            "megakernel_profile": _bind_megakernel_profile, "roofline": _bind_roofline}
 
 
 def load(t) -> ctypes.CDLL:
@@ -288,11 +323,18 @@ def _ntab_args(ntab, device) -> tuple:
     return ntab.data_ptr(), ntab.shape[1] // 256
 
 
+def feature_target(name: str, features: int) -> tuple:
+    """Build target of kernel ``name``'s instance for a scene feature mask
+    (``megakernel.scene_features``): ``(name, ("<DEFINE>=<mask>",))``."""
+    return (name, (f"{FEATURE_DEFINES[name]}={int(features)}",))
+
+
 def launch_megakernel_v4(camv, seed: int, background, packed, ntab, out, *, n_pix,
-                         max_depth, counts, checker_depth, has_noise, block=False,
+                         max_depth, counts, checker_depth, has_noise, features, block=False,
                          wave_frac=1.0) -> None:
-    """Launch ``megakernel_v4`` writing ``out`` [n_pix, 3] (one row per slot
-    of the linear or, with ``block``, the block-tiled layout); ``counts`` is
+    """Launch ``megakernel_v4``'s instance for the feature mask ``features``
+    (built at first use), writing ``out`` [n_pix, 3] (one row per slot of
+    the linear or, with ``block``, the block-tiled layout); ``counts`` is
     ``megakernel.counts`` of the scene, whose n_noise must match ``ntab``;
     raises on a refused launch."""
     device = _require_cuda(camv=camv, background=background, packed=packed, out=out)
@@ -301,14 +343,16 @@ def launch_megakernel_v4(camv, seed: int, background, packed, ntab, out, *, n_pi
     nt, n_noise = _ntab_args(ntab, device)
     if n_noise != counts[8]:
         raise ValueError("counts and ntab disagree on the number of noise tables")
-    lib = load("megakernel_v4")
+    lib = load(feature_target("megakernel_v4", features))
     _check_smem(lib.megakernel_v4_smem_bytes(*counts))
+    # The persistent kernel's pixel counter; the launch zeroes it on the stream.
+    next_slot = torch.empty(1, dtype=torch.int32, device=device)
     stream = torch.cuda.current_stream(device).cuda_stream
     err = lib.megakernel_v4_launch(
         device.index, camv.data_ptr(), int(seed), background.data_ptr(),
         packed.data_ptr(), *counts[:8], nt, n_noise, int(n_pix), int(bool(block)),
         float(wave_frac), int(max_depth), int(checker_depth), int(bool(has_noise)),
-        out.data_ptr(), stream)
+        next_slot.data_ptr(), out.data_ptr(), stream)
     if err:
         msg = lib.megakernel_v4_error_string(err).decode()
         raise RuntimeError(f"megakernel_v4 launch failed: {msg} (cudaError {err})")
@@ -343,7 +387,15 @@ def grad_target(features: int, profiling: bool = False) -> tuple:
     build (``csrc/grad_profile.cu``), which also exports the variants'
     launches (``tools/profile_grad.py``)."""
     return ("grad_profile" if profiling else "megakernel_grad",
-            (f"GRAD_FEATURES={features}",))
+            feature_target("megakernel_grad", features)[1])
+
+
+def profile_target(v4_features: int, v3_features: int) -> tuple:
+    """Build target of the v4 and B4 profiling instances
+    (``csrc/megakernel_profile.cu``, ``tools/roofline.py``) for the feature
+    masks of the production instances they profile."""
+    return ("megakernel_profile", (*feature_target("megakernel_v4", v4_features)[1],
+                                   *feature_target("megakernel_v3", v3_features)[1]))
 
 
 def launch_megakernel_grad(camv, seed: int, background, packed, ntab, g, d_camv, d_bg,
@@ -407,13 +459,14 @@ def launch_intersect_kernel(o, d, time, t_min, t_max, sph, qd, out_t, out_code) 
 
 
 def launch_megakernel_v3(background, packed, state, rid, radiance, *, seed_lane, min_alive,
-                         max_depth, counts, checker_depth, has_noise) -> None:
-    """Launch one ``megakernel_v3`` pass: ``state`` [12, n] advanced in place,
+                         max_depth, counts, checker_depth, has_noise, features) -> None:
+    """Launch one pass of ``megakernel_v3``'s instance for the feature mask
+    ``features`` (built at first use): ``state`` [12, n] advanced in place,
     ``rid`` [n] int32, this pass's radiance written to ``radiance`` [n, 3];
     raises on a refused launch."""
     device = _require_cuda(background=background, packed=packed, state=state,
                            radiance=radiance)
-    lib = load("megakernel_v3")
+    lib = load(feature_target("megakernel_v3", features))
     n = rid.numel()
     if state.dim() != 2 or tuple(state.shape) != (lib.megakernel_v3_state_cols(), n):
         raise ValueError(f"state must be [{lib.megakernel_v3_state_cols()}, n], "

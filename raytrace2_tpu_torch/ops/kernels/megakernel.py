@@ -35,6 +35,8 @@ the same).
 
 from __future__ import annotations
 
+import weakref
+
 import torch
 
 from raytrace2_tpu_torch import defs
@@ -93,6 +95,60 @@ BLOCK = camera.PIXEL_BLOCK
 
 # Launches of the CUDA kernel (the plain version does not count).
 LAUNCHES = 0
+
+# Feature bits of the kernels' instances (csrc/path_common.cuh kF*): v4, B4
+# (megakernel_v3) and B3 (megakernel_grad) are each built once per scene
+# feature mask, as the JAX kernels are traced per scene with its family
+# sizes, has_checker and has_noise static.
+(F_SPH, F_QUAD, F_BOX, F_MED, F_CHECKER, F_HASH_NOISE, F_TABLE_NOISE, F_METAL,
+ F_DIEL) = (1 << i for i in range(9))
+F_ALL = (1 << 9) - 1
+
+
+def feature_mask(sizes, has_checker, has_noise, ntab=None, mat_types=None) -> int:
+    """The features whose code a scene's kernel instance needs: each family
+    with records, the checker, hash noise or (with ``ntab``) table noise,
+    and metal and dielectric where ``mat_types`` (the material type ids
+    present; None: any) holds them."""
+    n_sph, n_quad, _, _, n_med, n_box = sizes
+    metal, diel = float(defs.MAT_METAL), float(defs.MAT_DIELECTRIC)
+    mats = {metal, diel} if mat_types is None else {float(t) for t in mat_types}
+    return ((F_SPH if n_sph else 0) | (F_QUAD if n_quad else 0) | (F_BOX if n_box else 0)
+            | (F_MED if n_med else 0) | (F_CHECKER if has_checker else 0)
+            | ((F_TABLE_NOISE if ntab is not None else F_HASH_NOISE) if has_noise else 0)
+            | (F_METAL if metal in mats else 0) | (F_DIEL if diel in mats else 0))
+
+
+def material_types(packed, sizes) -> set:
+    """The material type ids of the packed tables (one host read)."""
+    return set(unpack_buffer(packed, sizes)["mat"]["mtype"].unique().tolist())
+
+
+# Material type ids per scene mtype tensor, by id while the tensor lives.
+_MAT_TYPES: dict = {}
+
+
+def scene_material_types(mtype) -> frozenset:
+    """The material type ids of a scene's ``materials.mtype`` leaf, read from
+    the device once per tensor: an integer leaf stays the same tensor across
+    batches and gradient steps, so later launches need no host read."""
+    key = id(mtype)
+    if key not in _MAT_TYPES:
+        _MAT_TYPES[key] = frozenset(float(t) for t in mtype.unique().tolist())
+        weakref.finalize(mtype, _MAT_TYPES.pop, key, None)
+    return _MAT_TYPES[key]
+
+
+def scene_features(packed, sizes, has_checker, has_noise, ntab=None, mat_types=None) -> int:
+    """The feature mask of a scene's kernel instances: v4 and B3 take it
+    with the scene's ``ntab`` (table noise); B4 with None (it always takes
+    hash noise, as the JAX v3 kernel does) where its pass compacts
+    (``megakernel_v3.instance_features``). ``mat_types``
+    (``scene_material_types``), where given, spares reading the material
+    types from ``packed``: with it no host read happens."""
+    if mat_types is None:
+        mat_types = material_types(packed, sizes)
+    return feature_mask(sizes, has_checker, has_noise, ntab, mat_types)
 
 
 # ---------------------------------------------------------------------------
@@ -1003,7 +1059,8 @@ def pixel_slots(width: int, height: int, block: bool = False):
 
 
 def trace_plain(camv, seed, packed, background, *, n_pix, max_depth, sizes,
-                has_checker, has_noise, ntab=None, block=False, wave_frac=1.0, stats=None):
+                has_checker, has_noise, ntab=None, block=False, wave_frac=1.0, stats=None,
+                mat_types=None):
     """Plain PyTorch version of the v4 kernel: radiance summed over
     ``camv[22]`` samples for each of ``n_pix`` slots, [n_pix, 3] (on the
     block-tiled layout, ``block``, n_pix is ``pixel_slots``' n_slots).
@@ -1013,7 +1070,8 @@ def trace_plain(camv, seed, packed, background, *, n_pix, max_depth, sizes,
     live count has fallen to ``wave_frac`` of their in-image lanes — then
     bounces the live lanes; the loop ends when no lane can run. A tile is
     one CUDA block of the kernel: ``BLOCK_TILE`` lanes on the block layout,
-    ``TILE`` on the linear one."""
+    ``TILE`` on the linear one. ``mat_types``, which picks the kernel's
+    instance, changes nothing here."""
     device = packed.device
     cv = [float(x) for x in camv.tolist()]
     bounce = make_bounce(packed, background, max_depth=max_depth, sizes=sizes,
@@ -1084,7 +1142,7 @@ def check_ntab(ntab, packed) -> None:
 
 def trace_megakernel_batch(camv, seed, packed, background, *, n_pix, max_depth,
                            sizes, has_checker, has_noise, ntab=None, block=False,
-                           wave_frac=1.0):
+                           wave_frac=1.0, mat_types=None):
     """Radiance summed over the batch's samples, [n_pix, 3] f32, per slot.
 
     ``camv``: the 28-entry control vector (``camera.make_camv``, with
@@ -1094,8 +1152,10 @@ def trace_megakernel_batch(camv, seed, packed, background, *, n_pix, max_depth,
     noise. ``block`` selects the block-tiled lane layout (``n_pix`` is then
     ``pixel_slots``' n_slots, and the caller de-tiles), ``wave_frac`` the
     wave regeneration. On a CPU tensor this runs the plain version; on a
-    CUDA tensor it launches the Hopper kernel (built at first use) or
-    raises."""
+    CUDA tensor it launches the Hopper kernel's instance for the scene's
+    feature mask (``scene_features``; built at first use) or raises.
+    ``mat_types`` (``scene_material_types``; None: read from ``packed``)
+    are the material type ids the scene holds."""
     global LAUNCHES
     check_inputs(camv, packed, background, n_pix, sizes)
     check_ntab(ntab, packed)
@@ -1114,7 +1174,8 @@ def trace_megakernel_batch(camv, seed, packed, background, *, n_pix, max_depth,
     build.launch_megakernel_v4(
         camv, int(seed), background, packed, ntab, out, n_pix=n_pix,
         max_depth=max_depth, counts=counts(sizes, n_noise_of(ntab)),
-        checker_depth=int(has_checker), has_noise=bool(has_noise), block=bool(block),
-        wave_frac=float(wave_frac))
+        checker_depth=int(has_checker), has_noise=bool(has_noise),
+        features=scene_features(packed, sizes, has_checker, has_noise, ntab, mat_types),
+        block=bool(block), wave_frac=float(wave_frac))
     LAUNCHES += 1
     return out

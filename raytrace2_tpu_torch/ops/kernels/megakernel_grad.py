@@ -31,17 +31,15 @@ keeps one thread's per-bounce carries in local memory.
 
 The JAX kernel is traced per scene (family sizes, ``has_checker`` and
 ``has_noise`` static), so it holds only the code the scene needs; the
-kernel here is built per scene feature mask (``feature_mask``): which
-families the scene holds, a checker, and hash or table noise.
+kernel here is built per scene feature mask (``megakernel.scene_features``,
+shared with the forward kernels): which families and material types the
+scene holds, a checker, and hash or table noise.
 """
 
 from __future__ import annotations
 
-import weakref
-
 import torch
 
-from raytrace2_tpu_torch import defs
 from raytrace2_tpu_torch.ops import camera, rng
 from raytrace2_tpu_torch.ops.kernels import megakernel as mk
 
@@ -66,53 +64,14 @@ LANE_CHUNK = 1 << 17
 # Launches of the CUDA kernel (the plain version does not count).
 LAUNCHES = 0
 
-# Feature bits of the kernel's instances (csrc/path_common.cuh kF*).
+# The scene feature mask that picks the kernel's instance (shared with v4
+# and B4: megakernel.scene_features); re-exported under the names the
+# gradient path has used.
 (F_SPH, F_QUAD, F_BOX, F_MED, F_CHECKER, F_HASH_NOISE, F_TABLE_NOISE, F_METAL,
- F_DIEL) = (1 << i for i in range(9))
-F_ALL = (1 << 9) - 1
-
-
-def feature_mask(sizes, has_checker, has_noise, ntab=None, mat_types=None) -> int:
-    """The features whose code the scene's gradient kernel needs: each
-    family with records, the checker, hash noise or (with ``ntab``) table
-    noise, and metal and dielectric where ``mat_types`` (the material type
-    ids present; None: any) holds them."""
-    n_sph, n_quad, _, _, n_med, n_box = sizes
-    metal, diel = float(defs.MAT_METAL), float(defs.MAT_DIELECTRIC)
-    mats = {metal, diel} if mat_types is None else {float(t) for t in mat_types}
-    return ((F_SPH if n_sph else 0) | (F_QUAD if n_quad else 0) | (F_BOX if n_box else 0)
-            | (F_MED if n_med else 0) | (F_CHECKER if has_checker else 0)
-            | ((F_TABLE_NOISE if ntab is not None else F_HASH_NOISE) if has_noise else 0)
-            | (F_METAL if metal in mats else 0) | (F_DIEL if diel in mats else 0))
-
-
-def material_types(packed, sizes) -> set:
-    """The material type ids of the packed tables (one host read)."""
-    return set(mk.unpack_buffer(packed, sizes)["mat"]["mtype"].unique().tolist())
-
-
-# Material type ids per scene mtype tensor, by id while the tensor lives.
-_MAT_TYPES: dict = {}
-
-
-def scene_material_types(mtype) -> frozenset:
-    """The material type ids of a scene's ``materials.mtype`` leaf, read from
-    the device once per tensor: an integer leaf stays the same tensor across
-    gradient steps, so the backward of each step needs no host read."""
-    key = id(mtype)
-    if key not in _MAT_TYPES:
-        _MAT_TYPES[key] = frozenset(float(t) for t in mtype.unique().tolist())
-        weakref.finalize(mtype, _MAT_TYPES.pop, key, None)
-    return _MAT_TYPES[key]
-
-
-def grad_features(packed, sizes, has_checker, has_noise, ntab=None, mat_types=None) -> int:
-    """The feature mask of the kernel instance ``grad_call`` launches for
-    these packed tables (``mat_types``, where given, spares reading the
-    material types from them)."""
-    if mat_types is None:
-        mat_types = material_types(packed, sizes)
-    return feature_mask(sizes, has_checker, has_noise, ntab, mat_types)
+ F_DIEL, F_ALL) = (mk.F_SPH, mk.F_QUAD, mk.F_BOX, mk.F_MED, mk.F_CHECKER, mk.F_HASH_NOISE,
+                   mk.F_TABLE_NOISE, mk.F_METAL, mk.F_DIEL, mk.F_ALL)
+feature_mask, material_types = mk.feature_mask, mk.material_types
+scene_material_types, grad_features = mk.scene_material_types, mk.scene_features
 
 
 def grad_supported(sizes, max_depth) -> bool:

@@ -35,6 +35,18 @@ COL = {k: i for i, k in enumerate(STATE_KEYS)}
 LAUNCHES = 0
 
 
+def instance_features(packed, sizes, has_checker, has_noise, mat_types=None) -> int:
+    """The feature mask of the kernel's instance for a scene: the scene's
+    own (``megakernel.scene_features`` with hash noise) where every family
+    sweeps flat, the pass then compacting its live rays (where the exchange
+    area fits in shared memory); every feature where a family goes through
+    the cluster walk (no compaction there: the mask instance measured slower
+    than the all-features one)."""
+    if any(mk.hier_flags(sizes)):
+        return mk.F_ALL
+    return mk.scene_features(packed, sizes, has_checker, has_noise, None, mat_types)
+
+
 def init_state(o, d, time):
     """Fresh state of N camera rays (JAX ``init_state``): ([12, N] f32,
     rid [N] int32 = 0..N-1)."""
@@ -47,10 +59,12 @@ def init_state(o, d, time):
 
 
 def pass_plain(state, rid, seed_lane, min_alive, packed, background, *, max_depth, sizes,
-               has_checker, has_noise):
+               has_checker, has_noise, mat_types=None):
     """Plain PyTorch version of one pass: every ``TILE_R`` tile bounces its
     live rays while its live count exceeds ``min_alive``. Returns (radiance
-    [n, 3] of this pass, new state [12, n]); ``state`` is not changed."""
+    [n, 3] of this pass, new state [12, n]); ``state`` is not changed.
+    ``mat_types``, which picks the kernel's instance, changes nothing
+    here."""
     n = rid.numel()
     bounce = mk.make_bounce(packed, background, max_depth=max_depth, sizes=sizes,
                             has_checker=has_checker, has_noise=has_noise)
@@ -74,11 +88,14 @@ def pass_plain(state, rid, seed_lane, min_alive, packed, background, *, max_dept
 
 
 def megakernel_pass(state, rid, seed_lane, min_alive, packed, background, *, max_depth,
-                    sizes, has_checker, has_noise):
+                    sizes, has_checker, has_noise, mat_types=None):
     """One pass (JAX ``megakernel_pass``): (radiance [n, 3] contributed by
     this pass, new state [12, n]). ``n`` is a multiple of ``TILE_R``. On a
     CPU tensor this runs the plain version; on a CUDA tensor it launches the
-    Hopper kernel (built at first use) on a copy of the state, or raises."""
+    Hopper kernel's instance for the scene (``instance_features``; built at
+    first use) on a copy of the state, or raises. ``mat_types``
+    (``megakernel.scene_material_types``; None: read from ``packed``) are
+    the material type ids the scene holds."""
     global LAUNCHES
     n = rid.numel()
     if n % TILE_R or tuple(state.shape) != (len(STATE_KEYS), n):
@@ -98,13 +115,14 @@ def megakernel_pass(state, rid, seed_lane, min_alive, packed, background, *, max
     build.launch_megakernel_v3(
         background.to(torch.float32).contiguous(), packed, new, rid.contiguous(), radiance,
         seed_lane=int(seed_lane), min_alive=int(min_alive), max_depth=max_depth,
-        counts=mk.counts(sizes), checker_depth=int(has_checker), has_noise=bool(has_noise))
+        counts=mk.counts(sizes), checker_depth=int(has_checker), has_noise=bool(has_noise),
+        features=instance_features(packed, sizes, has_checker, has_noise, mat_types))
     LAUNCHES += 1
     return radiance, new
 
 
 def trace_megakernel(o, d, time, seed_lane, packed, background, *, max_depth, sizes,
-                     has_checker, has_noise, phases=3, compaction_ratio=8):
+                     has_checker, has_noise, phases=3, compaction_ratio=8, mat_types=None):
     """Trace N rays (N a multiple of ``TILE_R``) to completion with
     cross-tile compaction between passes (JAX ``trace_megakernel``,
     :1609-1648): returns radiance [N, 3]."""
@@ -114,7 +132,8 @@ def trace_megakernel(o, d, time, seed_lane, packed, background, *, max_depth, si
     state, rid = init_state(o, d, time)
     radiance_full = torch.zeros((n, 3), dtype=torch.float32, device=o.device)
     idx_map = torch.arange(n, device=o.device)
-    kw = dict(max_depth=max_depth, sizes=sizes, has_checker=has_checker, has_noise=has_noise)
+    kw = dict(max_depth=max_depth, sizes=sizes, has_checker=has_checker, has_noise=has_noise,
+              mat_types=mat_types)
     width = n
     for phase in range(phases):
         # Each tile leaves with at most TILE_R // ratio live rays, so the next

@@ -142,6 +142,10 @@ class Renderer:
             features["mega_wavefront"] = True
         if self.chunk_size == CHUNK_SIZE and n_records > 1024:
             self.chunk_size = CHUNK_SIZE_LARGE
+        # The material types pick the kernels' instances: read here, from the
+        # host scene, so that no batch reads the device for them.
+        features["mat_types"] = frozenset(
+            float(t) for t in np.unique(np.asarray(self.scene.materials.mtype)))
         self._features = features
         self.scene = schema.to_device(self.scene, self.device)
         if features["use_megakernel"]:

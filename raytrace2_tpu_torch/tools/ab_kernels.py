@@ -1,6 +1,6 @@
 """Time the port's kernels from two package trees in turns, on one card.
 
-    python -m raytrace2_tpu_torch.tools.ab_kernels ROOT_A ROOT_B [--what grad fwd]
+    python -m raytrace2_tpu_torch.tools.ab_kernels ROOT_A ROOT_B [--what grad fwd v4 wf v3]
         [--cli-spp 64]
 
 Each ROOT is a directory that holds a ``raytrace2_tpu_torch`` package: a
@@ -14,8 +14,11 @@ one call on one card. One JSON line per run:
   launches after a warm-up, with the sums of its outputs and the ptxas
   lines of each instance built;
 * ``fwd``: the v4 kernel at Cornell 600², depth 50, 6 spp (20 launches),
-  and the CLI main paths' Mpaths/s (``app.main --metrics``, ``--cli-spp``
-  samples, 64 by default, depth 50; Cornell 5 runs, book 2 2 runs, in one
+  the Cornell gradient main path (``grad.value_and_grad_scene``, 600²,
+  depth 50, 64 spp, sqrt_spp 2, loss = the mean; 3 gradients after a
+  warm-up, host clock), and the CLI main paths' Mpaths/s (``app.main
+  --metrics``, ``--cli-spp`` samples, 64 by default, depth 50; Cornell 5
+  runs, book 2 2 runs, in one
   process; above 64 spp Cornell only, as book 2 takes a second per 64);
 * ``v4``: the v4 kernel alone, built alone, with its ptxas register line:
   Cornell 600², depth 50, 6 spp (20 launches), and where the tree has the
@@ -26,7 +29,16 @@ one call on one card. One JSON line per run:
   wavefront (3 batches); the step's fifth launch (K=2) and its first K=16
   launch of that batch, each on the state the batch gave it (5 launches
   each); and one B4 pass of Cornell 600² camera rays, depth 50,
-  ``min_alive`` 8 (5 passes).
+  ``min_alive`` 8 (5 passes);
+* ``v3``: B4 alone, with its ptxas register lines: one pass of Cornell
+  600² camera rays, depth 50, ``min_alive`` 8 (20 passes), the whole
+  two-pass trace of those rays with compaction (``trace_megakernel``,
+  10 runs), and one pass of book-2 600² camera rays (5 passes).
+
+Where a tree's wrappers take the scene's material types (``mat_types``),
+they are read once before the timed launches, as the renderer does. Kernel
+times are CUDA events around back-to-back launches queued behind a short
+device-side spin, so that the host's pace does not enter them.
 
 Needs a CUDA device; the scenes come from this checkout's
 ``tools/make_scene.py``.
@@ -72,7 +84,24 @@ def _prepare(path, spp, sqrt_spp, dev, size=600):
     camv = camera.make_camv(host.camera, size, size, 0, spp, sqrt_spp, 0).to(dev)
     kw = dict(n_pix=size * size, max_depth=50, sizes=sizes, has_checker=feats["has_checker"],
               has_noise=feats["has_noise"])
+    _with_mat_types(kw, mk.trace_megakernel_batch, scene)
     return (camv, 0, mk.pack_buffer(scene, sizes), scene.background), kw
+
+
+def _with_mat_types(kw, fn, scene):
+    """Add the scene's material types to ``kw`` where ``fn`` takes them."""
+    import inspect
+
+    from raytrace2_tpu_torch.ops.kernels import megakernel as mk
+
+    if "mat_types" in inspect.signature(fn).parameters:
+        kw["mat_types"] = mk.scene_material_types(scene.materials.mtype)
+
+
+# GPU cycles the stream spins before a timed window (about 25 ms): the host
+# queues the window's launches meanwhile, so the events bracket back-to-back
+# kernels and not the host's pace (which set a 0.3-ms B4 pass's time before).
+QUEUE_AHEAD_CYCLES = 50_000_000
 
 
 def _events(fn, reps):
@@ -81,6 +110,7 @@ def _events(fn, reps):
     fn()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(QUEUE_AHEAD_CYCLES)
     start.record()
     for _ in range(reps):
         out = fn()
@@ -101,6 +131,7 @@ def _run_grad(paths, dev):
         g = torch.from_numpy(np.random.RandomState(5).uniform(0, 1, (size * size, 3))
                              .astype(np.float32)).to(dev)
         args, kw = _prepare(paths[name], spp, 2, dev, size)
+        kw.pop("mat_types", None)  # as the parent's B3 is timed: the mask read per launch
         res, out[f"b3_{name}_ms"] = _events(lambda: mkg.grad_call(*args, g, **kw), 3)
         out[f"b3_{name}_sums"] = [float(res[1].sum()), float(res[2].abs().sum())]
     out["ptxas"] = [f"{key}: {line.strip()}" for key, log in build.BUILD_LOGS.items()
@@ -110,12 +141,27 @@ def _run_grad(paths, dev):
 
 
 def _run_fwd(paths, dev, cli_spp):
-    from raytrace2_tpu_torch import app
+    import time
+
+    import torch
+
+    from raytrace2_tpu_torch import app, grad
     from raytrace2_tpu_torch.ops.kernels import megakernel as mk
+    from raytrace2_tpu_torch.scene import loader, schema
 
     args, kw = _prepare(paths["cornell"], 6, 2, dev)
     _, v4_ms = _events(lambda: mk.trace_megakernel_batch(*args, **kw), 20)
     out = {"v4_cornell_ms": v4_ms}
+    host, _ = loader.load_scene(paths["cornell"])
+    feats, scene = host.features(), schema.to_device(host, dev)
+    gkw = dict(width=600, height=600, n_samples=64, max_depth=50, sqrt_spp=2)
+    grad.value_and_grad_scene(torch.mean, scene, feats, 0, **gkw)  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        grad.value_and_grad_scene(torch.mean, scene, feats, 0, **gkw)
+    torch.cuda.synchronize()
+    out["grad_cornell_ms"] = (time.perf_counter() - t0) / 3 * 1e3
     for name, reps in (("cornell", 5), ("book2", 2))[:1 if cli_spp > 64 else 2]:
         metrics = os.path.join(os.path.dirname(paths[name]), f"{name}.jsonl")
         runs = []
@@ -127,6 +173,7 @@ def _run_fwd(paths, dev, cli_spp):
             with open(metrics) as f:
                 runs.append(json.loads(f.read().splitlines()[-1])["mpaths_per_s"])
         out[f"cli_{name}_mpaths"] = runs
+    out["ptxas"] = _ptxas("intersect_kernel")
     return out
 
 
@@ -134,15 +181,12 @@ def _run_v4(paths, dev):
     import inspect
 
     from raytrace2_tpu_torch.ops import camera
-    from raytrace2_tpu_torch.ops.kernels import build
     from raytrace2_tpu_torch.ops.kernels import megakernel as mk
     from raytrace2_tpu_torch.scene import loader
 
     args, kw = _prepare(paths["cornell"], 6, 2, dev)
     _, ms = _events(lambda: mk.trace_megakernel_batch(*args, **kw), 20)
-    out = {"v4_cornell_ms": ms, "ptxas": [line.strip() for line in
-                                          build.BUILD_LOGS.get("megakernel_v4", "").splitlines()
-                                          if "registers" in line or "spill" in line]}
+    out = {"v4_cornell_ms": ms}
     if "block" in inspect.signature(mk.trace_megakernel_batch).parameters:
         args, kw = _prepare(paths["book2"], 16, 4, dev)
         host, _ = loader.load_scene(paths["book2"])
@@ -150,21 +194,72 @@ def _run_v4(paths, dev):
         kw["n_pix"] = mk.pixel_slots(600, 600, block=True)[0]
         _, out["v4_book2_block_ms"] = _events(lambda: mk.trace_megakernel_batch(
             camv, *args[1:], block=True, wave_frac=0.5, **kw), 5)
+    out["ptxas"] = _ptxas("megakernel_v4")
+    return out
+
+
+def _ptxas(prefix):
+    """ptxas's register and spill lines of every library built whose key
+    starts with ``prefix``."""
+    from raytrace2_tpu_torch.ops.kernels import build
+
+    return [f"{key}: {line.strip()}" for key, log in build.BUILD_LOGS.items()
+            if key.startswith(prefix) for line in log.splitlines()
+            if "registers" in line or "spill" in line]
+
+
+def _b4_inputs(path, dev, size=600):
+    """((o, d, time) padded to the tile, seed_lane, packed, background,
+    keywords) of B4 over the camera rays of a size² image at sample 0."""
+    import torch
+
+    from raytrace2_tpu_torch.ops import camera, integrator, rng
+    from raytrace2_tpu_torch.ops.kernels import megakernel as mk
+    from raytrace2_tpu_torch.ops.kernels import megakernel_v3 as mk3
+    from raytrace2_tpu_torch.scene import loader, schema
+
+    host, _ = loader.load_scene(path)
+    feats = host.features()
+    sizes = tuple(feats["mega_sizes"])
+    ds = schema.to_device(host, dev)
+    seed_lane = integrator.mega_seed_of(0, 0)
+    pix = torch.arange(size * size, dtype=torch.int32, device=dev)
+    u = rng.murmur_uniforms(seed_lane, pix, tuple(rng.CAMERA_CTR_BASE + k for k in range(5)))
+    o, d, tm = camera.generate_rays(ds.camera, size, size, 0, 4, None, uniforms=u)
+    pad = -size * size % mk3.TILE_R
+    rays = (torch.nn.functional.pad(o, (0, 0, 0, pad)),
+            torch.nn.functional.pad(d, (0, 0, 0, pad), value=1.0),
+            torch.nn.functional.pad(tm, (0, pad)))
+    kw = dict(max_depth=50, sizes=sizes, has_checker=feats["has_checker"],
+              has_noise=feats["has_noise"])
+    _with_mat_types(kw, mk3.megakernel_pass, ds)
+    return rays, seed_lane, mk.pack_buffer(ds, sizes), ds.background.to(torch.float32), kw
+
+
+def _run_v3(paths, dev):
+    from raytrace2_tpu_torch.ops.kernels import megakernel_v3 as mk3
+
+    out = {}
+    for name, reps in (("cornell", 20), ("book2", 5)):
+        rays, seed_lane, packed, bg, kw = _b4_inputs(paths[name], dev)
+        state, rid = mk3.init_state(*rays)
+        _, out[f"b4_{name}_pass_ms"] = _events(lambda: mk3.megakernel_pass(
+            state, rid, seed_lane, mk3.TILE_R // 16, packed, bg, **kw), reps)
+        if name == "cornell":
+            res, out["b4_cornell_trace_ms"] = _events(lambda: mk3.trace_megakernel(
+                *rays, seed_lane, packed, bg, phases=2, compaction_ratio=16, **kw), 10)
+            out["b4_cornell_trace_mean"] = float(res.mean())
+    out["ptxas"] = _ptxas("megakernel_v3")
     return out
 
 
 def _run_wf(paths, dev):
-    import torch
-
-    from raytrace2_tpu_torch.ops import camera, integrator, rng
-    from raytrace2_tpu_torch.ops.kernels import build
-    from raytrace2_tpu_torch.ops.kernels import megakernel as mk
     from raytrace2_tpu_torch.ops.kernels import megakernel_v3 as mk3
     from raytrace2_tpu_torch.ops.kernels import wavefront as wf
-    from raytrace2_tpu_torch.scene import loader, schema
 
     args, kw = _prepare(paths["book2"], 6, 2, dev)
     kw.pop("n_pix")
+    kw.pop("mat_types", None)
     n_rays = -(-PIX // 128) * 128
     _, ms = _events(lambda: wf.trace_wavefront_batch(*args, n_rays=n_rays, **kw), 3)
     captured = {}
@@ -183,29 +278,13 @@ def _run_wf(paths, dev):
         it = iter(states)
         _, launch_ms[tag] = _events(lambda: wf.wavefront_step(next(it), *args, k_bounces=k,
                                                               **kw), 5)
-    out = {"wf_book2_batch_ms": ms, "wf_k2_launch_ms": launch_ms["k2"],
-           "wf_k16_launch_ms": launch_ms["k16"],
-           "ptxas": [f"{name}: {line.strip()}" for name in ("wavefront_step", "megakernel_v3")
-                     for line in build.BUILD_LOGS.get(name, "").splitlines()
-                     if "registers" in line]}
-    host, _ = loader.load_scene(paths["cornell"])
-    feats = host.features()
-    sizes = tuple(feats["mega_sizes"])
-    ds = schema.to_device(host, dev)
-    seed_lane = integrator.mega_seed_of(0, 0)
-    pix = torch.arange(PIX, dtype=torch.int32, device=dev)
-    u = rng.murmur_uniforms(seed_lane, pix, tuple(rng.CAMERA_CTR_BASE + k for k in range(5)))
-    o, d, tm = camera.generate_rays(ds.camera, 600, 600, 0, 4, None, uniforms=u)
-    pad = -PIX % mk3.TILE_R
-    state, rid = mk3.init_state(torch.nn.functional.pad(o, (0, 0, 0, pad)),
-                                torch.nn.functional.pad(d, (0, 0, 0, pad), value=1.0),
-                                torch.nn.functional.pad(tm, (0, pad)))
-    packed, bg = mk.pack_buffer(ds, sizes), ds.background.to(torch.float32)
-    b4_kw = dict(max_depth=50, sizes=sizes, has_checker=feats["has_checker"],
-                 has_noise=feats["has_noise"])
-    _, out["b4_cornell_pass_ms"] = _events(lambda: mk3.megakernel_pass(
+    rays, seed_lane, packed, bg, b4_kw = _b4_inputs(paths["cornell"], dev)
+    state, rid = mk3.init_state(*rays)
+    _, b4_ms = _events(lambda: mk3.megakernel_pass(
         state, rid, seed_lane, mk3.TILE_R // 16, packed, bg, **b4_kw), 5)
-    return out
+    return {"wf_book2_batch_ms": ms, "wf_k2_launch_ms": launch_ms["k2"],
+            "wf_k16_launch_ms": launch_ms["k16"], "b4_cornell_pass_ms": b4_ms,
+            "ptxas": _ptxas("wavefront_step") + _ptxas("megakernel_v3")}
 
 
 def _child(root, what, cli_spp):
@@ -217,11 +296,13 @@ def _child(root, what, cli_spp):
 
     if not raytrace2_tpu_torch.__file__.startswith(os.path.abspath(root)):
         raise SystemExit(f"imported {raytrace2_tpu_torch.__file__}, not the tree at {root}")
-    build.build_all({"v4": ("megakernel_v4",), "wf": ("wavefront_step", "megakernel_v3"),
-                     "grad": ("megakernel_v4",)}.get(what, build.KERNELS))
+    if what == "fwd":
+        # Kept out of the timed CLI runs: the wavefront's first build (v4's
+        # and B3's instances are built by the first timed calls' warm-ups).
+        build.build_all(("wavefront_step", "intersect_kernel"))
     dev = torch.device("cuda")
     run = {"grad": _run_grad, "fwd": lambda p, d: _run_fwd(p, d, cli_spp), "v4": _run_v4,
-           "wf": _run_wf}[what]
+           "wf": _run_wf, "v3": _run_v3}[what]
     with tempfile.TemporaryDirectory() as work:
         paths = _scenes(work)
         out = {"root": root, "what": what}
@@ -233,7 +314,7 @@ def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("roots", nargs=2, help="two directories holding a raytrace2_tpu_torch")
     p.add_argument("--what", nargs="+", default=["grad", "fwd"],
-                   choices=["grad", "fwd", "v4", "wf"])
+                   choices=["grad", "fwd", "v4", "wf", "v3"])
     p.add_argument("--cli-spp", type=int, default=64, help="samples of each CLI render")
     p.add_argument("--child", action="store_true", help=argparse.SUPPRESS)
     args = p.parse_args(argv)

@@ -47,7 +47,8 @@ import tempfile
 
 REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 VARIANTS = {"nosweep": 0, "linear": 1, "profiled": 2}
-PHASES = ("stage", "load", "camera", "slab", "record", "shade", "noise", "store", "total")
+PHASES = ("stage", "load", "camera", "slab", "record", "shade", "noise", "store", "wait",
+          "total")
 
 
 def card_line() -> str:

@@ -419,3 +419,86 @@ def test_warp_walk_with_six_orders_and_ties_matches_plain(tmp_path, cuda, k):
     plain = wf.step_plain(state.clone(), *args, k_bounces=k, **kw)
     torch.cuda.synchronize()
     assert torch.equal(kern, plain)
+
+
+# ---- B1 and B4 redesigned: per-scene instances, persistent v4 -------------
+
+
+@pytest.mark.parametrize("name,w,h,block", [("cornell", 37, 23, False),
+                                            ("feature", 37, 23, False),
+                                            ("grid", 41, 19, False),
+                                            ("cornell", 37, 23, True)])
+def test_persistent_v4_bitwise_at_odd_sizes(tmp_path, cuda, name, w, h, block):
+    """The persistent v4 kernel (instant regeneration, each lane fetching
+    its next pixel) at odd sizes whose slot count is no multiple of the
+    128-thread block, on the linear and the block-tiled layout: bitwise
+    equal to its plain version, launched from the scene's own instance."""
+    from raytrace2_tpu_torch.ops.kernels import build
+
+    args, kw = _v4_args(write_scene(tmp_path, name), w, h, 3, 8, cuda, block=block)
+    n_slots, _ = mk.pixel_slots(w, h, block)
+    assert block or n_slots % mk.TILE
+    mask = mk.scene_features(args[2], kw["sizes"], kw["has_checker"], kw["has_noise"],
+                             kw["ntab"])
+    assert build.load(build.feature_target("megakernel_v4", mask)).megakernel_v4_features() \
+        == mask
+    kern = mk.trace_megakernel_batch(*args, n_pix=n_slots, block=block, **kw)
+    plain = mk.trace_plain(*args, n_pix=n_slots, block=block, **kw)
+    torch.cuda.synchronize()
+    assert torch.isfinite(kern).all() and float(kern.max()) > 0
+    assert torch.equal(kern, plain)
+
+
+def test_persistent_v4_counter_is_reset_per_launch(tmp_path, cuda):
+    """Two launches in a row on one stream, and two at once on two streams,
+    give the plain version's image: each launch zeroes its own pixel
+    counter on its own stream."""
+    args, kw = _v4_args(write_scene(tmp_path, "cornell"), 96, 80, 2, 8, cuda)
+    kw["n_pix"] = 96 * 80
+    plain = mk.trace_plain(*args, **kw)
+    first = mk.trace_megakernel_batch(*args, **kw)
+    second = mk.trace_megakernel_batch(*args, **kw)
+    streams = [torch.cuda.Stream(cuda) for _ in range(2)]
+    outs = []
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream(cuda))
+        with torch.cuda.stream(s):
+            outs.append(mk.trace_megakernel_batch(*args, **kw))
+    torch.cuda.synchronize()
+    for img in (first, second, *outs):
+        assert torch.equal(img, plain)
+
+
+@pytest.mark.parametrize("name", ["cornell", "cornell_volume", "feature", "noise_spheres",
+                                  "grid"])
+def test_megakernel_v3_instances_match_plain(tmp_path, cuda, name):
+    """Each scene's B4 instance (its feature mask with hash noise and the
+    in-block compaction on flat sweeps; every feature and no compaction on
+    a clustered scene, grid) on one pass of 32x32 camera rays, min_alive 8
+    and 0: radiance and state bitwise equal to the plain pass; every tile
+    leaves with at most min_alive live rays."""
+    from raytrace2_tpu_torch.ops.kernels import build
+
+    host, _ = loader.load_scene(write_scene(tmp_path, name))
+    feats = host.features()
+    sizes = tuple(feats["mega_sizes"])
+    dev = schema.to_device(host, cuda)
+    pix = torch.arange(1024, dtype=torch.int32, device=cuda)
+    u = rng.murmur_uniforms(77, pix, tuple(rng.CAMERA_CTR_BASE + k for k in range(5)))
+    o, d, tm = camera.generate_rays(dev.camera, 32, 32, 0, 1, None, uniforms=u)
+    state, rid = mk3.init_state(o, d, tm)
+    packed, bg = mk.pack_buffer(dev, sizes), dev.background.to(torch.float32)
+    types = mk.scene_material_types(dev.materials.mtype)
+    mask = mk3.instance_features(packed, sizes, feats["has_checker"], feats["has_noise"], types)
+    assert build.load(build.feature_target("megakernel_v3", mask)).megakernel_v3_features() \
+        == mask
+    kw = dict(max_depth=50, sizes=sizes, has_checker=feats["has_checker"],
+              has_noise=feats["has_noise"])
+    for min_alive in (mk3.TILE_R // 16, 0):
+        rad_k, new_k = mk3.megakernel_pass(state, rid, 77, min_alive, packed, bg,
+                                           mat_types=types, **kw)
+        rad_p, new_p = mk3.pass_plain(state, rid, 77, min_alive, packed, bg, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(rad_k, rad_p) and torch.equal(new_k, new_p), min_alive
+        live = (new_k[mk3.COL["alive"]] > 0).view(-1, mk3.TILE_R).sum(1)
+        assert int(live.max()) <= min_alive

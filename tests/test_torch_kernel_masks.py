@@ -1,9 +1,11 @@
-"""The gradient kernel's scene feature masks and the material types its
-main path reads for them, the inverse visit-order tables of the wavefront
-step's warp-ordered walk, and the profiling tools' refusal without a card.
+"""The kernels' scene feature masks and the material types their main paths
+read for them, the instance each wrapper picks, the plain B4 pass's stop,
+the inverse visit-order tables of the wavefront step's warp-ordered walk,
+and the profiling tools' refusal without a card.
 
-A scene's gradient kernel is built for its feature mask
-(``megakernel_grad.feature_mask``), so the mask must hold every record
+A scene's v4, B4 and gradient kernels are each built for its feature mask
+(``megakernel.scene_features``, re-exported as
+``megakernel_grad.grad_features``), so the mask must hold every record
 family, material type, texture kind and noise kind the scene holds: checked
 here against the JAX loader's ``FlatScene`` of the same JSON, for every
 scene of ``test_torch_scenes`` (Cornell and book 2 from
@@ -14,10 +16,14 @@ import pytest
 import torch
 
 from raytrace2_tpu_torch import defs
+from raytrace2_tpu_torch.ops import camera, integrator, rng
+from raytrace2_tpu_torch.ops.kernels import build
 from raytrace2_tpu_torch.ops.kernels import megakernel as mk
 from raytrace2_tpu_torch.ops.kernels import megakernel_grad as mkg
+from raytrace2_tpu_torch.ops.kernels import megakernel_v3 as mk3
+from raytrace2_tpu_torch.render import Renderer
 from raytrace2_tpu_torch.scene import loader, schema
-from raytrace2_tpu_torch.tools import profile_grad, profile_wavefront
+from raytrace2_tpu_torch.tools import profile_grad, profile_wavefront, roofline
 from test_torch_scenes import SCENES, write_scene
 
 # Scenes on the kernel path (an ellipsoid scene takes the non-kernel path).
@@ -115,9 +121,107 @@ def test_inverse_visit_orders(tmp_path, name):
     assert checked
 
 
+@pytest.mark.parametrize("name", KERNEL_SCENES)
+def test_forward_instances_share_the_gradient_mask(tmp_path, name):
+    """v4's instance for a scene is B3's (the same function, the same ntab:
+    table noise where the scene takes it), and B4's is B3's without table
+    noise (B4 always takes hash noise) on a scene whose families all sweep
+    flat, the all-features one on a clustered scene; each covers the JAX
+    loader's FlatScene of the scene."""
+    from raytrace2_tpu.scene import loader as jax_loader
+
+    path = write_scene(tmp_path, name)
+    feats, sizes, packed = _port(path)
+    ref, _ = jax_loader.load_scene(path)
+    scene = schema.to_device(loader.load_scene(path)[0], "cpu")
+    noisy = bool(feats["has_noise"])
+    ntab = integrator.noise_tables(scene, dict(feats, noise_impl="table")) if noisy else None
+    args = (packed, sizes, feats["has_checker"], feats["has_noise"])
+    for tables in (None, ntab):
+        v4 = mk.scene_features(*args, tables)
+        assert v4 == mkg.grad_features(*args, tables)
+        assert v4 & mk.F_QUAD or not np.asarray(ref.quads.active).any()
+    v3 = mk.scene_features(*args, None)
+    assert v3 == mkg.grad_features(*args)
+    # B4's instance: this mask where the pass compacts (flat sweeps), every
+    # feature on a clustered scene.
+    assert mk3.instance_features(*args) == (mk.F_ALL if any(mk.hier_flags(sizes)) else v3)
+    assert not v3 & mk.F_TABLE_NOISE
+    assert bool(v3 & mk.F_HASH_NOISE) == noisy
+    assert bool(v3 & mk.F_SPH) == bool(np.asarray(ref.spheres.active).any())
+    assert bool(v3 & mk.F_BOX) == bool(np.asarray(ref.boxes.active).any())
+    assert bool(v3 & mk.F_MED) == bool(np.asarray(ref.media.active).any())
+    if name == "cornell":
+        assert v3 == v4 == mk.F_QUAD
+
+
+def test_wrappers_pick_the_instance_without_a_host_read(tmp_path, monkeypatch):
+    """Each per-scene kernel's build target is (name, ("<DEFINE>=<mask>",)),
+    one library per mask; with the scene's material types cached, picking
+    the instance reads nothing from the tensors (no .tolist, .unique,
+    .item, .cpu or bool of a tensor); the Renderer reads the types from the
+    host scene before the scene goes to its device."""
+    feats, sizes, packed = _port(write_scene(tmp_path, "book2"))
+    scene = schema.to_device(loader.load_scene(write_scene(tmp_path, "book2"))[0], "cpu")
+    types = mk.scene_material_types(scene.materials.mtype)
+    mask = mk.scene_features(packed, sizes, feats["has_checker"], feats["has_noise"])
+    for name, define in (("megakernel_v4", "V4_FEATURES"), ("megakernel_v3", "V3_FEATURES"),
+                         ("megakernel_grad", "GRAD_FEATURES")):
+        assert build.feature_target(name, mask) == (name, (f"{define}={mask}",))
+        assert build.library_path(build.feature_target(name, mask)) \
+            != build.library_path(build.feature_target(name, mk.F_QUAD))
+    assert build.grad_target(mask) == build.feature_target("megakernel_grad", mask)
+
+    def refuse(*a, **k):
+        raise AssertionError("host read")
+
+    for attr in ("tolist", "unique", "item", "cpu", "__bool__", "numpy"):
+        monkeypatch.setattr(torch.Tensor, attr, refuse)
+    assert mk.scene_material_types(scene.materials.mtype) is types
+    assert mk.scene_features(packed, sizes, feats["has_checker"], feats["has_noise"],
+                             mat_types=types) == mask
+    monkeypatch.undo()
+    r = Renderer(loader.load_scene(write_scene(tmp_path, "cornell"))[0], 8, 8, device="cpu")
+    assert r._features["mat_types"] == frozenset(
+        float(t) for t in r.scene.materials.mtype.unique().tolist())
+
+
+def test_v3_plain_pass_stops_per_tile(tmp_path):
+    """The plain B4 pass stops each tile of TILE_R rays at min_alive, as the
+    kernel's block count does: after a pass no tile has more live rays than
+    min_alive, every ray has bounced, and a run dry (min_alive 0) leaves
+    none alive."""
+    feats, sizes, packed = _port(write_scene(tmp_path, "cornell"))
+    scene = schema.to_device(loader.load_scene(write_scene(tmp_path, "cornell"))[0], "cpu")
+    n = 4 * mk3.TILE_R
+    u = rng.murmur_uniforms(5, torch.arange(n, dtype=torch.int32),
+                            tuple(rng.CAMERA_CTR_BASE + k for k in range(5)))
+    o, d, tm = camera.generate_rays(scene.camera, 32, 16, 0, 1, None, uniforms=u)
+    state, rid = mk3.init_state(o, d, tm)
+    kw = dict(max_depth=50, sizes=sizes, has_checker=feats["has_checker"],
+              has_noise=feats["has_noise"])
+    for min_alive in (mk3.TILE_R // 16, 0):
+        _, new = mk3.pass_plain(state, rid, 5, min_alive, packed, scene.background.float(),
+                                **kw)
+        live = (new[mk3.COL["alive"]] > 0).view(-1, mk3.TILE_R).sum(1)
+        assert int(live.max()) <= min_alive
+        assert int((new[mk3.COL["bounce"]] > 0).sum()) == n
+
+
 def test_profilers_refuse_without_a_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         profile_wavefront.main(["--res", "8"])
     with pytest.raises(RuntimeError, match="CUDA"):
         profile_grad.main(["--res", "8"])
+
+
+@pytest.mark.parametrize("mode", ["ceilings", "split"])
+def test_roofline_refuses_without_a_card(monkeypatch, mode):
+    """tools/roofline.py measures the card; without one both modes raise
+    (and the functions they run raise too)."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        roofline.main(["--mode", mode])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        (roofline.ceilings if mode == "ceilings" else roofline.split)(1)
