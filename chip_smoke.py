@@ -55,11 +55,19 @@ Phases, each printed on its own line:
      book 2 600x600, depth 50, 4 spp through the wavefront forward and B3;
   9. 5 Adam steps of python -m raytrace2_tpu_torch.tools.optimize_scene on
      Cornell 600x600 (materials.albedo, 4 spp, depth 50): the loss falls;
- 10. the fused closest hit B5 vs its plain version at its main-path launch
-     shapes (t bitwise, codes equal): the inputs of the pallas route's first
-     and fourth B5 launches on the first 16,384-ray chunk of book 2 600x600,
-     and of its first launch on a 65,536-ray Cornell chunk; kernel (CUDA
-     events), plain version and the xla route's dense sweep timed, bound;
+ 10. the card's ceilings (tools/roofline.py --mode ceilings), then the
+     fused closest hit B5 over the live records vs its plain version over
+     the padded rows at its main-path launch shapes (t bitwise, codes
+     equal): the inputs of the pallas route's first and fourth B5 launches
+     on the first 16,384-ray chunk of book 2 600x600, of its first launch
+     on a 65,536-ray Cornell chunk, and on each chunk of the first launch
+     after each of its two compactions (tools/ab_kernels.py B5_CASES,
+     b5_launches); the launch rule's lane group G, threads and staging,
+     live against padded records per ray, the kernel (CUDA events) and its
+     alternatives (every G, whole table and tiles, 64 to 1,024 threads a
+     block, each bitwise too), the plain version and the xla route's dense
+     sweep timed, the bound (the operations of the tests this launch's data
+     takes) at the data sheet's rates and at the measured ceilings;
  11. the v3 state-passing kernel B4 vs its plain version, bitwise, on one
      pass of Cornell 600x600 depth 50 camera rays (Cornell's instance),
      timed, bound;
@@ -87,10 +95,11 @@ Phases, each printed on its own line:
      batch, its share of warp-steps with mixed visit orders, its variants
      (sort, step, nosweep, linear) on two launches; B3's forward, pre-pass
      and full times on Cornell 600x600 64 spp and book 2 64x64 4 spp;
- 16. the card's measured ceilings (tools/roofline.py --mode ceilings: FMA,
-     separate multiply and add, murmur mix, copy) and where the final v4 and
-     B4 spend their time (--mode split: v4 on Cornell 600x600 6 spp and on
-     book 2's block layout, one B4 Cornell pass; idle-lane shares);
+ 16. the card's ceilings of phase 10 (FMA, separate multiply and add,
+     murmur mix, copy) and where the final v4, B4 and B5 spend their time
+     (tools/roofline.py --mode split: v4 on Cornell 600x600 6 spp and on
+     book 2's block layout, one B4 Cornell pass, B5 at phase 10's
+     launches; idle-lane shares, B5's resident warps per SM);
  17. one JSON line describing each kernel, with the options it carries
      (status, design), its built instances (registers, stack, spills,
      feature masks; threads per SM of the main paths' v4 and B4 instances),
@@ -146,12 +155,9 @@ OPS_AABB = 25
 # adjoint — 60 f32 operations for a Lambertian quad hit, the cheapest case,
 # counted from csrc/grad_adjoint.cuh (bounce_adjoint, resolve_adjoint).
 OPS_ADJOINT = 60
-# f32 operations of one record test of the fused closest hit B5, counted from
-# csrc/intersect_kernel.cu (selects not counted).
-B5_OPS = {"sph": 35, "quad": 48}
-# B5's launches at the non-kernel path's chunk sizes (render.py CHUNK_SIZE,
-# CHUNK_SIZE_LARGE above 1,024 records).
-CHUNK_CORNELL, CHUNK_BOOK2 = 65536, 16384
+# The non-kernel path's chunk on Cornell (render.py CHUNK_SIZE; B5's launch
+# shapes are tools/ab_kernels.py B5_CASES).
+CHUNK_CORNELL = 65536
 # Book 2's mean linear radiance at 600x600, 64 spp, depth 50 on the card
 # through the kernel path (PERF.md, the wavefront main path); its pallas
 # render at 4 spp is the same estimator on other streams.
@@ -169,6 +175,11 @@ FLAT_SLICE = 32768
 # so that the host queues the launches meanwhile and the events bracket
 # back-to-back kernels, not the host's pace (tools/roofline.py).
 QUEUE_AHEAD_CYCLES = 50_000_000
+B5_DESIGN = ("live record extents; one ray's sweep split over a group of G lanes of a warp, "
+             "reduced to the lexicographic minimum of (t, code) by shuffles; records staged "
+             "as float4 planes in shared memory, the whole live table once per block where "
+             "it fits, else in tiles; blocks down to 128 threads where the grid has fewer "
+             "blocks than SMs (the route's compacted launches)")
 # The designs of B1 and B4 (csrc/megakernel_v4.cu, csrc/megakernel_v3.cu).
 V4_DESIGN = ("instant regeneration: persistent blocks (at most 6 resident blocks an SM x "
              "the SMs) with per-lane pixel fetch from a device counter, one instance per "
@@ -329,7 +340,7 @@ def main() -> None:
     targets += ["wavefront_profile", *sorted({build.grad_target(grad_masks[k], True)
                                               for k in ("cornell", "book2")}),
                 *(build.profile_target(masks[v4][k], masks[v3][k]) for k in ("cornell", "book2")),
-                "roofline"]
+                "intersect_profile", "roofline"]
     t0 = time.perf_counter()
     build.build_all(targets)
     build_s = time.perf_counter() - t0
@@ -942,11 +953,12 @@ def main() -> None:
         f"steps: loss {' -> '.join(f'{x:.3g}' for x in losses)} (improvement "
         f"{recs[-1]['improvement']}), rel_err {recs[0]['rel_err[materials.albedo]']} -> "
         f"{recs[-2]['rel_err[materials.albedo]']}")
-    non_kernel = non_kernel_phases(dev, card, scene_file, cornell, book2, ops_per_bounce)
+    non_kernel, ceil = non_kernel_phases(dev, card, scene_file, cornell, book2,
+                                         ops_per_bounce)
     book2_16["image"] = imgs[("skip", "wf")]
     b1 = b1_option_phases(dev, card, book2, book2_16)
     splits = split_phase(card, book2, cornell)
-    ceil, roof = roofline_phase(card)
+    roof = roofline_phase(card, ceil)
     shutil.rmtree(work)
     for name in ("jax", "raytrace2_tpu"):
         check(name not in sys.modules, f"{name} was imported")
@@ -1025,6 +1037,13 @@ def main() -> None:
         "instances": instances(b3),
         "split": splits["grad"],
     }, *non_kernel]
+    b5 = kernels[-2]
+    b5.update(instances=[instance("intersect_kernel")],
+              occupancy={k: {x: roof[k][x] for x in ("group", "threads_per_block", "staging",
+                                                      "smem_bytes", "threads_per_sm",
+                                                      "resident_warps_per_sm")}
+                         for k in roof if k.startswith("b5_")},
+              split={k: roof[k] for k in roof if k.startswith("b5_")})
     b4 = kernels[-1]
     b4.update(status=b4["status"] + "; redesigned for Hopper (design)", design=V3_DESIGN,
               instances=instances(v3),
@@ -1083,29 +1102,35 @@ def split_phase(card, book2, cornell) -> dict:
     return {"wavefront": {"batch": sp, "launches": rows}, "grad": grads}
 
 
-def roofline_phase(card):
-    """Phase 16: the card's measured ceilings and where the final v4 and B4
-    spend their time (raytrace2_tpu_torch/tools/roofline.py): the FMA, the
-    separate multiply-add and the murmur-mix chains and a streaming copy;
-    the per-phase clock split of v4 at Cornell 600x600 6 spp and on book 2's
-    block layout (2 spp), and of one B4 Cornell pass, each profiled
-    instance's results bitwise the production one's."""
+def roofline_phase(card, ceil):
+    """Phase 16: the card's ceilings (measured in phase 10) and where the
+    final v4, B4 and B5 spend their time (raytrace2_tpu_torch/tools/
+    roofline.py): the per-phase clock split of v4 at Cornell 600x600 6 spp
+    and on book 2's block layout (2 spp), of one B4 Cornell pass, and of B5
+    at its main-path launches, each profiled instance's results bitwise the
+    production one's."""
     from raytrace2_tpu_torch.tools import roofline
 
-    ceil = roofline.ceilings(5)
     say(f"phase 16 ceilings: FMA chain {ceil['fma_ops_per_s'] / 1e12:.2f} TFLOP/s, a multiply "
         f"and an add apart (-fmad=false) {ceil['mul_add_ops_per_s'] / 1e12:.2f} TFLOP/s, murmur "
         f"mix {ceil['mix_ops_per_s'] / 1e12:.2f} T int ops/s, copy "
         f"{ceil['copy_bytes_per_s'] / 1e12:.3f} TB/s ({card})")
     roof = roofline.split(3)
-    for name in ("v4_cornell", "v4_book2_block", "v3_cornell_pass"):
+    for name in ("v4_cornell", "v4_book2_block", "v3_cornell_pass",
+                 *(k for k in roof if k.startswith("b5_"))):
         r = roof[name]
-        say(f"phase 16 split, {name} ({r['shape']}), instance {r['features']}, "
-            f"{r['threads_per_sm']} threads per SM: production {r['ms']:.3f} ms, profiled "
-            f"{r['profiled_ms']:.3f} ms (bitwise); thread-cycle shares "
+        say(f"phase 16 split, {name} ({r['shape']}), "
+            + (f"instance {r['features']}, " if "features" in r else
+               f"G={r['group']}, {r['threads_per_block']} threads a block, {r['staging']} "
+               f"table staged, {r['resident_warps_per_sm']:.1f} resident warps per SM, "
+               f"{r['records_tested_per_ray']} records tested per ray of "
+               f"{r['padded_records']} padded, ")
+            + f"{r['threads_per_sm']} threads per SM: production {r['ms']:.4f} ms, profiled "
+            f"{r['profiled_ms']:.4f} ms (bitwise); thread-cycle shares "
             + ", ".join(f"{k[:-6]} {v:.3f}" for k, v in r.items() if k.endswith("_share"))
             + f" ({card})")
-    return ceil, roof
+    say(f"phase 16 ptxas: {json.dumps(roof['ptxas'])}")
+    return roof
 
 
 def event_ms(fn, reps):
@@ -1348,9 +1373,11 @@ def grad_groups(kern, plain, sizes):
     return groups
 
 
-def non_kernel_phases(dev, card, scene_file, cornell, book2, ops_per_bounce) -> list:
+def non_kernel_phases(dev, card, scene_file, cornell, book2, ops_per_bounce):
     """Phases 10-12: the non-kernel path. Returns the kernels-line entries of
-    B5 (the fused closest hit) and B4 (the v3 state-passing kernel)."""
+    B5 (the fused closest hit) and B4 (the v3 state-passing kernel), and the
+    card's ceilings (tools/roofline.py --mode ceilings), measured for B5's
+    bound."""
     import numpy as np
     import torch
 
@@ -1359,50 +1386,43 @@ def non_kernel_phases(dev, card, scene_file, cornell, book2, ops_per_bounce) -> 
     from raytrace2_tpu_torch import app
     from raytrace2_tpu_torch.io import compare, image
     from raytrace2_tpu_torch.ops import camera, integrator, intersect, materials, rng
+    from raytrace2_tpu_torch.ops.kernels import build
     from raytrace2_tpu_torch.ops.kernels import intersect_kernel as pk
     from raytrace2_tpu_torch.ops.kernels import megakernel as mk
     from raytrace2_tpu_torch.ops.kernels import megakernel_v3 as mk3
     from raytrace2_tpu_torch.ops.kernels import wavefront as wf
     from raytrace2_tpu_torch.render import Renderer
     from raytrace2_tpu_torch.scene import loader, schema
+    from raytrace2_tpu_torch.tools import ab_kernels, roofline
 
     # ---- phase 10: B5 against its plain version at its launch shapes --------
-    def b5_launches(path, size, chunk, picks):
-        """The inputs of B5's launches number ``picks`` while the pallas route
-        traces the first chunk of a size² image at sample 0 (its own bounce
-        loop, B5's wrapper wrapped to keep what it is given)."""
-        host, _ = loader.load_scene(path)
-        feats = dict(host.features(), use_megakernel=False, use_pallas=True)
-        ds = schema.to_device(host, dev)
-        pix = torch.arange(chunk, dtype=torch.int32, device=dev)
-        keys = rng.pixel_sample_key(0, pix, 0)
-        o, d, tm = camera.generate_rays(ds.camera, size, size, 0, 1, keys, pixel_ids=pix)
-        seen, orig = [], pk.closest_hit
-
-        def keep(*a):
-            seen.append(tuple(x.clone() for x in a))
-            return orig(*a)
-
-        pk.closest_hit = keep
-        try:
-            integrator.trace_rays(ds, feats, o, d, tm, keys, 50)
-        finally:
-            pk.closest_hit = orig
-        torch.cuda.synchronize()
-        return ds, [(i, seen[i]) for i in picks]
-
+    # The card's f32 ceiling for code built with -fmad=false (phase 16 prints
+    # the ceilings), for B5's bound beside the data sheet's.
+    ceil = roofline.ceilings(5)
     b5 = {}
-    cases = [("book2", book2, CHUNK_BOOK2, (0, 3)), ("cornell", cornell, CHUNK_CORNELL, (0,))]
-    for name, path, chunk, picks in cases:
-        ds, launches = b5_launches(path, 600, chunk, picks)
-        n_sph = int(ds.spheres.active.sum())
-        n_quad = int(ds.quads.active.sum())
-        for bounce, args in launches:
-            label = f"{name} 600x600 {chunk}-ray chunk, bounce {bounce}"
-            o, d, tm, t0, t1 = args[:5]
+    sms = build.sm_count(dev)
+
+    def b5_launch(args, kwargs, config):
+        # One launch at a given (G, threads, cap_s, cap_q), past the rule.
+        t = torch.empty(args[0].shape[0], dtype=torch.float32, device=dev)
+        c = torch.empty(args[0].shape[0], dtype=torch.int32, device=dev)
+        build.launch_intersect_kernel(*args, t, c, **kwargs, config=config,
+                                      smem=pk.smem_bytes(*config[2:]))
+        return t, c
+
+    for name, chunk, picks in ab_kernels.B5_CASES:
+        path = {"book2": book2, "cornell": cornell}[name]
+        ds, launches, widths = ab_kernels.b5_launches(path, dev, 600, chunk, picks)
+        for pick, args, kwargs in launches:
+            o, d, tm, t0, t1, sph, qd = args
+            n_sph, n_quad = kwargs["n_sph"], kwargs["n_quad"]
             n = o.shape[0]
-            pk.closest_hit(*args)  # warm-up
-            (t_k, c_k), ms = event_ms(lambda: pk.closest_hit(*args), 5)
+            label = (f"{name} 600x600 {chunk}-ray chunk, {roofline.b5_launch_name(pick)} "
+                     f"({n} rays; the chunk's launches by ray count {widths})")
+            group, threads, cap_s, cap_q = pk.launch_config(n, n_sph, n_quad, sms)
+            pk.closest_hit(*args, **kwargs)  # warm-up
+            (t_k, c_k), ms = event_ms(lambda: pk.closest_hit(*args, **kwargs), 5)
+            # The reference: the plain version over the padded rows.
             (t_p, c_p), plain_ms = wall_ms(lambda: pk.closest_hit_plain(*args))
 
             def dense():
@@ -1416,20 +1436,60 @@ def non_kernel_phases(dev, card, scene_file, cornell, book2, ops_per_bounce) -> 
                                                    != t_p.view(torch.int32)).sum())
             check(n_diff == 0, f"B5 {label}: kernel and plain version differ at {n_diff} "
                                f"places")
+            # The alternatives to the rule's launch: every lane group, whole
+            # table and tiles, 64 to 1,024 threads a block, each bitwise the
+            # plain version too; the wrapper's forced G and tiles as well.
+            alt = {}
+            for g in (1, 2, 4, 8, 16, 32):
+                for tiles in (False, True):
+                    t_a, c_a = pk.closest_hit(*args, **kwargs, group=g, tiles=tiles)
+                    check(torch.equal(c_a, c_p) and torch.equal(t_a.view(torch.int32),
+                                                                t_p.view(torch.int32)),
+                          f"B5 {label} at G={g}, tiles={tiles} differs from the plain version")
+                    caps = pk.launch_config(n, n_sph, n_quad, sms, g, tiles)[2:]
+                    for th in (64, 128, 256, 512, 1024):
+                        cfg = (g, th, *caps)
+                        (t_a, c_a), alt[f"G{g} {'tiles' if tiles else 'whole'} {th}"] = \
+                            event_ms(lambda: b5_launch(args, kwargs, cfg), 5)
+                        check(torch.equal(c_a, c_p) and torch.equal(t_a.view(torch.int32),
+                                                                    t_p.view(torch.int32)),
+                              f"B5 {label} at {cfg} differs from the plain version")
+            best = min(alt, key=alt.get)
             max_err = float((t_k - t_p).abs().max())
             hits = int((c_k >= 0).sum())
-            ops = n * (n_sph * B5_OPS["sph"] + n_quad * B5_OPS["quad"])
+            # Operations of the tests this launch's data takes: a sphere
+            # without a real root stops at its discriminant.
+            ops = pk.record_test_ops(o, d, tm, t0, t1, sph, n_sph, n_quad)
             nbytes = n * (9 + 2) * 4 + (8 * n_sph + 13 * n_quad) * 4
             bound_ms = max(ops / PEAK_F32_OPS, nbytes / PEAK_BYTES) * 1e3
             bound_by = "operations" if ops / PEAK_F32_OPS >= nbytes / PEAK_BYTES else "bytes"
-            b5[(name, bounce)] = dict(n=n, ms=ms, plain_ms=plain_ms, dense_ms=dense_ms,
-                                      bound_ms=bound_ms, bound_by=bound_by,
-                                      max_abs_err=max_err)
-            say(f"phase 10 B5 vs plain, {label}: {n} rays ({hits} hit), t bitwise and codes "
-                f"equal; kernel {ms:.4f} ms (mean of 5), plain {plain_ms:.1f} ms, the xla "
-                f"route's dense sphere+quad sweep {dense_ms:.3f} ms; {n_sph} spheres x "
-                f"{B5_OPS['sph']} + {n_quad} quads x {B5_OPS['quad']} f32 ops per ray = "
-                f"{ops:.4g} ops, {nbytes} B -> bound {bound_ms:.4f} ms by {bound_by} ({card})")
+            bound_ceil_ms = max(ops / ceil["mul_add_ops_per_s"],
+                                nbytes / ceil["copy_bytes_per_s"]) * 1e3
+            staging = "whole" if (cap_s, cap_q) == (n_sph, n_quad) else "tiles"
+            b5[(name, pick)] = dict(n=n, ms=ms, plain_ms=plain_ms, dense_ms=dense_ms,
+                                    bound_ms=bound_ms, bound_by=bound_by,
+                                    bound_ms_measured_ceilings=bound_ceil_ms, ops=ops,
+                                    max_abs_err=max_err, group=group,
+                                    threads_per_block=threads, staging=staging,
+                                    live_records=n_sph + n_quad,
+                                    padded_records=sph.shape[1] + qd.shape[1],
+                                    launches_by_rays=widths,
+                                    fastest_alternative={best: alt[best]})
+            say(f"phase 10 B5 vs plain, {label}: {hits} hit; t bitwise and codes equal at "
+                f"the rule's launch (G={group}, {threads} threads a block, {staging} table "
+                f"staged) and at every alternative; {n_sph + n_quad} live records per ray of "
+                f"{sph.shape[1] + qd.shape[1]} padded; kernel {ms:.4f} ms (mean of 5, CUDA "
+                f"events); fastest alternative {best} {alt[best]:.4f} ms; plain "
+                f"{plain_ms:.1f} ms, the xla route's dense sphere+quad sweep {dense_ms:.3f} ms; "
+                f"{ops:.6g} f32 ops ({n_sph} spheres: {pk.OPS_SPHERE_MISS}, or "
+                f"{pk.OPS_SPHERE} with a real root; {n_quad} quads x {pk.OPS_QUAD}), {nbytes} B "
+                f"-> bound {bound_ms:.5f} ms by {bound_by} at the data sheet's rates, "
+                f"{bound_ceil_ms:.5f} ms at the measured -fmad=false and copy ceilings "
+                f"({ceil['mul_add_ops_per_s'] / 1e12:.2f} TFLOP/s, "
+                f"{ceil['copy_bytes_per_s'] / 1e12:.3f} TB/s) ({card})")
+            say(f"phase 10 B5 alternatives, {name} {roofline.b5_launch_name(pick)}, ms by "
+                f"(G, staging, threads a block): "
+                + ", ".join(f"{k} {v:.4f}" for k, v in alt.items()))
 
     # ---- phase 11: B4 against its plain version, one pass -----------------
     host, _ = loader.load_scene(cornell)
@@ -1526,7 +1586,8 @@ def non_kernel_phases(dev, card, scene_file, cornell, book2, ops_per_bounce) -> 
 
     orig = dict(b5=pk.closest_hit, rng=rng.bounce_uniforms, hit=intersect.closest_hit,
                 shade=materials.shade, make_step=integrator._make_step)
-    feats_p = dict(feats, use_megakernel=False, use_pallas=True)
+    feats_p = dict(feats, use_megakernel=False, use_pallas=True,
+                   pallas_extents=pk.live_extents(host))
     pk.closest_hit = span(orig["b5"], "b5")
     rng.bounce_uniforms = span(orig["rng"], "rng")
     intersect.closest_hit = span(orig["hit"], "hit")
@@ -1609,15 +1670,17 @@ def non_kernel_phases(dev, card, scene_file, cornell, book2, ops_per_bounce) -> 
         "name": "intersect_kernel", "route": "cuda",
         "source": "raytrace2_tpu_torch/csrc/intersect_kernel.cu",
         "replaces": "raytrace2_tpu/ops/pallas/intersect_kernel.py:159 (_kernel)",
-        "status": "ported, PR 5 (its own dense sweep of sphere and quad tiles, as the TPU "
-                  "kernel's)",
+        "status": "ported, PR 5; redesigned, PR 9",
+        "design": B5_DESIGN,
         "launches": b5_main, "max_abs_err": main["max_abs_err"],
         "ms": main["ms"], "plain_ms": main["plain_ms"],
         "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
         "library_ms": None,
-        "shape": f"cornell 600x600, a {CHUNK_CORNELL}-ray chunk at its first bounce",
+        "group": main["group"], "threads_per_block": main["threads_per_block"],
+        "shape": f"cornell 600x600, a {CHUNK_CORNELL}-ray chunk at its first launch",
         "launches_book2": b5_book2,
-        "book2": {f"bounce {b}": b5[("book2", b)] for b in (0, 3)},
+        "launches_measured": {f"{name} {roofline.b5_launch_name(pick)}": r
+                              for (name, pick), r in b5.items()},
     }, {
         "name": "megakernel_v3", "route": "cuda",
         "source": "raytrace2_tpu_torch/csrc/megakernel_v3.cu",
@@ -1629,7 +1692,7 @@ def non_kernel_phases(dev, card, scene_file, cornell, book2, ops_per_bounce) -> 
         "bound_ms": b4_bound_ms, "bound_by": b4_bound_by,
         "library_ms": None,
         "shape": "cornell 600x600, depth 50, the first pass (min_alive 8 of 128)",
-    }]
+    }], ceil
 
 
 if __name__ == "__main__":

@@ -42,7 +42,6 @@ from __future__ import annotations
 import torch
 
 from raytrace2_tpu_torch.ops import camera, intersect, materials, rng
-from raytrace2_tpu_torch.ops.kernels import intersect_kernel as pk
 from raytrace2_tpu_torch.ops.kernels import megakernel as mk
 from raytrace2_tpu_torch.ops.kernels import megakernel_grad as mkg
 from raytrace2_tpu_torch.ops.kernels import megakernel_v3 as mk3
@@ -193,7 +192,7 @@ def _make_step(scene, features, background, mega_seed=None):
     has_media = features.get("has_media", True)
     use_murmur = features.get("rng_impl") == "murmur" and mega_seed is not None
     n_med_active = (features.get("mega_sizes") or (0,) * 6)[4]
-    tables = (pk.pack_scene(scene.spheres, scene.quads)
+    tables = (intersect.pallas_tables(scene, features)
               if features.get("use_pallas", False) else None)
 
     def step(st):
@@ -212,7 +211,7 @@ def _make_step(scene, features, background, mega_seed=None):
             u = rng.bounce_uniforms(keys, st["bounce"], n_draws)
         u_media = u[:, 3:] if has_media else None
         hit = intersect.closest_hit(scene, st["o"], st["d"], st["time"], u_media,
-                                    features=features, pallas_tables=tables)
+                                    features=features, tables=tables)
         u_vec = rng.unit_vec3_from_uniforms(u[:, 0], u[:, 1])
         sc = materials.shade(scene, features, hit, st["d"], u_vec, u[:, 2])
 

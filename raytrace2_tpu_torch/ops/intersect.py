@@ -262,9 +262,23 @@ def _media_record(media, o, d, t, idx):
 # ---- combined closest hit --------------------------------------------------
 
 
+def pallas_tables(scene, features):
+    """B5's tables of a scene: ``pack_scene``'s rows and the live extents,
+    (sph, qd, n_sph, n_quad). The extents are ``features["pallas_extents"]``,
+    read from the host scene (the ``Renderer`` reads them), never from the
+    device; a route without them is refused."""
+    extents = features.get("pallas_extents")
+    if extents is None:
+        raise ValueError('the pallas route needs features["pallas_extents"], the live extents '
+                         'of the host scene (intersect_kernel.live_extents)')
+    return (*pk.pack_scene(scene.spheres, scene.quads), *extents)
+
+
 def _sphere_quad_best_pallas(o, d, time, t_min, t_max, tables):
-    """Per-family best (t, index) of spheres and quads from B5."""
-    t, code = pk.closest_hit(o, d, time, t_min, t_max, *tables)
+    """Per-family best (t, index) of spheres and quads from B5 over
+    ``tables`` = (sph, qd, n_sph, n_quad) (``pallas_tables``)."""
+    sph, qd, n_sph, n_quad = tables
+    t, code = pk.closest_hit(o, d, time, t_min, t_max, sph, qd, n_sph=n_sph, n_quad=n_quad)
     fam = code >> pk.FAM_SHIFT           # -1 (miss) stays -1
     idx = (code & ((1 << pk.FAM_SHIFT) - 1)).to(torch.int64)
     is_s, is_q = fam == 0, fam == 1
@@ -273,13 +287,13 @@ def _sphere_quad_best_pallas(o, d, time, t_min, t_max, tables):
 
 
 def closest_hit(scene, o, d, time, u_media=None, t_min=None, t_max=None, features=None,
-                pallas_tables=None) -> Hit:
+                tables=None) -> Hit:
     """Closest hit of N rays against the whole scene (JAX ``closest_hit``).
 
     ``u_media`` [N, M]: free-path uniforms; None treats media as absent.
-    ``t_min``/``t_max`` default to [1e-3, BIG]. ``pallas_tables``: B5's
-    ``pack_scene`` of the scene, packed here when None and
-    ``features["use_pallas"]`` is set."""
+    ``t_min``/``t_max`` default to [1e-3, BIG]. ``tables``: B5's
+    ``pallas_tables`` of the scene (rows and live extents), made here when
+    None and ``features["use_pallas"]`` is set."""
     n = o.shape[0]
     features = features or {}
     if t_min is None:
@@ -292,8 +306,8 @@ def closest_hit(scene, o, d, time, u_media=None, t_min=None, t_max=None, feature
             "(ROADMAP queue A item 12, the sphere BVH)")
 
     if features.get("use_pallas", False):
-        tables = pallas_tables or pk.pack_scene(scene.spheres, scene.quads)
-        bt_s, bi_s, bt_q, bi_q = _sphere_quad_best_pallas(o, d, time, t_min, t_max, tables)
+        bt_s, bi_s, bt_q, bi_q = _sphere_quad_best_pallas(
+            o, d, time, t_min, t_max, tables or pallas_tables(scene, features))
     else:
         bt_s, bi_s = _first_min(_sphere_ts(scene.spheres, o, d, time, t_min, t_max))
         bt_q, bi_q = _first_min(_quad_ts(scene.quads, o, d, t_min, t_max))

@@ -8,7 +8,8 @@ it, and loaded with ``ctypes``. A build target is a source name, or a
 (name, defines) pair: v4, B4 and the gradient kernel are built once per
 scene feature mask (``feature_target``: ``-DV4_FEATURES=<mask>``,
 ``-DV3_FEATURES``, ``-DGRAD_FEATURES``), and the profiling sources
-(``wavefront_profile``, ``grad_profile``, ``megakernel_profile``) and the
+(``wavefront_profile``, ``grad_profile``, ``megakernel_profile``,
+``intersect_profile``) and the
 ceiling microkernels (``roofline``) only by the profiling tools.
 Kernels launch on PyTorch's current stream. There is no fallback: a missing
 ``nvcc``, a failed build or a refused launch raises.
@@ -257,10 +258,20 @@ def _bind_roofline(lib: ctypes.CDLL) -> None:
 
 def _bind_intersect_kernel(lib: ctypes.CDLL) -> None:
     i, p = ctypes.c_int, ctypes.c_void_p
-    lib.intersect_kernel_launch.argtypes = [i, p, p, p, p, p, p, i, p, i, i, p, p, p]
+    lib.intersect_kernel_launch.argtypes = [i, p, p, p, p, p, p, i, i, p, i, i, i, i, i, i, i,
+                                            i, p, p, p]
     lib.intersect_kernel_launch.restype = i
     lib.intersect_kernel_error_string.argtypes = [i]
     lib.intersect_kernel_error_string.restype = ctypes.c_char_p
+
+
+def _bind_intersect_profile(lib: ctypes.CDLL) -> None:
+    _bind_intersect_kernel(lib)
+    lib.intersect_profile_launch.argtypes = [*lib.intersect_kernel_launch.argtypes[:-1],
+                                             ctypes.c_void_p, ctypes.c_void_p]
+    lib.intersect_profile_launch.restype = ctypes.c_int
+    lib.intersect_profile_counters.argtypes = []
+    lib.intersect_profile_counters.restype = ctypes.c_int
 
 
 def _bind_megakernel_v3(lib: ctypes.CDLL) -> None:
@@ -282,7 +293,8 @@ _BINDERS = {"megakernel_v4": _bind_megakernel_v4, "wavefront_step": _bind_wavefr
             "megakernel_grad": _bind_megakernel_grad, "intersect_kernel": _bind_intersect_kernel,
             "megakernel_v3": _bind_megakernel_v3, "grad_profile": _bind_grad_profile,
             "wavefront_profile": _bind_wavefront_profile,
-            "megakernel_profile": _bind_megakernel_profile, "roofline": _bind_roofline}
+            "megakernel_profile": _bind_megakernel_profile, "roofline": _bind_roofline,
+            "intersect_profile": _bind_intersect_profile}
 
 
 def load(t) -> ctypes.CDLL:
@@ -435,9 +447,18 @@ def launch_megakernel_grad(camv, seed: int, background, packed, ntab, g, d_camv,
         raise RuntimeError(f"megakernel_grad launch failed: {msg} (cudaError {err})")
 
 
-def launch_intersect_kernel(o, d, time, t_min, t_max, sph, qd, out_t, out_code) -> None:
-    """Launch ``intersect_kernel`` writing ``out_t`` [N] f32 and ``out_code``
-    [N] int32; raises on a refused launch."""
+def sm_count(device) -> int:
+    """The streaming multiprocessors of a CUDA device."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def launch_intersect_kernel(o, d, time, t_min, t_max, sph, qd, out_t, out_code, *, n_sph,
+                            n_quad, config, smem) -> None:
+    """Launch ``intersect_kernel`` over the live records [0, n_sph) and
+    [0, n_quad) with ``config`` = (lane group, threads a block, cap_s, cap_q)
+    (``intersect_kernel.launch_config``) and ``smem`` bytes of shared memory
+    (``intersect_kernel.smem_bytes``), writing ``out_t`` [N] f32 and
+    ``out_code`` [N] int32; raises on a refused launch."""
     device = _require_cuda(o=o, d=d, time=time, t_min=t_min, t_max=t_max, sph=sph, qd=qd,
                            out_t=out_t)
     n = out_t.numel()
@@ -447,12 +468,17 @@ def launch_intersect_kernel(o, d, time, t_min, t_max, sph, qd, out_t, out_code) 
     if o.numel() != 3 * n or d.numel() != 3 * n or any(x.numel() != n
                                                        for x in (time, t_min, t_max)):
         raise ValueError("ray columns must hold N (o, d: N x 3) floats")
+    group, threads, cap_s, cap_q = config
+    if n * group >= 2**31:
+        raise ValueError(f"{n} rays x {group} lanes exceed the kernel's int32 thread index")
+    _check_smem(smem)
     lib = load("intersect_kernel")
     stream = torch.cuda.current_stream(device).cuda_stream
     err = lib.intersect_kernel_launch(
         device.index, o.data_ptr(), d.data_ptr(), time.data_ptr(), t_min.data_ptr(),
-        t_max.data_ptr(), sph.data_ptr(), int(sph.shape[-1]), qd.data_ptr(),
-        int(qd.shape[-1]), int(n), out_t.data_ptr(), out_code.data_ptr(), stream)
+        t_max.data_ptr(), sph.data_ptr(), int(sph.shape[-1]), int(n_sph), qd.data_ptr(),
+        int(qd.shape[-1]), int(n_quad), int(n), int(group), int(threads), int(cap_s),
+        int(cap_q), int(smem), out_t.data_ptr(), out_code.data_ptr(), stream)
     if err:
         msg = lib.intersect_kernel_error_string(err).decode()
         raise RuntimeError(f"intersect_kernel launch failed: {msg} (cudaError {err})")

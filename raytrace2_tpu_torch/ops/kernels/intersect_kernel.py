@@ -17,13 +17,29 @@ spheres, ``act > 0``. Records are tested in index order, spheres before
 quads, and a hit replaces the best only when strictly closer, which is the
 Pallas kernel's tile-wise argmin plus its strict ``<`` across tiles: the
 first index wins a tie.
+
+Live extents: the callers pass ``n_sph``, ``n_quad``, one past each
+family's last active record (``live_extents``, read once per scene from the
+host scene); the records past them are padding, which never hits, so the
+result is the padded sweep's bit for bit. Without them the whole padded
+rows are swept.
+
+On the card (``launch_config``): each ray's sweep is split over a group of
+G lanes of a warp, the smallest G that gives the grid ``MIN_WARPS_PER_SM``
+warps on each SM, as long as a lane still tests ``MIN_RECORDS_PER_LANE``
+records; the records sit in shared memory as float4 planes, the whole live
+table once per block where it fits, else in tiles of ``TILE_BYTES``; a
+grid of fewer blocks than SMs (the route's compacted launches) takes
+smaller blocks, down to ``MIN_THREADS``, while it still runs in one wave.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from raytrace2_tpu_torch import defs
+from raytrace2_tpu_torch.ops.kernels import build
 from raytrace2_tpu_torch.ops.kernels.megakernel import _cross
 
 BIG = 3.0e38
@@ -38,6 +54,26 @@ QUAD_KEYS = ("nx", "ny", "nz", "d", "aax", "aay", "aaz", "abx", "aby", "abz",
 
 # Launches of the CUDA kernel (the plain version does not count).
 LAUNCHES = 0
+
+# The launch rule (launch_config; csrc/intersect_kernel.cu).
+MIN_WARPS_PER_SM = 16       # the grid's warps an SM that hide the tests' latency
+MIN_RECORDS_PER_LANE = 2    # the least records a lane of a group tests
+MIN_THREADS = 128           # the smallest block: fewer threads stage the table too slowly
+MAX_GROUP = 32
+SPH_BYTES, QUAD_BYTES = 32, 52   # a staged record: 2 float4; 3 float4 and act
+SM_SMEM_BYTES = 233472      # an SM's shared memory, 1,024 B of it reserved per block
+SMEM_RESERVED = 1024
+# Threads an SM holds: its 65,536 registers over the 64 a thread may take at
+# most (__launch_bounds__(1024)); and its blocks.
+MAX_THREADS_PER_SM = 1024
+MAX_BLOCKS_PER_SM = 32
+TILE_BYTES = 48 * 1024      # a tile's budget where the live table does not fit
+H100_SMS = 132
+
+# f32 operations of one record test (csrc/intersect_kernel.cu, selects not
+# counted): a sphere test stops at the compare of its discriminant unless
+# the sphere has a real root; a quad test has no early stop.
+OPS_SPHERE_MISS, OPS_SPHERE, OPS_QUAD = 24, 35, 48
 
 
 def _dot3_fused(a, b):
@@ -74,21 +110,107 @@ def pack_scene(spheres, quads):
     return sph, qd
 
 
+def live_extents(scene) -> tuple[int, int]:
+    """(ns, nq): one past the last active sphere and the last active quad of
+    a host scene (numpy leaves, as the loader builds it; 0 for a family with
+    none), read once per scene. Records past them are padding, which never
+    hits (``act`` is 0)."""
+    def extent(active):
+        idx = np.flatnonzero(np.asarray(active))
+        return int(idx[-1]) + 1 if idx.size else 0
+
+    return extent(scene.spheres.active), extent(scene.quads.active)
+
+
+def smem_bytes(cap_s: int, cap_q: int) -> int:
+    """Shared memory of tiles of cap_s spheres and cap_q quads: what a
+    launch passes to the kernel."""
+    return cap_s * SPH_BYTES + cap_q * QUAD_BYTES
+
+
+def blocks_per_sm(threads: int, smem: int) -> int:
+    """Resident blocks an SM of a launch at ``threads`` a block and ``smem``
+    bytes of shared memory: the fewest that its shared memory, its threads
+    (``MAX_THREADS_PER_SM``) and the card's block limit allow."""
+    return min(SM_SMEM_BYTES // (smem + SMEM_RESERVED), MAX_THREADS_PER_SM // threads,
+               MAX_BLOCKS_PER_SM)
+
+
+def launch_config(n: int, n_sph: int, n_quad: int, sms: int = H100_SMS, group=None,
+                  tiles: bool = False) -> tuple[int, int, int, int]:
+    """(G, threads a block, cap_s, cap_q) of a launch over n rays and the
+    live records [0, n_sph) and [0, n_quad).
+
+    G: the smallest power of two that gives the grid n·G/32 warps ≥
+    ``MIN_WARPS_PER_SM`` on each of ``sms`` SMs, capped so that a lane still
+    tests ``MIN_RECORDS_PER_LANE`` records (``group`` forces it: tests and
+    tools only). Staging: the whole live table once per block where it fits
+    in a block's shared memory, else tiles of ``TILE_BYTES`` split evenly
+    between the families (``tiles`` forces them). Threads: the smallest
+    block from 256 threads whose resident blocks (``blocks_per_sm``) fill
+    an SM's ``MAX_THREADS_PER_SM``, so that a full grid keeps 32 warps on
+    each SM; then, while the grid has fewer blocks than ``sms``, half that
+    block, down to ``MIN_THREADS``, as long as the smaller blocks still fit
+    on the card at once (one wave)."""
+    live = n_sph + n_quad
+    g_cap = 1
+    while g_cap < MAX_GROUP and live >= 2 * g_cap * MIN_RECORDS_PER_LANE:
+        g_cap *= 2
+    g = 1
+    while g < g_cap and n * g < MIN_WARPS_PER_SM * 32 * sms:
+        g *= 2
+    if group is not None:
+        if group not in (1, 2, 4, 8, 16, 32):
+            raise ValueError(f"group must be a power of two up to {MAX_GROUP}, got {group}")
+        g = group
+    if not tiles and smem_bytes(n_sph, n_quad) <= build.MAX_SMEM_BYTES:
+        cap_s, cap_q = n_sph, n_quad
+    else:
+        cap_s = min(n_sph, TILE_BYTES // 2 // SPH_BYTES)
+        cap_q = min(n_quad, TILE_BYTES // 2 // QUAD_BYTES)
+    smem = smem_bytes(cap_s, cap_q)
+    threads = next((t for t in (256, 512) if blocks_per_sm(t, smem) * t >= MAX_THREADS_PER_SM),
+                   1024)
+
+    def blocks(t):
+        return -(-n * g // t)
+
+    while (threads > MIN_THREADS and blocks(threads) < sms
+           and blocks(threads // 2) <= sms * blocks_per_sm(threads // 2, smem)):
+        threads //= 2
+    return g, threads, cap_s, cap_q
+
+
 # ---------------------------------------------------------------------------
 # Plain version (PyTorch, [N, TILE_P] record tiles)
 # ---------------------------------------------------------------------------
 
 
-def _sphere_tile(ray, s):
-    """[N, TILE_P] accepted roots of one sphere tile (``_sphere_pass``)."""
-    ox, oy, oz, dx, dy, dz, tm, t0, t1, a, inv_a = ray
+def _ray(o, d, time, t_min, t_max):
+    """The ray columns [N, 1] of a sweep, with a = d·d and 1/a."""
+    cols = [o[:, 0], o[:, 1], o[:, 2], d[:, 0], d[:, 1], d[:, 2], time, t_min, t_max]
+    ox, oy, oz, dx, dy, dz, tm, t0, t1 = (c[:, None] for c in cols)
+    a = dx * dx + dy * dy + dz * dz
+    return ox, oy, oz, dx, dy, dz, tm, t0, t1, a, 1.0 / a
+
+
+def _sphere_disc(ray, s):
+    """(h, disc) [N, TILE_P] of one sphere tile: the test up to its
+    discriminant."""
+    ox, oy, oz, dx, dy, dz, tm, _, _, a, _ = ray
     cx = s[0] + tm * s[3]
     cy = s[1] + tm * s[4]
     cz = s[2] + tm * s[5]
     ocx, ocy, ocz = cx - ox, cy - oy, cz - oz
     h = dx * ocx + dy * ocy + dz * ocz
     cc = ocx * ocx + ocy * ocy + ocz * ocz - s[6]
-    disc = h * h - a * cc
+    return h, h * h - a * cc
+
+
+def _sphere_tile(ray, s):
+    """[N, TILE_P] accepted roots of one sphere tile (``_sphere_pass``)."""
+    t0, t1, inv_a = ray[7], ray[8], ray[10]
+    h, disc = _sphere_disc(ray, s)
     has = disc >= 0.0
     sq = torch.sqrt(torch.where(has, disc, 0.0))
     r0 = (h - sq) * inv_a
@@ -118,14 +240,13 @@ def _quad_tile(ray, q):
     return torch.where(hit, t, BIG)
 
 
-def closest_hit_plain(o, d, time, t_min, t_max, sph, qd):
+def closest_hit_plain(o, d, time, t_min, t_max, sph, qd, n_sph=None, n_quad=None):
     """Plain PyTorch version of the kernel, over [N, TILE_P] record tiles in
-    the Pallas kernel's order of operations. Returns (best_t, code)."""
+    the Pallas kernel's order of operations, of the records [0, n_sph) and
+    [0, n_quad) (all of them by default). Returns (best_t, code)."""
+    sph, qd = sph[:, :n_sph], qd[:, :n_quad]
     n = o.shape[0]
-    cols = [o[:, 0], o[:, 1], o[:, 2], d[:, 0], d[:, 1], d[:, 2], time, t_min, t_max]
-    ox, oy, oz, dx, dy, dz, tm, t0, t1 = (c[:, None] for c in cols)
-    a = dx * dx + dy * dy + dz * dz
-    ray = (ox, oy, oz, dx, dy, dz, tm, t0, t1, a, 1.0 / a)
+    ray = _ray(o, d, time, t_min, t_max)
     best_t = torch.full((n,), BIG, dtype=torch.float32, device=o.device)
     code = torch.full((n,), -1, dtype=torch.int32, device=o.device)
     for rows, tile_fn, fam in ((sph, _sphere_tile, CODE_SPHERE), (qd, _quad_tile, CODE_QUAD)):
@@ -138,20 +259,43 @@ def closest_hit_plain(o, d, time, t_min, t_max, sph, qd):
     return best_t, code
 
 
+def record_test_ops(o, d, time, t_min, t_max, sph, n_sph: int, n_quad: int) -> int:
+    """f32 operations of a launch's record tests on these rays: per ray,
+    ``OPS_QUAD`` for each of the ``n_quad`` live quads and, for each of the
+    ``n_sph`` live spheres, ``OPS_SPHERE_MISS``, or ``OPS_SPHERE`` where the
+    plain version's discriminant is ≥ 0 (the kernel's, bit for bit)."""
+    ray = _ray(o, d, time, t_min, t_max)
+    roots = 0
+    for off in range(0, n_sph, TILE_P):
+        _, disc = _sphere_disc(ray, sph[:, None, off:min(off + TILE_P, n_sph)])
+        roots += int((disc >= 0.0).sum())
+    return (o.shape[0] * (n_sph * OPS_SPHERE_MISS + n_quad * OPS_QUAD)
+            + roots * (OPS_SPHERE - OPS_SPHERE_MISS))
+
+
 # ---------------------------------------------------------------------------
 # Wrapper
 # ---------------------------------------------------------------------------
 
 
-def closest_hit(o, d, time, t_min, t_max, sph, qd):
+def closest_hit(o, d, time, t_min, t_max, sph, qd, n_sph=None, n_quad=None, *,
+                group=None, tiles=False):
     """Nearest sphere/quad hit of each ray: (best_t [N] f32, code [N] int32).
 
     ``o``, ``d`` [N, 3]; ``time``, ``t_min``, ``t_max`` [N]; ``sph``, ``qd``
-    from ``pack_scene``. On a CPU tensor this runs the plain version; on a
-    CUDA tensor it launches the Hopper kernel (built at first use) or
-    raises. Any N: the kernel masks the tail."""
+    from ``pack_scene``; ``n_sph``, ``n_quad`` the live extents
+    (``live_extents``; the padded widths by default). On a CPU tensor this
+    runs the plain version; on a CUDA tensor it launches the Hopper kernel
+    (built at first use) or raises. Any N: the kernel masks the tail.
+    ``group`` and ``tiles`` force the launch's lane group and tiled staging
+    (``launch_config``); only tests and tools pass them."""
     global LAUNCHES
     n = o.shape[0]
+    n_sph = sph.shape[-1] if n_sph is None else int(n_sph)
+    n_quad = qd.shape[-1] if n_quad is None else int(n_quad)
+    if not (0 <= n_sph <= sph.shape[-1] and 0 <= n_quad <= qd.shape[-1]):
+        raise ValueError(f"live extents ({n_sph}, {n_quad}) outside the rows "
+                         f"({sph.shape[-1]}, {qd.shape[-1]})")
     for name, t, shape in (("o", o, (n, 3)), ("d", d, (n, 3)), ("time", time, (n,)),
                            ("t_min", t_min, (n,)), ("t_max", t_max, (n,)),
                            ("sph", sph, (len(SPH_KEYS), sph.shape[-1])),
@@ -162,14 +306,15 @@ def closest_hit(o, d, time, t_min, t_max, sph, qd):
         if t.device != o.device:
             raise ValueError(f"{name} is on {t.device}, o on {o.device}")
     if o.device.type == "cpu":
-        return closest_hit_plain(o, d, time, t_min, t_max, sph, qd)
+        return closest_hit_plain(o, d, time, t_min, t_max, sph, qd, n_sph, n_quad)
     if o.device.type != "cuda":
         raise ValueError(f"unsupported device {o.device}")
-    from raytrace2_tpu_torch.ops.kernels import build
-
+    config = launch_config(n, n_sph, n_quad, build.sm_count(o.device), group, tiles)
     best_t = torch.empty((n,), dtype=torch.float32, device=o.device)
     code = torch.empty((n,), dtype=torch.int32, device=o.device)
     build.launch_intersect_kernel(*(x.contiguous() for x in (o, d, time, t_min, t_max,
-                                                             sph, qd)), best_t, code)
+                                                             sph, qd)), best_t, code,
+                                  n_sph=n_sph, n_quad=n_quad, config=config,
+                                  smem=smem_bytes(*config[2:]))
     LAUNCHES += 1
     return best_t, code

@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from raytrace2_tpu_torch.ops import integrator
+from raytrace2_tpu_torch.ops.kernels import intersect_kernel as pk
 from raytrace2_tpu_torch.scene import schema
 
 # Backends of the JAX package that the port does not have yet, and the
@@ -146,6 +147,8 @@ class Renderer:
         # host scene, so that no batch reads the device for them.
         features["mat_types"] = frozenset(
             float(t) for t in np.unique(np.asarray(self.scene.materials.mtype)))
+        # B5's live extents, for the same reason.
+        features["pallas_extents"] = pk.live_extents(self.scene)
         self._features = features
         self.scene = schema.to_device(self.scene, self.device)
         if features["use_megakernel"]:

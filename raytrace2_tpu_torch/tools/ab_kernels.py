@@ -1,6 +1,7 @@
 """Time the port's kernels from two package trees in turns, on one card.
 
-    python -m raytrace2_tpu_torch.tools.ab_kernels ROOT_A ROOT_B [--what grad fwd v4 wf v3]
+    python -m raytrace2_tpu_torch.tools.ab_kernels ROOT_A ROOT_B
+        [--what grad fwd v4 wf v3 b5 pallas]
         [--cli-spp 64]
 
 Each ROOT is a directory that holds a ``raytrace2_tpu_torch`` package: a
@@ -33,7 +34,19 @@ one call on one card. One JSON line per run:
 * ``v3``: B4 alone, with its ptxas register lines: one pass of Cornell
   600² camera rays, depth 50, ``min_alive`` 8 (20 passes), the whole
   two-pass trace of those rays with compaction (``trace_megakernel``,
-  10 runs), and one pass of book-2 600² camera rays (5 passes).
+  10 runs), and one pass of book-2 600² camera rays (5 passes);
+* ``b5``: the fused closest hit B5 alone, at the launches of the
+  ``pallas`` route that ``chip_smoke.py`` holds against the plain version
+  (``b5_launches``): the first and fourth launches of the first
+  16,384-ray chunk of book 2 600², and the first of a 65,536-ray Cornell
+  chunk, and on each the first launch after each of the route's two
+  compactions (2,048 and 256 rays; 8,192 and 1,024) (20 launches each),
+  with sums of its outputs (equal in both trees:
+  the kernel is bitwise its plain version) and its ptxas lines;
+* ``pallas``: the non-kernel main paths through B5, ``app.main --backend
+  pallas`` at 600², depth 50: Cornell at 4 spp (2 runs) and book 2 at
+  1 spp (1 run), Mpaths/s, wall seconds, B5 launches and mean radiance,
+  after a 64² Cornell warm-up.
 
 Where a tree's wrappers take the scene's material types (``mat_types``),
 they are read once before the timed launches, as the renderer does. Kernel
@@ -236,6 +249,97 @@ def _b4_inputs(path, dev, size=600):
     return rays, seed_lane, mk.pack_buffer(ds, sizes), ds.background.to(torch.float32), kw
 
 
+def b5_launches(path, dev, size, chunk, picks):
+    """(device scene, [(pick, args, kwargs)], {rays: launches}): the
+    arguments of B5's launches ``picks`` while the ``pallas`` route
+    (``Renderer(backend="pallas")``'s scene and features) traces the first
+    ``chunk`` camera rays of a size² image at sample 0 through its own
+    bounce loop, B5's wrapper wrapped to keep what it is given, and how many
+    launches the chunk made at each ray count. A pick is a launch number,
+    or ``"c<k>"``: the first launch after the k-th compaction (the k-th
+    change of the ray count). It calls only what every tree of the port
+    has, so that both trees of a run capture their own."""
+    import torch
+
+    from raytrace2_tpu_torch.ops import camera, integrator, rng
+    from raytrace2_tpu_torch.ops.kernels import intersect_kernel as pk
+    from raytrace2_tpu_torch.render import Renderer
+    from raytrace2_tpu_torch.scene import loader
+
+    host, _ = loader.load_scene(path)
+    r = Renderer(host, size, size, backend="pallas", device=dev)
+    pix = torch.arange(chunk, dtype=torch.int32, device=dev)
+    keys = rng.pixel_sample_key(0, pix, 0)
+    o, d, tm = camera.generate_rays(r.scene.camera, size, size, 0, 1, keys, pixel_ids=pix)
+    seen, widths, orig = {}, {}, pk.closest_hit
+
+    def keep(*a, **k):
+        i, n = sum(widths.values()), a[0].shape[0]
+        if widths and n not in widths:
+            i = f"c{len(widths)}"
+        widths[n] = widths.get(n, 0) + 1
+        if i in picks:
+            seen[i] = (tuple(x.clone() for x in a), dict(k))
+        return orig(*a, **k)
+
+    pk.closest_hit = keep
+    try:
+        integrator.trace_rays(r.scene, r._features, o, d, tm, keys, 50)
+    finally:
+        pk.closest_hit = orig
+    if r.device.type == "cuda":
+        torch.cuda.synchronize()
+    return r.scene, [(i, *seen[i]) for i in picks], widths
+
+
+# B5's launches at the pallas route's chunk sizes (render.py CHUNK_SIZE,
+# CHUNK_SIZE_LARGE above 1,024 records) and after each of its two
+# compactions (integrator.trace_rays, ratio 8): (scene, chunk, picks).
+B5_CASES = (("book2", 16384, (0, 3, "c1", "c2")), ("cornell", 65536, (0, "c1", "c2")))
+
+
+def _run_b5(paths, dev):
+    from raytrace2_tpu_torch.ops.kernels import intersect_kernel as pk
+
+    out = {}
+    for name, chunk, picks in B5_CASES:
+        _, launches, _ = b5_launches(paths[name], dev, 600, chunk, picks)
+        for i, a, k in launches:
+            (t, c), out[f"b5_{name}_{i}_ms"] = _events(lambda: pk.closest_hit(*a, **k), 20)
+            out[f"b5_{name}_{i}_sums"] = [float(t[c >= 0].double().sum()),
+                                          int(c.long().sum())]
+    out["ptxas"] = _ptxas("intersect_kernel")
+    return out
+
+
+def _run_pallas(paths, dev):
+    from raytrace2_tpu_torch import app
+    from raytrace2_tpu_torch.ops.kernels import intersect_kernel as pk
+
+    work = os.path.dirname(paths["cornell"])
+    out = {}
+    for name, spp, reps, size in (("cornell", 1, 1, 64), ("cornell", 4, 2, 600),
+                                  ("book2", 1, 1, 600)):
+        metrics = os.path.join(work, f"{name}_pallas.jsonl")
+        runs = []
+        for _ in range(reps):
+            pk.LAUNCHES = 0
+            with contextlib.redirect_stdout(io.StringIO()):
+                rc = app.main([paths[name], os.path.join(work, f"{name}_pallas.png"),
+                               "--samples", str(spp), "--depth", "50", "--width", str(size),
+                               "--height", str(size), "--device", "cuda", "--backend",
+                               "pallas", "--metrics", metrics, "--quiet"])
+            if rc:
+                raise RuntimeError(f"app.main {name} --backend pallas exited {rc}")
+            with open(metrics) as f:
+                done = json.loads(f.read().splitlines()[-1])
+            runs.append({k: done[k] for k in ("mpaths_per_s", "elapsed_s", "mean_linear")}
+                        | {"b5_launches": pk.LAUNCHES})
+        if size == 600:
+            out[f"pallas_{name}_{spp}spp"] = runs
+    return out
+
+
 def _run_v3(paths, dev):
     from raytrace2_tpu_torch.ops.kernels import megakernel_v3 as mk3
 
@@ -302,7 +406,7 @@ def _child(root, what, cli_spp):
         build.build_all(("wavefront_step", "intersect_kernel"))
     dev = torch.device("cuda")
     run = {"grad": _run_grad, "fwd": lambda p, d: _run_fwd(p, d, cli_spp), "v4": _run_v4,
-           "wf": _run_wf, "v3": _run_v3}[what]
+           "wf": _run_wf, "v3": _run_v3, "b5": _run_b5, "pallas": _run_pallas}[what]
     with tempfile.TemporaryDirectory() as work:
         paths = _scenes(work)
         out = {"root": root, "what": what}
@@ -314,7 +418,7 @@ def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("roots", nargs=2, help="two directories holding a raytrace2_tpu_torch")
     p.add_argument("--what", nargs="+", default=["grad", "fwd"],
-                   choices=["grad", "fwd", "v4", "wf", "v3"])
+                   choices=["grad", "fwd", "v4", "wf", "v3", "b5", "pallas"])
     p.add_argument("--cli-spp", type=int, default=64, help="samples of each CLI render")
     p.add_argument("--child", action="store_true", help=argparse.SUPPRESS)
     args = p.parse_args(argv)

@@ -1,8 +1,8 @@
-"""The card's measured ceilings, and where the v4 render (B1) and the v3
-pass (B4) spend their time.
+"""The card's measured ceilings, and where the v4 render (B1), the v3
+pass (B4) and the fused closest hit (B5) spend their time.
 
     python -m raytrace2_tpu_torch.tools.roofline --mode ceilings [--reps 5]
-    python -m raytrace2_tpu_torch.tools.roofline --mode split [--reps 3]
+    python -m raytrace2_tpu_torch.tools.roofline --mode split [--reps 3] [--kernels v4 v3 b5]
 
 Port of ``tools/roofline.py`` of the JAX package, whose ``--mode ceilings``
 measures the chip's vector ceiling with a dependent FMA chain and its
@@ -29,8 +29,16 @@ from its last bounce to its warp's last, over the warp's span. The launches
 are the main paths': v4 at Cornell 600², depth 50, 6 spp (the CLI's batch);
 v4 forced on book 2 600², depth 50, 2 spp (the block-tiled layout, wave
 regeneration at 0.5); one B4 pass of Cornell 600² camera rays, depth 50,
-``min_alive`` 8 (the first of ``render_sample``'s two passes). One JSON line
-each, the card's name and power limit first.
+``min_alive`` 8 (the first of ``render_sample``'s two passes). For B5
+(``csrc/intersect_profile.cu``) the phases are staging with its barriers,
+the ray load, sphere tests, quad tests, the lane group's reduction and the
+store, at the ``pallas`` route's launches that ``chip_smoke.py`` holds
+against the plain version (``ab_kernels.B5_CASES``): the first and fourth
+of the first 16,384-ray chunk of book 2 600², the first of a 65,536-ray
+Cornell chunk, and on each the first after each of its two compactions;
+with the resident warps per SM (``intersect_kernel.blocks_per_sm``) and
+the records tested per ray against the live ones. One JSON line each, the card's name
+and power limit first.
 
 Needs a CUDA device; raises without one.
 """
@@ -299,27 +307,140 @@ def split_v3(inp, size, reps) -> dict:
             **_occupancy(inp, "megakernel_v3"), **shares(prof.cpu().tolist())}
 
 
-def split(reps: int = 3) -> dict:
-    """The three main-path launches' splits, with ptxas's usage of the
-    production and profiling instances."""
+# B5's phases in PhaseClock's slots (csrc/intersect_profile.cu).
+B5_SLOTS = {"stage": "stage", "load": "ray_load", "slab": "sphere", "record": "quad",
+            "wait": "reduce", "store": "store"}
+
+
+def b5_shares(counters) -> dict:
+    """Shares of B5's profiling counters: each phase's share of the summed
+    per-thread cycles, ``other`` the rest (loop control, the clock), and
+    the idle-lane share."""
+    n = len(PHASES)
+    cyc = dict(zip(PHASES, (int(x) for x in counters[:n])))
+    idle, span = (int(x) for x in counters[n + 4:n + 6])
+    total = max(cyc["total"], 1)
+    out = {f"{name}_share": cyc[slot] / total for slot, name in B5_SLOTS.items()}
+    out["other_share"] = 1.0 - sum(cyc[slot] for slot in B5_SLOTS) / total
+    out["idle_lane_share"] = idle / max(span, 1)
+    out["cycles_total"] = cyc["total"]
+    return out
+
+
+def split_b5_launch(args, kwargs, extents, reps) -> dict:
+    """One production B5 launch and its profiled instance on the same
+    arguments and launch: the time of each, the clock's shares, the launch's
+    shape on the card (lane group, threads a block, staging, resident warps
+    per SM) and the records each ray tests against the live ones."""
+    import torch
+
+    from raytrace2_tpu_torch.ops.kernels import build
+    from raytrace2_tpu_torch.ops.kernels import intersect_kernel as pk
+
+    o, d, tm, t_min, t_max, sph, qd = (x.contiguous() for x in args)
+    dev, n = o.device, o.shape[0]
+    # The pallas route passes the live extents by keyword.
+    n_sph, n_quad = kwargs.get("n_sph", sph.shape[1]), kwargs.get("n_quad", qd.shape[1])
+    prod, ms = queued_events(lambda: pk.closest_hit(*args, **kwargs), reps)
+    sms = build.sm_count(dev)
+    config = pk.launch_config(n, n_sph, n_quad, sms)
+    group, threads, cap_s, cap_q = config
+    smem = pk.smem_bytes(cap_s, cap_q)
+    lib = build.load("intersect_profile")
+    stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def profiled(prof):
+        t = torch.empty(n, dtype=torch.float32, device=dev)
+        code = torch.empty(n, dtype=torch.int32, device=dev)
+        err = lib.intersect_profile_launch(
+            dev.index or 0, *(x.data_ptr() for x in (o, d, tm, t_min, t_max, sph)),
+            sph.shape[1], n_sph, qd.data_ptr(), qd.shape[1], n_quad, n, *config, smem,
+            t.data_ptr(), code.data_ptr(), prof.data_ptr(), stream)
+        if err:
+            raise RuntimeError(f"intersect_profile_launch failed: "
+                               f"{lib.intersect_kernel_error_string(err).decode()}")
+        return t, code
+
+    def counters():
+        return torch.zeros(lib.intersect_profile_counters(), dtype=torch.int64, device=dev)
+
+    _, prof_ms = queued_events(lambda: profiled(counters()), reps)
+    prof = counters()
+    t, code = profiled(prof)
+    torch.cuda.synchronize()
+    if not (torch.equal(t.view(torch.int32), prod[0].view(torch.int32))
+            and torch.equal(code, prod[1])):
+        raise RuntimeError("the profiled B5 instance's hits differ from the production one's")
+    per_sm = pk.blocks_per_sm(threads, smem)
+    grid_warps = -(-n * group // threads) * threads // 32
+    return {"ms": ms, "profiled_ms": prof_ms, "rays": n, "hits": int((code >= 0).sum()),
+            "group": group, "threads_per_block": threads,
+            "staging": "whole" if (cap_s, cap_q) == (n_sph, n_quad) else "tiles",
+            "smem_bytes": smem, "blocks_per_sm": per_sm,
+            "threads_per_sm": per_sm * threads,
+            "resident_warps_per_sm": min(per_sm * threads // 32, grid_warps / sms),
+            "records_tested_per_ray": n_sph + n_quad, "records_per_lane": -(-(n_sph + n_quad)
+                                                                              // group),
+            "padded_records": sph.shape[1] + qd.shape[1], "live_records": sum(extents),
+            **b5_shares(prof.cpu().tolist())}
+
+
+def b5_launch_name(pick) -> str:
+    """The words for a pick of ``ab_kernels.b5_launches``."""
+    if isinstance(pick, str):
+        return f"the first launch after compaction {pick[1:]}"
+    return f"launch {pick}"
+
+
+def split_b5(paths, dev, reps) -> dict:
+    """B5's split at each of its main-path launches (``ab_kernels.B5_CASES``)."""
+    from raytrace2_tpu_torch.ops.kernels import intersect_kernel as pk
+    from raytrace2_tpu_torch.scene import loader
+    from raytrace2_tpu_torch.tools import ab_kernels
+
+    out = {}
+    for name, chunk, picks in ab_kernels.B5_CASES:
+        extents = pk.live_extents(loader.load_scene(paths[name])[0])
+        _, launches, _ = ab_kernels.b5_launches(paths[name], dev, 600, chunk, picks)
+        for i, a, k in launches:
+            out[f"b5_{name}_{i}"] = dict(
+                shape=f"{name} 600x600, the pallas route's {chunk}-ray chunk, "
+                      f"{b5_launch_name(i)}", **split_b5_launch(a, k, extents, reps))
+    return out
+
+
+SPLIT_KERNELS = ("v4", "v3", "b5")
+
+
+def split(reps: int = 3, kernels=SPLIT_KERNELS) -> dict:
+    """The main-path launches' splits of ``kernels``, with ptxas's usage of
+    the production and profiling instances."""
     from raytrace2_tpu_torch.ops.kernels import build
 
     dev = require_cuda()
     out = {}
     with tempfile.TemporaryDirectory() as work:
-        cornell = _Inputs(_scene(work, "cornell"), dev)
-        book2 = _Inputs(_scene(work, "book2"), dev)
-        out["v4_cornell"] = dict(shape="cornell 600x600, depth 50, 6 spp, linear",
-                                 **split_v4(cornell, 600, 6, 2, False, 1.0, reps))
-        out["v4_book2_block"] = dict(
-            shape="book2 600x600, depth 50, 2 spp, block layout, wave_frac 0.5",
-            **split_v4(book2, 600, 2, 1, True, 0.5, reps))
-        out["v3_cornell_pass"] = dict(shape="cornell 600x600, depth 50, one pass, min_alive 8",
-                                      **split_v3(cornell, 600, reps))
+        paths = {name: _scene(work, name) for name in ("cornell", "book2")}
+        if "v4" in kernels or "v3" in kernels:
+            cornell = _Inputs(paths["cornell"], dev)
+        if "v4" in kernels:
+            book2 = _Inputs(paths["book2"], dev)
+            out["v4_cornell"] = dict(shape="cornell 600x600, depth 50, 6 spp, linear",
+                                     **split_v4(cornell, 600, 6, 2, False, 1.0, reps))
+            out["v4_book2_block"] = dict(
+                shape="book2 600x600, depth 50, 2 spp, block layout, wave_frac 0.5",
+                **split_v4(book2, 600, 2, 1, True, 0.5, reps))
+        if "v3" in kernels:
+            out["v3_cornell_pass"] = dict(
+                shape="cornell 600x600, depth 50, one pass, min_alive 8",
+                **split_v3(cornell, 600, reps))
+        if "b5" in kernels:
+            out.update(split_b5(paths, dev, reps))
     out["ptxas"] = {k: [(u["kernel"].split("(")[0], u["registers"], u["stack"],
                          u["spill_stores"]) for u in build.ptxas_usage(k)]
                     for k in sorted(build.BUILD_LOGS)
-                    if k.startswith(("megakernel_v4", "megakernel_v3", "megakernel_profile"))}
+                    if k.startswith(("megakernel_v4", "megakernel_v3", "megakernel_profile",
+                                     "intersect_kernel", "intersect_profile"))}
     return out
 
 
@@ -327,13 +448,15 @@ def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--mode", choices=("ceilings", "split"), required=True)
     p.add_argument("--reps", type=int, default=5)
+    p.add_argument("--kernels", nargs="+", choices=SPLIT_KERNELS, default=list(SPLIT_KERNELS),
+                   help="the kernels --mode split profiles")
     args = p.parse_args(argv)
     require_cuda()
     print(card_line(), flush=True)
     if args.mode == "ceilings":
         print(json.dumps(ceilings(args.reps)), flush=True)
     else:
-        for name, row in split(args.reps).items():
+        for name, row in split(args.reps, args.kernels).items():
             print(json.dumps({name: row}), flush=True)
     return 0
 

@@ -20,7 +20,7 @@ from raytrace2_tpu_torch.ops.kernels import megakernel_v3 as mk3
 from raytrace2_tpu_torch.ops.kernels import wavefront as wf
 from raytrace2_tpu_torch.render import Renderer
 from raytrace2_tpu_torch.scene import loader, schema
-from test_torch_scenes import write_scene
+from test_torch_scenes import b5_tie_rays, write_scene
 
 pytestmark = pytest.mark.cuda
 
@@ -227,6 +227,37 @@ def test_intersect_kernel_matches_plain(tmp_path, cuda, name, size):
     assert int((code >= 0).sum()) > 0
     assert torch.equal(code, code_p)
     assert torch.equal(t.view(torch.int32), t_p.view(torch.int32))
+
+
+@pytest.mark.parametrize("name", ["book2", "cornell", "b5_ties", "large"])
+def test_intersect_kernel_every_group_bitwise(tmp_path, cuda, name):
+    """B5 over the live extents against the plain version over the padded
+    rows, t bitwise and codes equal: at every lane group G (forced), with
+    the whole live table staged and in tiles, at N = 1, 33 and 16,385; on
+    the tie scene its exact-t tie rays come first; the >4,096-record scene
+    is staged in tiles either way."""
+    host, _ = loader.load_scene(write_scene(tmp_path, name))
+    scene = schema.to_device(host, cuda)
+    tables = pk.pack_scene(scene.spheres, scene.quads)
+    n_sph, n_quad = pk.live_extents(host)
+    rays = _b5_rays(scene, 91, cuda)  # 16,562 rays
+    if name == "b5_ties":
+        tie = [torch.from_numpy(x).to(cuda) for x in b5_tie_rays(56)]
+        rays = tuple(torch.cat([a, b])[:rays[0].shape[0]] for a, b in zip(tie, rays))
+    t_p, code_p = pk.closest_hit_plain(*rays, *tables)
+    assert int((code_p >= 0).sum()) > 1000
+    for n in (1, 33, 16385):
+        part = tuple(x[:n] for x in rays)
+        for group in (1, 2, 4, 8, 16, 32):
+            for tiles in (False, True):
+                launches = pk.LAUNCHES
+                t, code = pk.closest_hit(*part, *tables, n_sph=n_sph, n_quad=n_quad,
+                                         group=group, tiles=tiles)
+                torch.cuda.synchronize()
+                assert pk.LAUNCHES == launches + 1
+                assert torch.equal(code, code_p[:n]), (n, group, tiles)
+                assert torch.equal(t.view(torch.int32), t_p[:n].view(torch.int32)), \
+                    (n, group, tiles)
 
 
 @pytest.mark.parametrize("min_alive", [0, mk3.TILE_R // 16])

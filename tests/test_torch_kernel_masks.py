@@ -26,8 +26,9 @@ from raytrace2_tpu_torch.scene import loader, schema
 from raytrace2_tpu_torch.tools import profile_grad, profile_wavefront, roofline
 from test_torch_scenes import SCENES, write_scene
 
-# Scenes on the kernel path (an ellipsoid scene takes the non-kernel path).
-KERNEL_SCENES = sorted(n for n in SCENES if n != "ellipsoid")
+# Scenes on the kernel path (an ellipsoid scene and one of more than 4,096
+# records take the non-kernel path).
+KERNEL_SCENES = sorted(n for n in SCENES if n not in ("ellipsoid", "large"))
 
 
 def _port(path):

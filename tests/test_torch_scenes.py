@@ -263,6 +263,67 @@ def tie_scene_json() -> dict:
         "primitives": prims}
 
 
+def b5_tie_scene_json() -> dict:
+    """Exact-t ties for the fused closest hit B5: two identical spheres
+    (centre (0, 0, -5), radius 1), a quad in the plane z = -4 that touches
+    them where the z axis meets them, and two identical quads in that plane
+    around x = 10; a ray down the z axis from (0, 0, z0) meets both spheres
+    and the touching quad at t = 4 + z0, and one from (10, 0, z0) the two
+    quads, each computed exactly (``b5_tie_rays``). 40 seeded spheres and
+    30 seeded quads around them make the sweep longer than a lane group."""
+    rs = np.random.RandomState(29)
+    sphere = {"type": "sphere", "center": [0, 0, -5], "radius": 1.0, "material": 0}
+    pair = {"type": "quad", "q": [9, -1, -4], "u": [2, 0, 0], "v": [0, 2, 0], "material": 1}
+    prims = [sphere, sphere,
+             {"type": "quad", "q": [-0.5, -0.5, -4], "u": [1, 0, 0], "v": [0, 1, 0],
+              "material": 1}, pair, pair]
+    prims += [{"type": "sphere", "center": [float(x) for x in rs.uniform(-20, 20, 2)] + [-30.0],
+               "radius": float(rs.uniform(0.5, 2.0)), "material": 0} for _ in range(40)]
+    prims += [{"type": "quad", "q": [float(x) for x in rs.uniform(-20, 20, 2)] + [-40.0],
+               "u": [float(rs.uniform(1, 4)), 0, 0], "v": [0, float(rs.uniform(1, 4)), 0],
+               "material": 1} for _ in range(30)]
+    return {
+        "background_color": [0.2, 0.2, 0.3],
+        "camera": {"fov": 70, "center": [0, 0, 10], "look_at": [0, 0, -10]},
+        "materials": [{"type": "lambertian", "albedo": [0.6, 0.5, 0.4]},
+                      {"type": "diffuse_light", "albedo": [4, 4, 4]}],
+        "primitives": prims}
+
+
+def b5_tie_rays(n: int = 64) -> tuple:
+    """(o, d, time, t_min, t_max) numpy f32 of ``n`` rays along -z that meet
+    ``b5_tie_scene_json``'s ties: from (0, 0, z0) and (10, 0, z0), z0 in
+    {0, 0.5, ..., }, with |d| a power of two, so that every t is exact."""
+    z0 = 0.5 * (np.arange(n) // 2)
+    o = np.stack([10.0 * (np.arange(n) % 2), np.zeros(n), z0], -1)
+    d = np.zeros((n, 3))
+    d[:, 2] = -(2.0 ** (np.arange(n) % 3))
+    f32 = lambda a: np.asarray(a, np.float32)  # noqa: E731
+    return (f32(o), f32(d), f32(np.zeros(n)), f32(np.full(n, 1e-3)), f32(np.full(n, 3e38)))
+
+
+def large_scene_json() -> dict:
+    """4,201 records, above the kernel path's 4,096 (the non-kernel path's
+    scenes): 3,500 seeded spheres, 700 seeded AA boxes and a light quad. B5's
+    live table (3,500 sphere and 4,201 quad records) does not fit a block's
+    shared memory, so B5 stages it in tiles."""
+    rs = np.random.RandomState(31)
+    prims = [{"type": "sphere", "center": [float(x) for x in rs.uniform(-30, 30, 3)],
+              "radius": float(rs.uniform(0.1, 0.4)), "material": 0} for _ in range(3500)]
+    for _ in range(700):
+        c, e = rs.uniform(-30, 30, 3), rs.uniform(0.1, 0.5, 3)
+        prims.append({"type": "box", "min_point": [float(x) for x in c - e],
+                      "max_point": [float(x) for x in c + e], "material": 0})
+    prims.append({"type": "quad", "q": [-5, 32, -5], "u": [10, 0, 0], "v": [0, 0, 10],
+                  "material": 1})
+    return {
+        "background_color": [0.3, 0.35, 0.45],
+        "camera": {"fov": 60, "center": [0, 4, 70], "look_at": [0, 0, 0]},
+        "materials": [{"type": "lambertian", "albedo": [0.6, 0.5, 0.4]},
+                      {"type": "diffuse_light", "albedo": [5, 5, 5]}],
+        "primitives": prims}
+
+
 def ellipsoid_scene_json() -> dict:
     """The scene of tests/test_ellipsoid.py (a sphere under a non-uniform
     scale and a rotation, lit by a quad under a sky) with a ground quad, so
@@ -298,6 +359,8 @@ SCENES = {
     "grid": grid_scene_json,
     "noise_spheres": noise_spheres_json,
     "ties": tie_scene_json,
+    "b5_ties": b5_tie_scene_json,
+    "large": large_scene_json,
     **{f"grad_{k}": (lambda v=v: v) for k, v in GRAD_SCENES.items()},
 }
 
