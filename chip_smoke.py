@@ -100,9 +100,27 @@ Phases, each printed on its own line:
      (tools/roofline.py --mode split: v4 on Cornell 600x600 6 spp and on
      book 2's block layout, one B4 Cornell pass, B5 at phase 10's
      launches; idle-lane shares, B5's resident warps per SM);
- 17. one JSON line describing each kernel, with the options it carries
+ 17. B1's last option, the threaded-BVH sweep (RT2_SWEEP_MODE=bvh), in the
+     bvh instances of v4, the wavefront step, B4 and B3 on book 2: each
+     against its plain version in "bvh" mode (v4 on both layouts, the
+     step's K=2 and K=16 launches on captured states and one B4 pass
+     bitwise, B3 at 64x64 4 spp within 1e-3 with the same replayed
+     bounces), the BVH walk's slab and record tests per bounce against the
+     cluster skip's and the bound from them, each timed in turns with
+     "hier"; the "bvh" image at 16 spp against the "hier" one (at most
+     0.01 % of pixels: exact ties); the main paths in "bvh" mode, launch
+     counts set to 0 before each and read after: v4 forced through
+     render_progressive, the book-2 CLI (in turns with "hier"), the
+     Renderer, value_and_grad_scene, B4 through render_sample;
+ 18. the port's bench, python -m raytrace2_tpu_torch.tools.bench and
+     ... --grad as subprocesses: each last line one JSON object with the
+     JAX bench's keys and metric names;
+ 19. resume through app.main --checkpoint on the kernel path: Cornell
+     600x600, 4 + 4 samples bitwise the one-shot 8;
+ 20. one JSON line describing each kernel, with the options it carries
      (status, design), its built instances (registers, stack, spills,
-     feature masks; threads per SM of the main paths' v4 and B4 instances),
+     feature masks, the bvh instances; threads per SM of the main paths' v4
+     and B4 instances),
      the splits of phases 15-16, and its bound (f32 operations counted from
      csrc/path_common.cuh, csrc/grad_adjoint.cuh and csrc/intersect_kernel.cu
      for the work this run's data took, or bytes moved, over the card's
@@ -244,6 +262,21 @@ def flat_sweep():
         mk.hier_flags = orig
 
 
+@contextlib.contextmanager
+def sweep_mode(mode):
+    """Inside: megakernel.SWEEP_MODE is ``mode``, as RT2_SWEEP_MODE=``mode``
+    sets it at import: tables packed and build targets chosen inside take
+    that mode's layout and instances."""
+    from raytrace2_tpu_torch.ops.kernels import megakernel as mk
+
+    orig = mk.SWEEP_MODE
+    mk.SWEEP_MODE = mode
+    try:
+        yield
+    finally:
+        mk.SWEEP_MODE = orig
+
+
 def sweep_ops(stats) -> int:
     """f32 operations of the bounces a plain run counted (``stats`` of
     megakernel.make_bounce): each record test by family, each AABB slab
@@ -341,6 +374,12 @@ def main() -> None:
                                               for k in ("cornell", "book2")}),
                 *(build.profile_target(masks[v4][k], masks[v3][k]) for k in ("cornell", "book2")),
                 "intersect_profile", "roofline"]
+    # The bvh instances of book 2's kernels (RT2_SWEEP_MODE=bvh; phase 17).
+    with sweep_mode("bvh"):
+        bvh_targets = [build.step_target(), build.feature_target(v4, masks[v4]["book2"]),
+                       build.feature_target(v3, masks[v3]["book2"]),
+                       build.grad_target(masks[b3]["book2"])]
+    targets += bvh_targets
     t0 = time.perf_counter()
     build.build_all(targets)
     build_s = time.perf_counter() - t0
@@ -959,6 +998,9 @@ def main() -> None:
     b1 = b1_option_phases(dev, card, book2, book2_16)
     splits = split_phase(card, book2, cornell)
     roof = roofline_phase(card, ceil)
+    bvh = bvh_phases(dev, card, work, book2, book2_16, wf_launch, captured, b1)
+    bench = bench_phase(card)
+    resume = resume_phase(card, cornell, work)
     shutil.rmtree(work)
     for name in ("jax", "raytrace2_tpu"):
         check(name not in sys.modules, f"{name} was imported")
@@ -975,7 +1017,11 @@ def main() -> None:
         return [instance(build.target_key(build.feature_target(kernel, m)), m)
                 for m in sorted(set(masks[kernel].values()))]
 
-    # ---- phase 17: the kernels ------------------------------------------------
+    def bvh_instance(i, mask):
+        """The bvh instance phase 2 built: bvh_targets[i] (step, v4, B4, B3)."""
+        return dict(instance(build.target_key(bvh_targets[i]), mask), sweep="bvh")
+
+    # ---- phase 20: the kernels ------------------------------------------------
     main_shape = results[cases[2][0]]
     k2, k16 = wf_launch["k2"], wf_launch["k16"]
     v4b = b1["v4_book2"]
@@ -997,7 +1043,7 @@ def main() -> None:
                                        "wave_frac 0.5 (ms, plain_ms, bound_ms)",
                             launches_forced=b1["v4_forced_launches"]),
         "book2_16spp_ms": {"skip": book2_16["v4_ms"], "flat": book2_16["v4_flat_ms"]},
-        "instances": instances(v4),
+        "instances": instances(v4) + [bvh_instance(1, masks[v4]["book2"])],
         "occupancy": {k: {x: roof[k][x] for x in ("features", "smem_bytes", "threads_per_sm")}
                       for k in ("v4_cornell", "v4_book2_block")},
         "split": {k: roof[k] for k in ("v4_cornell", "v4_book2_block")},
@@ -1016,7 +1062,7 @@ def main() -> None:
         "k16": k16, "k2_flat_ms": k2["flat_ms"],
         "launches_table_noise": b1["table_launches"],
         "cli_mpaths_per_s": cli_mp,
-        "instances": [instance("wavefront_step")],
+        "instances": [instance("wavefront_step"), bvh_instance(0, None)],
         "split": splits["wavefront"],
     }, {
         "name": "megakernel_grad", "route": "cuda",
@@ -1034,7 +1080,7 @@ def main() -> None:
         "plain_shape": f"cornell 600x600, depth {GRAD_DEPTH}, 2 spp (plain_ms, max_abs_err; "
                        f"the kernel there: {ms2:.3f} ms)",
         "book2_64x64_4spp": b1["b3_book2"],
-        "instances": instances(b3),
+        "instances": instances(b3) + [bvh_instance(3, masks[b3]["book2"])],
         "split": splits["grad"],
     }, *non_kernel]
     b5 = kernels[-2]
@@ -1046,16 +1092,41 @@ def main() -> None:
               split={k: roof[k] for k in roof if k.startswith("b5_")})
     b4 = kernels[-1]
     b4.update(status=b4["status"] + "; redesigned for Hopper (design)", design=V3_DESIGN,
-              instances=instances(v3),
+              instances=instances(v3) + [bvh_instance(2, masks[v3]["book2"])],
               occupancy={x: roof["v3_cornell_pass"][x]
                          for x in ("features", "smem_bytes", "threads_per_sm")},
               split=roof["v3_cornell_pass"])
+    k2b = bvh["k2"]
+    kernels.append({
+        "name": "bvh_sweep", "route": "cuda",
+        "source": "raytrace2_tpu_torch/csrc/path_common.cuh",
+        "replaces": "raytrace2_tpu/ops/pallas/megakernel.py:500 (_bvh_sweep, over "
+                    "_build_threaded_bvh :180)",
+        "status": "ported: RT2_SWEEP_MODE=bvh builds the bvh instances of v4, the "
+                  "wavefront step, B3 and B4 (off by default, as in JAX)",
+        "design": "per-lane stackless walk of the threaded BVH over the 16-record clusters, "
+                  "each lane on its own direction's threading (megakernel.threaded_bvh on the "
+                  "host; csrc/path_common.cuh bvh_sweep)",
+        "launches": bvh["main_paths"]["cli_launches"],
+        "max_abs_err": k2b["max_abs_err"],
+        "ms": k2b["ms"], "plain_ms": k2b["plain_ms"],
+        "bound_ms": k2b["bound_ms"], "bound_by": k2b["bound_by"],
+        "library_ms": None,
+        "shape": "the wavefront step's bvh instance, book2 600x600 depth 50 6 spp, a K=2 "
+                 "launch (launches: the book-2 CLI at 64 spp in bvh mode)",
+        "hier_ms": k2b["hier_ms"], "k16": bvh["k16"], "v4_block": bvh["v4_block"],
+        "b4_book2": bvh["b4_book2"], "b3_book2": bvh["b3_book2"],
+        "forced_16spp": bvh["forced_16spp"], "cli": bvh["cli"],
+        "main_paths": bvh["main_paths"],
+        "instances": [bvh_instance(i, m) for i, m in enumerate(
+            (None, masks[v4]["book2"], masks[v3]["book2"], masks[b3]["book2"]))],
+    })
     for k in kernels:
         # The same bound against the card's measured ceiling for code built
         # with -fmad=false (a multiply and an add issued apart; phase 16).
         if k["bound_by"] == "operations":
             k["bound_ms_fmad_false"] = k["bound_ms"] * PEAK_F32_OPS / ceil["mul_add_ops_per_s"]
-    say(json.dumps({"kernels": kernels, "ceilings": ceil}))
+    say(json.dumps({"kernels": kernels, "ceilings": ceil, "bench": bench, "resume": resume}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))
 
 
@@ -1356,6 +1427,375 @@ def b1_option_phases(dev, card, book2, book2_16) -> dict:
     out.update(v4_forced_launches=v4_main, table_launches=table_launches,
                b3_book2=dict(ms=b3_ms, plain_ms=b3_plain_ms))
     return out
+
+
+def bvh_phases(dev, card, work, book2, book2_16, wf_hier, captured_hier, b1) -> dict:
+    """Phase 17: B1's last option, the threaded-BVH sweep (RT2_SWEEP_MODE=bvh;
+    sweep_mode patches megakernel.SWEEP_MODE), in the bvh instances of every
+    kernel that walks the clusters, on book 2. Each kernel against its
+    plain version in "bvh" mode: v4 on the block layout (600x600, 2 spp)
+    and the linear one (200x200, 2 spp) bitwise, the wavefront step's K=2
+    and K=16 launches on the states a "bvh" batch (600x600, 6 spp) captures
+    bitwise, one B4 pass of book 2's camera rays bitwise, B3 at 64x64, 4
+    spp within 1e-3 of the largest cotangent with the same replayed
+    bounces; the slab and record tests per bounce of the BVH walk (its
+    plain version's counts) against the cluster skip's (phases 4 and 13)
+    and the bound from them; each timed in turns against "hier" (hier,
+    bvh, bvh, hier) on the same inputs. Then the main paths in "bvh" mode,
+    the launch counts set to 0 before each and read after: v4 forced
+    through integrator.render_progressive (600x600, 16 spp; its image
+    against phase 4's "hier" image, at most 0.01 % of pixels: exact
+    ties), the CLI on book 2 (600x600, 64 spp, in turns with "hier"), the
+    Renderer, grad.value_and_grad_scene and B4 through render_sample.
+    Returns what the kernels line reports."""
+    import numpy as np
+    import torch
+
+    from raytrace2_tpu_torch import app, grad
+    from raytrace2_tpu_torch.ops import camera, integrator, rng
+    from raytrace2_tpu_torch.ops.kernels import megakernel as mk
+    from raytrace2_tpu_torch.ops.kernels import megakernel_grad as mkg
+    from raytrace2_tpu_torch.ops.kernels import megakernel_v3 as mk3
+    from raytrace2_tpu_torch.ops.kernels import wavefront as wf
+    from raytrace2_tpu_torch.render import Renderer
+    from raytrace2_tpu_torch.scene import loader, schema
+
+    host, _ = loader.load_scene(book2)
+    feats = host.features()
+    sizes = tuple(feats["mega_sizes"])
+    ds = schema.to_device(host, dev)
+    bg = ds.background.to(torch.float32).contiguous()
+    base_kw = dict(max_depth=50, sizes=sizes, has_checker=feats["has_checker"],
+                   has_noise=feats["has_noise"])
+    types = mk.scene_material_types(ds.materials.mtype)
+    packed = {}
+    for mode in ("hier", "bvh"):
+        with sweep_mode(mode):
+            packed[mode] = mk.pack_buffer(ds, sizes)
+    check(packed["bvh"].numel() == packed["hier"].numel()
+          + 19 * sum(mk.bvh_nodes(n) for n in (sizes[0], sizes[5])),
+          "the bvh buffer is not the hier buffer plus 19 floats a BVH node")
+    out = {}
+
+    def in_turns(run):
+        """{mode: [ms, ms]} of ``run(mode)`` in turns hier, bvh, bvh, hier."""
+        times = {"hier": [], "bvh": []}
+        for mode in ("hier", "bvh", "bvh", "hier"):
+            with sweep_mode(mode):
+                times[mode].append(run(mode))
+        return times
+
+    def per_bounce(stats):
+        b = max(stats["bounces"], 1)
+        return {k: stats[k] / b for k in ("aabb", "sph", "box")}
+
+    def bound(stats, nbytes):
+        ops = sweep_ops(stats)
+        by = "operations" if ops / PEAK_F32_OPS >= nbytes / PEAK_BYTES else "bytes"
+        return max(ops / PEAK_F32_OPS, nbytes / PEAK_BYTES) * 1e3, by, ops
+
+    def fmt(times):
+        return ", ".join(f"{m} {'/'.join(f'{t:.4f}' for t in v)}" for m, v in times.items())
+
+    # ---- phase 17a: v4, block layout with wave regeneration, and linear ----
+    spp = 2
+    camv = camera.make_camv(host.camera, 600, 600, 0, spp, 1, 0, block=mk.BLOCK).to(dev)
+    n_slots, _ = mk.pixel_slots(600, 600, block=True)
+    kw = dict(base_kw, n_pix=n_slots, block=True, wave_frac=0.5, mat_types=types)
+    with sweep_mode("bvh"):
+        mk.trace_megakernel_batch(camv, 0, packed["bvh"], bg, **kw)  # warm-up
+        kern = mk.trace_megakernel_batch(camv, 0, packed["bvh"], bg, **kw)
+        stats = {}
+        plain, plain_ms = wall_ms(lambda: mk.trace_plain(camv, 0, packed["bvh"], bg,
+                                                         stats=stats, **kw))
+    n_diff = int((kern != plain).any(-1).sum())
+    check(n_diff == 0, f"bvh v4 book2 block layout: {n_diff} slots differ from the plain version")
+    times = in_turns(lambda m: event_ms(lambda: mk.trace_megakernel_batch(
+        camv, 0, packed[m], bg, **kw), 3)[1])
+    bound_ms, bound_by, ops = bound(stats, 12 * n_slots + packed["bvh"].numel() * 4)
+    hier_tests = {k: b1["v4_book2"][f"{k}_per_bounce"] for k in ("aabb", "sph", "box")}
+    out["v4_block"] = dict(ms=sum(times["bvh"]) / 2, hier_ms=sum(times["hier"]) / 2,
+                           times=times, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                           max_abs_err=0.0, tests_per_bounce=per_bounce(stats),
+                           hier_tests_per_bounce=hier_tests)
+    say(f"phase 17 bvh v4 vs plain, book2 600x600 {spp} spp depth 50, block layout with "
+        f"wave_frac 0.5: bitwise equal; in turns (ms) {fmt(times)}; plain {plain_ms:.1f} ms; "
+        f"per bounce {per_bounce(stats)['aabb']:.2f} slab, {per_bounce(stats)['sph']:.2f} "
+        f"sphere and {per_bounce(stats)['box']:.2f} box record tests (hier: "
+        f"{hier_tests['aabb']:.2f}, {hier_tests['sph']:.2f}, {hier_tests['box']:.2f}) -> "
+        f"{ops:.4g} f32 ops -> bound {bound_ms:.4f} ms by {bound_by} ({card})")
+    size = 200
+    camv_l = camera.make_camv(host.camera, size, size, 0, spp, 1, 0).to(dev)
+    kw_l = dict(base_kw, n_pix=size * size, mat_types=types)
+    with sweep_mode("bvh"):
+        kern = mk.trace_megakernel_batch(camv_l, 0, packed["bvh"], bg, **kw_l)
+        plain = mk.trace_plain(camv_l, 0, packed["bvh"], bg, **kw_l)
+    n_diff = int((kern != plain).any(-1).sum())
+    check(n_diff == 0, f"bvh v4 book2 linear layout: {n_diff} pixels differ from the plain "
+                       f"version")
+    say(f"phase 17 bvh v4 vs plain, book2 {size}x{size} {spp} spp depth 50, linear layout "
+        f"(the persistent kernel): bitwise equal ({card})")
+
+    # ---- phase 17b: the wavefront step's K=2 and K=16 launches -------------
+    camv6 = camera.make_camv(host.camera, 600, 600, 0, 6, 2, 0).to(dev)
+    n_rays = -(-360000 // wf.SLOT_TILE) * wf.SLOT_TILE
+    captured, n2 = {}, [0]
+
+    def capture(state, *a, k_bounces, **k):
+        tag = f"k{k_bounces}"
+        if tag not in captured and (k_bounces != wf.K_BOUNCES or n2[0] == 4):
+            captured[tag] = state.clone()
+        n2[0] += k_bounces == wf.K_BOUNCES
+        return wf.wavefront_step(state, *a, k_bounces=k_bounces, **k)
+
+    with sweep_mode("bvh"):
+        wf.trace_wavefront_batch(camv6, 0, packed["bvh"], bg, n_rays=n_rays, step=capture,
+                                 **base_kw)
+    check("k2" in captured and "k16" in captured, "bvh: no K=2 or K=16 launch to capture")
+
+    def launch_ms(st0, mode, k, reps=3):
+        ms = 0.0
+        for _ in range(reps):
+            st = st0.clone()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            wf.wavefront_step(st, camv6, 0, packed[mode], bg, k_bounces=k, **base_kw)
+            end.record()
+            torch.cuda.synchronize()
+            ms += start.elapsed_time(end) / reps
+        return ms
+
+    for tag, k in (("k2", wf.K_BOUNCES), ("k16", wf.TAIL_K)):
+        st0 = captured[tag]
+        same_state = int((st0 != captured_hier[tag]).any(0).sum())
+        times = in_turns(lambda m: launch_ms(st0, m, k))
+        stats = {}
+        with sweep_mode("bvh"):
+            st_k = wf.wavefront_step(st0.clone(), camv6, 0, packed["bvh"], bg, k_bounces=k,
+                                     **base_kw)
+            st_p, plain_ms = wall_ms(lambda: wf.step_plain(
+                st0.clone(), camv6, 0, packed["bvh"], bg, k_bounces=k, stats=stats, **base_kw))
+        n_diff = int((st_k != st_p).any(0).sum())
+        check(n_diff == 0, f"bvh wavefront {tag} launch: {n_diff} slots differ from the plain "
+                           f"step")
+        bound_ms, bound_by, ops = bound(stats, 2 * 17 * 4 * n_rays + packed["bvh"].numel() * 4)
+        hier_tests = {x: wf_hier[tag][f"{x}_per_bounce"] for x in ("aabb", "sph", "box")}
+        out[tag] = dict(ms=sum(times["bvh"]) / 2, hier_ms=sum(times["hier"]) / 2, times=times,
+                        plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                        max_abs_err=0.0, tests_per_bounce=per_bounce(stats),
+                        hier_tests_per_bounce=hier_tests, bounces=stats["bounces"],
+                        state_slots_differing_from_hier_capture=same_state)
+        say(f"phase 17 bvh wavefront {tag} launch, book2 600x600 ({n_rays} slots) on the state a "
+            f"bvh batch captured ({same_state} slots differ from phase 4's hier capture): "
+            f"bitwise equal to the plain step; in turns (ms) {fmt(times)}; plain step "
+            f"{plain_ms:.1f} ms; {stats['bounces']} bounces, per bounce "
+            f"{per_bounce(stats)['aabb']:.2f} slab, {per_bounce(stats)['sph']:.2f} sphere and "
+            f"{per_bounce(stats)['box']:.2f} box record tests (hier: {hier_tests['aabb']:.2f}, "
+            f"{hier_tests['sph']:.2f}, {hier_tests['box']:.2f}) -> {ops:.4g} f32 ops -> bound "
+            f"{bound_ms:.4f} ms by {bound_by} ({card})")
+
+    # ---- phase 17c: one B4 pass of book 2's camera rays ---------------------
+    seed_lane = integrator.mega_seed_of(0, 0)
+    pix = torch.arange(360000, dtype=torch.int32, device=dev)
+    u = rng.murmur_uniforms(seed_lane, pix, tuple(rng.CAMERA_CTR_BASE + k for k in range(5)))
+    o, d, tm = camera.generate_rays(ds.camera, 600, 600, 0, 1, None, uniforms=u)
+    pad = -o.shape[0] % mk3.TILE_R
+    o = torch.nn.functional.pad(o, (0, 0, 0, pad))
+    d = torch.nn.functional.pad(d, (0, 0, 0, pad), value=1.0)
+    tm = torch.nn.functional.pad(tm, (0, pad))
+    state, rid = mk3.init_state(o, d, tm)
+    min_alive = mk3.TILE_R // 16
+    b4_kw = dict(base_kw, mat_types=types)
+    with sweep_mode("bvh"):
+        rad_k, new_k = mk3.megakernel_pass(state, rid, seed_lane, min_alive, packed["bvh"], bg,
+                                           **b4_kw)
+        (rad_p, new_p), b4_plain_ms = wall_ms(lambda: mk3.pass_plain(
+            state, rid, seed_lane, min_alive, packed["bvh"], bg, **base_kw))
+    check(torch.equal(rad_k, rad_p) and torch.equal(new_k, new_p),
+          "bvh B4 book2 pass: kernel and plain version differ")
+    times = in_turns(lambda m: event_ms(lambda: mk3.megakernel_pass(
+        state, rid, seed_lane, min_alive, packed[m], bg, **b4_kw), 3)[1])
+    out["b4_book2"] = dict(ms=sum(times["bvh"]) / 2, hier_ms=sum(times["hier"]) / 2,
+                           times=times, plain_ms=b4_plain_ms, max_abs_err=0.0)
+    say(f"phase 17 bvh B4 vs plain, one pass of book2 600x600 camera rays (min_alive "
+        f"{min_alive} of {mk3.TILE_R}): radiance and state bitwise; in turns (ms) {fmt(times)}; "
+        f"plain {b4_plain_ms:.1f} ms ({card})")
+
+    # ---- phase 17d: B3 at 64x64, 4 spp ---------------------------------------
+    size, spp = 64, 4
+    camv_g = camera.make_camv(host.camera, size, size, 0, spp, 2, 0).to(dev)
+    g = torch.from_numpy(np.random.RandomState(5).uniform(
+        0.0, 1.0, (size * size, 3)).astype(np.float32)).to(dev)
+    gkw = dict(base_kw, n_pix=size * size, mat_types=types)
+    counts = [torch.zeros(1, dtype=torch.int64, device=dev) for _ in range(2)]
+    with sweep_mode("bvh"):
+        kern = mkg.grad_call(camv_g, 0, packed["bvh"], bg, g, bounces=counts[0], **gkw)
+        plain, b3_plain_ms = wall_ms(lambda: mkg.grad_plain(
+            camv_g, 0, packed["bvh"], bg, g, bounces=counts[1], **gkw))
+    check(int(counts[0]) == int(counts[1]) > 0,
+          f"bvh B3 book2: replayed {int(counts[0])} bounces, the plain pre-pass "
+          f"{int(counts[1])}")
+    detail, worst = [], 0.0
+    for name, a, b in grad_groups(kern, plain, sizes):
+        err, scale = float((a - b).abs().max()), float(b.abs().max())
+        check(bool(torch.isfinite(a).all()) and err <= GRAD_RTOL * scale + GRAD_ATOL,
+              f"bvh B3 book2 {name}: max|d| {err:.3g} vs max|g| {scale:.3g}")
+        worst = max(worst, err)
+        if scale > 0:
+            detail.append(f"{name} {err:.3g}/{scale:.3g}")
+    times = in_turns(lambda m: event_ms(lambda: mkg.grad_call(
+        camv_g, 0, packed[m], bg, g, **gkw), 3)[1])
+    out["b3_book2"] = dict(ms=sum(times["bvh"]) / 2, hier_ms=sum(times["hier"]) / 2,
+                           times=times, plain_ms=b3_plain_ms, max_abs_err=worst,
+                           bounces=int(counts[0]))
+    say(f"phase 17 bvh B3 vs plain, book2 {size}x{size} {spp} spp depth 50: {', '.join(detail)} "
+        f"(gate {GRAD_RTOL:g} max|g| + {GRAD_ATOL:g}); replayed bounces {int(counts[0])} == "
+        f"{int(counts[1])}; in turns (ms) {fmt(times)}; plain {b3_plain_ms:.1f} ms ({card})")
+
+    # ---- phase 17e: the main paths in "bvh" mode ------------------------------
+    def forced(mode):
+        mk.LAUNCHES = wf.LAUNCHES = 0
+        img, ms = wall_ms(lambda: integrator.render_progressive(
+            ds, dict(feats, mega_wavefront=False), 600, 600, 0, 16, 0, 50, 4))
+        check(mk.LAUNCHES == 1 and wf.LAUNCHES == 0,
+              f"v4 forced ({mode}): v4 {mk.LAUNCHES}, wavefront {wf.LAUNCHES} launches")
+        out.setdefault("forced_images", {})[mode] = img.reshape(-1, 3).cpu().numpy()
+        return ms
+
+    times = in_turns(forced)
+    imgs = out.pop("forced_images")
+    check(np.array_equal(imgs["hier"], book2_16["image"]),
+          "v4 forced (hier) differs from phase 4's 16-spp image")
+    n_tie = int((imgs["bvh"] != book2_16["image"]).any(-1).sum())
+    check(n_tie <= 1e-4 * 360000, f"book2 16 spp: the bvh image differs from the hier image in "
+                                  f"{n_tie} pixels (more than exact ties)")
+    out["forced_16spp"] = dict(times=times, pixels_differing_from_hier=n_tie)
+    say(f"phase 17 bvh main path, v4 forced through integrator.render_progressive, book2 "
+        f"600x600 16 spp depth 50: 1 v4 launch a run; the image differs from the hier image "
+        f"in {n_tie} of 360000 pixels (gate 0.01 %); in turns (ms, wall) {fmt(times)} "
+        f"({card})")
+
+    def cli(mode):
+        m = os.path.join(work, f"metrics_book2_{mode}_{len(cli_runs[mode])}.jsonl")
+        mk.LAUNCHES = wf.LAUNCHES = wf.SORTS = 0
+        rc = app.main([book2, os.path.join(work, f"book2_{mode}.png"), "--samples", "64",
+                       "--depth", "50", "--device", "cuda", "--metrics", m, "--quiet"])
+        check(rc == 0, f"app.main book2 ({mode}) exited {rc}")
+        with open(m) as f:
+            done = [json.loads(line) for line in f][-1]
+        check(wf.LAUNCHES > 0 and mk.LAUNCHES == 0 and done["launches"] == wf.LAUNCHES,
+              f"book-2 CLI ({mode}): wavefront {wf.LAUNCHES}, v4 {mk.LAUNCHES}, done {done}")
+        check(abs(done["mean_linear"] / BOOK2_MEAN_64 - 1.0) < BOOK2_MEAN_RTOL,
+              f"book-2 CLI ({mode}) mean {done['mean_linear']:.4f}")
+        cli_runs[mode].append(dict(mpaths_per_s=done["mpaths_per_s"], launches=wf.LAUNCHES,
+                                   sorts=wf.SORTS, mean=done["mean_linear"]))
+        return done["mpaths_per_s"]
+
+    cli_runs = {"hier": [], "bvh": []}
+    cli_mp = in_turns(cli)
+    out["cli"] = cli_runs
+    say(f"phase 17 bvh main path, app.main book2 600x600 64 spp depth 50, in turns (Mpaths/s) "
+        + ", ".join(f"{m} {'/'.join(f'{x:.2f}' for x in v)}" for m, v in cli_mp.items())
+        + f"; bvh runs {cli_runs['bvh'][0]['launches']} wavefront launches each, mean "
+        f"{cli_runs['bvh'][0]['mean']:.4f} (hier {cli_runs['hier'][0]['mean']:.4f}) ({card})")
+
+    with sweep_mode("bvh"):
+        mk.LAUNCHES = wf.LAUNCHES = 0
+        r = Renderer(host, 64, 64, num_samples=4, max_depth=50, device=dev)
+        img_r = r.render(batch=4)
+        r_launches = wf.LAUNCHES
+        check(r.kernel == "wavefront_step" and r_launches > 0 and mk.LAUNCHES == 0,
+              f"bvh Renderer: kernel {r.kernel}, wavefront {r_launches}, v4 {mk.LAUNCHES}")
+        check(np.isfinite(img_r).all() and img_r.max() > 0, "bvh Renderer image")
+        mk.LAUNCHES = wf.LAUNCHES = mkg.LAUNCHES = 0
+        scene = schema.to_device(host, dev)
+        loss, gr = grad.value_and_grad_scene(torch.mean, scene, feats, 0, width=64, height=64,
+                                             n_samples=4, max_depth=50, sqrt_spp=2)
+        g_launches = (wf.LAUNCHES, mkg.LAUNCHES)
+        check(wf.LAUNCHES > 0 and mkg.LAUNCHES == 1 and mk.LAUNCHES == 0,
+              f"bvh gradient launches: wavefront {wf.LAUNCHES}, B3 {mkg.LAUNCHES}")
+        leaves = []
+        schema.map_leaves(gr, lambda x: leaves.append(x) if x is not None else None)
+        check(all(bool(torch.isfinite(x).all()) for x in leaves), "bvh gradient not finite")
+        mk3.LAUNCHES = 0
+        acc = integrator.render_sample(ds, dict(feats, use_megakernel=True), 200, 200, 0, 0,
+                                       50, 1)
+        b4_launches = mk3.LAUNCHES
+        check(b4_launches > 0 and bool(torch.isfinite(acc).all()),
+              f"bvh B4 main path: {b4_launches} launches")
+    loss_h = grad.value_and_grad_scene(torch.mean, schema.to_device(host, dev), feats, 0,
+                                       width=64, height=64, n_samples=4, max_depth=50,
+                                       sqrt_spp=2)[0]
+    acc_h = integrator.render_sample(ds, dict(feats, use_megakernel=True), 200, 200, 0, 0,
+                                     50, 1)
+    n_b4 = int((acc != acc_h).any(-1).sum())
+    out["main_paths"] = dict(renderer_launches=r_launches, grad_launches=g_launches,
+                             b4_launches=b4_launches, cli_launches=cli_runs["bvh"][0]["launches"])
+    say(f"phase 17 bvh main paths: Renderer book2 64x64 4 spp {r_launches} wavefront launches; "
+        f"grad.value_and_grad_scene book2 64x64 4 spp: {g_launches[0]} wavefront + "
+        f"{g_launches[1]} B3 launches, every leaf finite, loss {float(loss):.6f} (hier "
+        f"{float(loss_h):.6f}); render_sample with use_megakernel, book2 200x200: "
+        f"{b4_launches} B4 launches, {n_b4} pixels differ from hier ({card})")
+    return out
+
+
+def bench_phase(card) -> dict:
+    """Phase 18: the port's bench, python -m raytrace2_tpu_torch.tools.bench
+    and ... --grad, each as a subprocess from the checkout's root: the last
+    line of its stdout is one JSON object with the JAX bench's keys
+    (metric, value, unit, vs_baseline), its metric name and a positive
+    value."""
+    out = {}
+    for args, metric in (([], "cornell600_paths_per_sec"),
+                         (["--grad"], "cornell600_fwdbwd_d50_paths_per_sec")):
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, "-m", "raytrace2_tpu_torch.tools.bench", *args],
+                           cwd=ROOT, capture_output=True, text=True, timeout=400)
+        wall = time.perf_counter() - t0
+        check(r.returncode == 0, f"bench {args} exited {r.returncode}: {r.stderr[-2000:]}")
+        lines = r.stdout.strip().splitlines()
+        check(len(lines) == 1, f"bench {args} printed {len(lines)} lines on stdout")
+        rec = json.loads(lines[-1])
+        check(sorted(rec) == ["metric", "unit", "value", "vs_baseline"]
+              and rec["metric"] == metric and rec["unit"] == "paths/s" and rec["value"] > 0,
+              f"bench {args} record {rec}")
+        out[metric] = dict(rec, wall_s=wall, stderr=r.stderr.strip().splitlines()[-3:])
+        say(f"phase 18 bench {' '.join(args) or '(forward)'}: {lines[-1]} "
+            f"({rec['value'] / 1e6:.2f} Mpaths/s; {wall:.1f} s with the process; "
+            f"{r.stderr.strip().splitlines()[-1]}) ({card})")
+    return out
+
+
+def resume_phase(card, cornell, work) -> dict:
+    """Phase 19: resume through app.main on the kernel path: Cornell 600x600
+    depth 50, 4 samples with --checkpoint, then the same command at 8
+    samples resumes at sample 4; its accumulator is bitwise the one-shot
+    8-sample render's, each run launching v4."""
+    import torch
+
+    from raytrace2_tpu_torch import app
+    from raytrace2_tpu_torch.io import checkpoint
+    from raytrace2_tpu_torch.ops.kernels import megakernel as mk
+
+    def run(samples, ck):
+        mk.LAUNCHES = 0
+        rc = app.main([cornell, os.path.join(work, "resume.png"), "--samples", str(samples),
+                       "--depth", "50", "--device", "cuda", "--checkpoint", ck, "--quiet"])
+        check(rc == 0 and mk.LAUNCHES > 0, f"app.main --checkpoint: rc {rc}, {mk.LAUNCHES} "
+                                           f"v4 launches")
+        return mk.LAUNCHES
+
+    ck, one = os.path.join(work, "resume.npz"), os.path.join(work, "one.npz")
+    launches = [run(4, ck), run(8, ck), run(8, one)]
+    resumed, once = checkpoint.load_state(ck), checkpoint.load_state(one)
+    check(resumed.frame_idx == once.frame_idx == 8, "resume: frame counts")
+    check(torch.equal(resumed.accum, once.accum), "resume: 4 + 4 samples differ from a "
+                                                  "one-shot render of 8")
+    say(f"phase 19 resume through app.main --checkpoint, Cornell 600x600 depth 50: 4 samples "
+        f"({launches[0]} v4 launches), then 4 more ({launches[1]}), bitwise the one-shot "
+        f"8-sample accumulator ({launches[2]} launches) ({card})")
+    return {"launches": launches}
 
 
 def grad_groups(kern, plain, sizes):

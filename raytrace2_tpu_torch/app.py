@@ -2,7 +2,10 @@
 
 ``python -m raytrace2_tpu_torch <scene.json> [out.png] --device cuda|cpu``:
 the same argv, ``local/data/settings.json`` and output naming as the JAX
-package's CLI. The device is explicit: ``cuda`` (the default) renders
+package's CLI, with its resume (``--checkpoint``, ``--checkpoint-every``:
+the accumulator as one ``.npz``, interchangeable with the JAX package's)
+and progressive previews (``--preview-every``: the output PNG rewritten
+every N samples). The device is explicit: ``cuda`` (the default) renders
 through the Hopper kernels and fails when no card is present; ``cpu`` runs
 their plain PyTorch versions.
 """
@@ -17,8 +20,8 @@ import sys
 import time
 from datetime import datetime
 
-# Flags of the JAX CLI that a later slice of the port brings.
-_NOT_PORTED_FLAGS = ("live", "watch", "checkpoint", "profile", "preview_every")
+# Flags of the JAX CLI that a later slice of the port brings (the live CLI).
+_NOT_PORTED_FLAGS = ("live", "watch", "profile")
 
 
 def load_app_settings(path: str) -> dict:
@@ -88,13 +91,17 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", default="cuda",
                    help="render device: cuda (the Hopper kernels; default) or cpu "
                         "(their plain PyTorch versions)")
+    p.add_argument("--preview-every", type=int, default=0,
+                   help="write a progressive preview PNG every N samples")
+    p.add_argument("--checkpoint", default=None,
+                   help="accumulator checkpoint path (resume if it exists)")
+    p.add_argument("--checkpoint-every", type=int, default=0,
+                   help="checkpoint the accumulator every N samples")
     p.add_argument("--quiet", action="store_true")
     # Accepted so that they can be refused with a clear message.
     p.add_argument("--live", action="store_true", help=argparse.SUPPRESS)
     p.add_argument("--watch", action="store_true", help=argparse.SUPPRESS)
-    p.add_argument("--checkpoint", default=None, help=argparse.SUPPRESS)
     p.add_argument("--profile", default=None, help=argparse.SUPPRESS)
-    p.add_argument("--preview-every", type=int, default=0, help=argparse.SUPPRESS)
     return p
 
 
@@ -103,12 +110,13 @@ def main(argv=None) -> int:
     refused = [f"--{name.replace('_', '-')}" for name in _NOT_PORTED_FLAGS
                if getattr(args, name)]
     if refused:
-        print(f"error: {', '.join(refused)} not ported yet (ROADMAP queue A item 8)",
+        print(f"error: {', '.join(refused)} not ported yet (ROADMAP queue A item 5)",
               file=sys.stderr)
         return 2
 
     import torch
 
+    from raytrace2_tpu_torch.io import checkpoint as ckpt_io
     from raytrace2_tpu_torch.io import image as image_io
     from raytrace2_tpu_torch.ops.kernels import intersect_kernel, megakernel, wavefront
     from raytrace2_tpu_torch.render import CHUNK_SIZE, Renderer, resolve_device
@@ -163,6 +171,14 @@ def main(argv=None) -> int:
         print(f"error: {e}", file=sys.stderr)
         return 1
 
+    if args.checkpoint and os.path.exists(args.checkpoint):
+        try:
+            renderer.set_state(ckpt_io.load_state(args.checkpoint, device))
+        except (OSError, KeyError, ValueError) as e:
+            print(f"error: checkpoint {args.checkpoint}: {e}", file=sys.stderr)
+            return 1
+        log(f"Resumed from {args.checkpoint} at sample {renderer.frame_idx}")
+
     out_path = args.output
     if not out_path:
         outdir = os.path.join(args.root, "local", "output")
@@ -175,6 +191,9 @@ def main(argv=None) -> int:
     total = settings["num_samples"]
     rays_per_sample = width * height
     batch = args.batch or max(min(total // 10, 64), 1)
+    for gate in (args.preview_every, args.checkpoint_every):
+        if gate:
+            batch = min(batch, gate)
 
     def sync():
         if device.type == "cuda":
@@ -186,12 +205,13 @@ def main(argv=None) -> int:
     launches0 = module.LAUNCHES if module else 0
     sorts0 = wavefront.SORTS
     t0 = time.perf_counter()
+    done0 = renderer.frame_idx
     while renderer.frame_idx < total:
         renderer.update(min(batch, total - renderer.frame_idx))
         sync()  # the launch is asynchronous; time what the card did
         i = renderer.frame_idx
         dt = time.perf_counter() - t0
-        rate = i * rays_per_sample / max(dt, 1e-9) / 1e6
+        rate = (i - done0) * rays_per_sample / max(dt, 1e-9) / 1e6
         if args.metrics:
             rec = {"event": "dispatch", "sample": i, "total": total,
                    "elapsed_s": round(dt, 4), "mpaths_per_s": round(rate, 4),
@@ -202,6 +222,10 @@ def main(argv=None) -> int:
             with open(args.metrics, "a") as f:
                 f.write(json.dumps(rec) + "\n")
         log(f"sample {i}/{total}  {rate:.2f} Mpaths/s")
+        if args.preview_every and i % args.preview_every == 0 and i < total:
+            image_io.write_image(renderer.linear_pixels(), out_path)
+        if args.checkpoint and args.checkpoint_every and i % args.checkpoint_every == 0:
+            ckpt_io.save_state(args.checkpoint, renderer.state)
 
     lin = renderer.linear_pixels()
     if args.metrics:
@@ -218,7 +242,7 @@ def main(argv=None) -> int:
                 "event": "done", "samples": renderer.frame_idx, "total": total,
                 **kernel,
                 "elapsed_s": round(dt, 4),
-                "mpaths_per_s": round(renderer.frame_idx * rays_per_sample
+                "mpaths_per_s": round((renderer.frame_idx - done0) * rays_per_sample
                                       / max(dt, 1e-9) / 1e6, 4),
                 "width": width, "height": height, "scene": scene_name,
                 "device": device_name, "mean_linear": float(lin.mean()),
@@ -226,6 +250,8 @@ def main(argv=None) -> int:
             }) + "\n")
     log(f"Writing image: {out_path}")
     image_io.write_image(lin, out_path)
+    if args.checkpoint:
+        ckpt_io.save_state(args.checkpoint, renderer.state)
     return 0
 
 

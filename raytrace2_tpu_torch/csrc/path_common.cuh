@@ -17,6 +17,12 @@
 // warp (Sweep::kWarp, hier_sweep) and breaks exact ties by the record's
 // rank in the lane's own order, which gives the same winner.
 //
+// With RT2_SWEEP_BVH defined (the bvh instances, build.SWEEP_DEFINE; JAX
+// RT2_SWEEP_MODE=bvh) the clustered families walk JAX's threaded BVH over
+// their clusters instead (Sweep::kBvh, bvh_sweep): per lane, from its own
+// direction's threading, for the same reason. Its tables follow each
+// family's cluster tables; the default instances compile none of it.
+//
 // What a kernel compiles is chosen by a Cfg (below): the sweep, a mask of
 // the scene features whose code it holds (the gradient kernel is built per
 // scene from it; the forward kernels hold everything), winner tracking,
@@ -61,8 +67,9 @@ constexpr uint32_t kFSph = 1u, kFQuad = 2u, kFBox = 4u, kFMed = 8u, kFChecker = 
 
 // How the closest hit walks the clustered families: each lane in its own
 // order, one order per warp, or (profiling builds only) the sphere and box
-// families compiled out or swept flat in record order.
-enum class Sweep { kLane, kWarp, kNone, kFlat };
+// families compiled out or swept flat in record order. kBvh, each lane's
+// threaded-BVH walk, is what kLane and kWarp become in a bvh instance.
+enum class Sweep { kLane, kWarp, kNone, kFlat, kBvh };
 
 // Phases of a per-thread clock (the profiling builds' PhaseClock,
 // phase_clock.cuh); kPhWait is time in a block-wide lockstep count.
@@ -119,7 +126,10 @@ struct Counts {
 // Cluster tables of one family (megakernel.CLUSTER_FAMILIES): AABBs
 // [6, n_cl] and [6, n_l2] (x0, y0, z0, x1, y1, z1), the supercluster visit
 // orders [6 * n_l2] and the cluster orders inside them [6 * n_cl], as f32
-// ids; n_cl = 0 for a family swept flat. Only the wavefront step stages
+// ids; n_cl = 0 for a family swept flat. A bvh instance's tables go on
+// after `lord` (bvh_sweep reads them from there): the m = 2 n_cl - 1 node
+// AABBs [6, m], leaf cluster ids [m], hit and miss links [6 * m] each, 19 m
+// floats in all (megakernel.threaded_bvh). Only the wavefront step stages
 // their inverses (iord: a supercluster's place in each order; ilord: a
 // cluster's place inside its supercluster), packed after all the tables
 // (set_inverse_orders); elsewhere they are null.
@@ -157,14 +167,33 @@ struct Tables {
 
 __host__ __device__ inline int at_least_one(int n) { return n > 0 ? n : 1; }
 
+// Nodes of a clustered family's threaded BVH (0 for a family swept flat).
+__host__ __device__ inline int bvh_nodes(int n_cl) { return n_cl ? 2 * n_cl - 1 : 0; }
+
+// Floats of a family's cluster tables: the two-level tables and, in a bvh
+// instance, the threaded BVH's 19 floats a node. (The bvh parts stand in
+// preprocessor branches, so that the default instances compile from the
+// same code as before them: a changed inlining order alone had moved the
+// wavefront step's registers.)
 __host__ __device__ inline int cluster_floats(int n, int on) {
   const int n_l2 = n_super(n, on);
+#ifdef RT2_SWEEP_BVH
+  const int n_cl = n_l2 * (kSuper / kCluster);
+  return 12 * (n_cl + n_l2) + 19 * bvh_nodes(n_cl);
+#else
   return 12 * (n_l2 * (kSuper / kCluster) + n_l2);
+#endif
 }
 
-// Floats of both families' inverse visit orders, packed after the tables.
+// Floats of both families' inverse visit orders, packed after the tables
+// (half of the two-level cluster tables).
 __host__ __device__ inline int inverse_floats(const Counts& c) {
+#ifdef RT2_SWEEP_BVH
+  const int n_l2 = n_super(c.n_sph, c.hier_sph) + n_super(c.n_box, c.hier_box);
+  return 6 * (n_l2 * (kSuper / kCluster) + n_l2);
+#else
   return (cluster_floats(c.n_sph, c.hier_sph) + cluster_floats(c.n_box, c.hier_box)) / 2;
+#endif
 }
 
 __host__ __device__ inline int table_floats(const Counts& c) {
@@ -192,6 +221,9 @@ __device__ inline Clusters make_clusters(const float*& p, int n, int on) {
   k.lord = k.ord + 6 * k.n_l2;
   k.iord = k.ilord = nullptr;
   p = k.lord + 6 * k.n_cl;
+#ifdef RT2_SWEEP_BVH
+  p += 19 * bvh_nodes(k.n_cl);  // the threaded BVH's tables (bvh_sweep)
+#endif
   return k;
 }
 
@@ -606,6 +638,45 @@ __device__ __forceinline__ void hier_sweep(const Clusters& C, int n, int dir, fl
   }
 }
 
+// The threaded-BVH walk over the clusters of a clustered family (JAX
+// _bvh_sweep, megakernel.py:500-552; bvh instances only), per lane: a
+// stackless cursor from node 0 along the threading of the lane's own
+// direction `dir`; a node whose AABB passes could_hit with the running
+// best t is entered (a leaf's 16 records tested, each taken when strictly
+// closer), and the cursor follows the node's hit link, else its miss
+// link, until it falls below 0. The lane's winner does not depend on
+// which other lanes are live, as B3's divergent replay needs.
+template <class K, class Test>
+__device__ __forceinline__ void bvh_sweep(const Clusters& C, int n, int dir, float ox,
+                                          float oy, float oz, float ix, float iy, float iz,
+                                          Rec& r, int fam, Winner* win,
+                                          typename K::Clock* clk, Test test) {
+  using Clock = typename K::Clock;
+  const int m = bvh_nodes(C.n_cl);
+  const float* bv = C.lord + 6 * C.n_cl;
+  const float* bleaf = bv + 6 * m;
+  const float* bhit = bleaf + m + dir * m;
+  const float* bmiss = bleaf + 7 * m + dir * m;
+  int node = 0;
+  while (node >= 0) {
+    long long t0 = tick<Clock>();
+    const bool enter = could_hit(bv, m, node, ox, oy, oz, ix, iy, iz, r.t);
+    tock(clk, kPhSlab, t0);
+    const int leaf = (int)bleaf[node];
+    if (enter && leaf >= 0) {
+      t0 = tick<Clock>();
+      const int p1 = min(leaf * kCluster + kCluster, n);
+      for (int p = leaf * kCluster; p < p1; ++p) {
+        if (test(p, r.t, r)) {
+          if constexpr (K::kTrack) *win = Winner{fam, p};
+        }
+      }
+      tock(clk, kPhRecord, t0);
+    }
+    node = (int)(enter ? bhit[node] : bmiss[node]);
+  }
+}
+
 // A family swept in record order.
 template <class K, class Test>
 __device__ __forceinline__ void flat_sweep(int n, Rec& r, int fam, Winner* win,
@@ -620,17 +691,23 @@ __device__ __forceinline__ void flat_sweep(int n, Rec& r, int fam, Winner* win,
 }
 
 // The closest-hit sweep: quads and media flat in record order, spheres and
-// AA boxes flat or through hier_sweep where they are clustered, each family
-// only where K's feature mask holds it. With K::kTrack it also writes the
-// winner to *win (the forward kernels instantiate it without).
+// AA boxes flat or, where they are clustered, through hier_sweep (through
+// bvh_sweep in a bvh instance), each family only where K's feature mask
+// holds it. With K::kTrack it also writes the winner to *win (the forward
+// kernels instantiate it without).
 template <class K = Cfg<>>
 __device__ Rec closest_hit(const Tables& T, const Counts& c, uint32_t key, float bn,
                            float tm, float ox, float oy, float oz, float dx, float dy,
                            float dz, float a, float inv_a, Winner* win = nullptr,
                            typename K::Clock* clk = nullptr) {
   constexpr uint32_t F = K::kFeat;
+#ifdef RT2_SWEEP_BVH
+  constexpr Sweep S =
+      K::kSweep == Sweep::kLane || K::kSweep == Sweep::kWarp ? Sweep::kBvh : K::kSweep;
+#else
   constexpr Sweep S = K::kSweep;
-  constexpr bool kClusters = S == Sweep::kLane || S == Sweep::kWarp;
+#endif
+  constexpr bool kClusters = S == Sweep::kLane || S == Sweep::kWarp || S == Sweep::kBvh;
   Rec r{kBig, -1.0f, 0.0f, 0.0f, 0.0f, 0.0f, 1.0f};
   const bool hs = kClusters && (F & kFSph) && T.scl.n_cl > 0;
   const bool hb = kClusters && (F & kFBox) && T.bcl.n_cl > 0;
@@ -651,8 +728,13 @@ __device__ Rec closest_hit(const Tables& T, const Counts& c, uint32_t key, float
       return sphere_test(T, p, tm, ox, oy, oz, dx, dy, dz, a, inv_a, best, out);
     };
     if (hs) {
-      hier_sweep<K>(T.scl, c.n_sph, dir, ox, oy, oz, inv_dx, inv_dy, inv_dz, r, 0, win, clk,
-                    sph);
+      if constexpr (S == Sweep::kBvh) {
+        bvh_sweep<K>(T.scl, c.n_sph, dir, ox, oy, oz, inv_dx, inv_dy, inv_dz, r, 0, win, clk,
+                     sph);
+      } else {
+        hier_sweep<K>(T.scl, c.n_sph, dir, ox, oy, oz, inv_dx, inv_dy, inv_dz, r, 0, win, clk,
+                      sph);
+      }
     } else {
       flat_sweep<K>(c.n_sph, r, 0, win, clk, sph);
     }
@@ -669,8 +751,13 @@ __device__ Rec closest_hit(const Tables& T, const Counts& c, uint32_t key, float
       return box_test(T, bi, ox, oy, oz, dx, dy, dz, inv_dx, inv_dy, inv_dz, best, r.aux, out);
     };
     if (hb) {
-      hier_sweep<K>(T.bcl, c.n_box, dir, ox, oy, oz, inv_dx, inv_dy, inv_dz, r, 2, win, clk,
-                    box);
+      if constexpr (S == Sweep::kBvh) {
+        bvh_sweep<K>(T.bcl, c.n_box, dir, ox, oy, oz, inv_dx, inv_dy, inv_dz, r, 2, win, clk,
+                     box);
+      } else {
+        hier_sweep<K>(T.bcl, c.n_box, dir, ox, oy, oz, inv_dx, inv_dy, inv_dz, r, 2, win, clk,
+                      box);
+      }
     } else {
       flat_sweep<K>(c.n_box, r, 2, win, clk, box);
     }

@@ -7,7 +7,11 @@ includes, the flags and its defines, so that an edit of any of them rebuilds
 it, and loaded with ``ctypes``. A build target is a source name, or a
 (name, defines) pair: v4, B4 and the gradient kernel are built once per
 scene feature mask (``feature_target``: ``-DV4_FEATURES=<mask>``,
-``-DV3_FEATURES``, ``-DGRAD_FEATURES``), and the profiling sources
+``-DV3_FEATURES``, ``-DGRAD_FEATURES``); where ``megakernel.SWEEP_MODE`` is
+"bvh" when a target is chosen, every kernel that walks the clusters (v4,
+B4, B3 and the wavefront step, ``step_target``) is built with
+``-DRT2_SWEEP_BVH`` (``SWEEP_DEFINE``) into an instance of its own; and the
+profiling sources
 (``wavefront_profile``, ``grad_profile``, ``megakernel_profile``,
 ``intersect_profile``) and the
 ceiling microkernels (``roofline``) only by the profiling tools.
@@ -43,6 +47,10 @@ MAX_SMEM_BYTES = 232448
 # (megakernel.scene_features; csrc/path_common.cuh kF*).
 FEATURE_DEFINES = {"megakernel_v4": "V4_FEATURES", "megakernel_v3": "V3_FEATURES",
                    "megakernel_grad": "GRAD_FEATURES"}
+# The define of the bvh instances: their clustered families walk the
+# threaded BVH (csrc/path_common.cuh bvh_sweep), over tables that only
+# "bvh" mode packs (megakernel.SWEEP_MODE).
+SWEEP_DEFINE = "RT2_SWEEP_BVH"
 
 _LOCK = threading.Lock()
 _LIBS: dict[str, ctypes.CDLL] = {}
@@ -335,10 +343,27 @@ def _ntab_args(ntab, device) -> tuple:
     return ntab.data_ptr(), ntab.shape[1] // 256
 
 
+def sweep_defines() -> tuple:
+    """``(SWEEP_DEFINE,)`` where ``megakernel.SWEEP_MODE`` is "bvh", else
+    ``()``: read at each call, as the tables are packed by the mode at
+    hand."""
+    from raytrace2_tpu_torch.ops.kernels import megakernel as mk
+
+    return (SWEEP_DEFINE,) if mk.SWEEP_MODE == "bvh" else ()
+
+
 def feature_target(name: str, features: int) -> tuple:
     """Build target of kernel ``name``'s instance for a scene feature mask
-    (``megakernel.scene_features``): ``(name, ("<DEFINE>=<mask>",))``."""
-    return (name, (f"{FEATURE_DEFINES[name]}={int(features)}",))
+    (``megakernel.scene_features``): ``(name, ("<DEFINE>=<mask>",))``, with
+    ``SWEEP_DEFINE`` after it in "bvh" mode."""
+    return (name, (f"{FEATURE_DEFINES[name]}={int(features)}", *sweep_defines()))
+
+
+def step_target(name: str = "wavefront_step"):
+    """Build target of the wavefront step (or its profiling build
+    ``wavefront_profile``): the name, or in "bvh" mode its bvh instance."""
+    defines = sweep_defines()
+    return (name, defines) if defines else name
 
 
 def launch_megakernel_v4(camv, seed: int, background, packed, ntab, out, *, n_pix,
@@ -375,7 +400,7 @@ def launch_wavefront_step(camv, seed: int, background, packed, ntab, state, *, n
     """Launch ``wavefront_step``, advancing ``state`` [17, n_slots] in place
     by up to ``k_bounces`` steps per slot; raises on a refused launch."""
     device = _require_cuda(camv=camv, background=background, packed=packed, state=state)
-    lib = load("wavefront_step")
+    lib = load(step_target())
     if state.dim() != 2 or tuple(state.shape) != (lib.wavefront_step_state_cols(), n_slots):
         raise ValueError(f"state must be [{lib.wavefront_step_state_cols()}, n_slots], "
                          f"got {tuple(state.shape)}")
@@ -406,7 +431,7 @@ def profile_target(v4_features: int, v3_features: int) -> tuple:
     """Build target of the v4 and B4 profiling instances
     (``csrc/megakernel_profile.cu``, ``tools/roofline.py``) for the feature
     masks of the production instances they profile."""
-    return ("megakernel_profile", (*feature_target("megakernel_v4", v4_features)[1],
+    return ("megakernel_profile", (feature_target("megakernel_v4", v4_features)[1][0],
                                    *feature_target("megakernel_v3", v3_features)[1]))
 
 

@@ -26,15 +26,18 @@ superclusters in a front-to-back order, then their 16-record clusters in
 order, each skipped when its AABB's slab test fails for the ray's interval.
 The port picks the order per lane from the ray's own direction (JAX picks
 one per tile from the summed directions), so the visit order never depends
-on which other lanes are live. Noise textures evaluate hash-gradient noise,
-or with an ``ntab`` operand (``noise_impl="table"``) the reference's
-256-entry Perlin tables. The material/texture resolve is a direct index
-(the JAX sweep and gather both copy exact table values, so the result is
-the same).
+on which other lanes are live. With ``RT2_SWEEP_MODE=bvh`` (``SWEEP_MODE``)
+those families walk JAX's threaded BVH over their clusters instead
+(``_bvh_sweep``), each lane on its own cursor and its own threading. Noise
+textures evaluate hash-gradient noise, or with an ``ntab`` operand
+(``noise_impl="table"``) the reference's 256-entry Perlin tables. The
+material/texture resolve is a direct index (the JAX sweep and gather both
+copy exact table values, so the result is the same).
 """
 
 from __future__ import annotations
 
+import os
 import weakref
 
 import torch
@@ -77,8 +80,23 @@ SUPER = 128
 # ``hier_sph``/``hier_box``: ``n >= 2 * SPH_CLUSTER``).
 HIER_MIN = 2 * CLUSTER
 AABB_KEYS = ("x0", "y0", "z0", "x1", "y1", "z1")
+# How a clustered family is walked (JAX ``SWEEP_MODE``, megakernel.py:83,
+# read from the same variable with the same default): "hier", the
+# two-level cluster skip above, or "bvh", the threaded BVH over the
+# clusters (JAX ``_build_threaded_bvh``/``_bvh_sweep``, :180-270,
+# :500-552), whose tables (``threaded_bvh``: node AABBs ``bv`` [6, m],
+# ``bleaf`` [m], links ``bhit`` and ``bmiss`` [6 m], m = 2 n_cl - 1) follow
+# each family's cluster tables and are packed in "bvh" mode only, so the
+# default buffer stays what it was. The kernels take the walk from their
+# ``bvh`` instances (``build.SWEEP_DEFINE``). Tests switch modes in one
+# process by patching ``SWEEP_MODE``.
+SWEEP_MODES = ("hier", "bvh")
+SWEEP_MODE = os.environ.get("RT2_SWEEP_MODE", "hier")
+if SWEEP_MODE not in SWEEP_MODES:
+    raise ValueError(f"RT2_SWEEP_MODE={SWEEP_MODE!r}: expected one of {SWEEP_MODES}")
 CLUSTER_FAMILIES = tuple((f + part, keys) for f in ("s", "b") for part, keys in (
-    ("cb", AABB_KEYS), ("sb", AABB_KEYS), ("ord", ("ord",)), ("lord", ("lord",))))
+    ("cb", AABB_KEYS), ("sb", AABB_KEYS), ("ord", ("ord",)), ("lord", ("lord",)),
+    ("bv", AABB_KEYS), ("bleaf", ("bleaf",)), ("bhit", ("bhit",)), ("bmiss", ("bmiss",))))
 INVERSE_FAMILIES = tuple((f + k, (k,)) for f in ("s", "b") for k in ("iord", "ilord"))
 ALL_FAMILIES = FAMILIES + CLUSTER_FAMILIES + INVERSE_FAMILIES
 # Floats of one block's staging area beside the tables: camv (28), the
@@ -264,34 +282,44 @@ def _record_floats(sizes) -> int:
             + len(MAT_KEYS) * n_mat + len(TEX_KEYS) * n_tex)
 
 
+def bvh_nodes(n: int) -> int:
+    """Nodes of the threaded BVH over the clusters of ``n`` records."""
+    return 2 * cluster_counts(n)[0] - 1
+
+
 def hier_flags(sizes) -> tuple:
-    """(spheres, AA boxes): whether each family takes the cluster-skip sweep.
-    A family does from ``HIER_MIN`` records, as in JAX, as long as the
-    tables with the cluster tables still fit one block's shared memory
-    (``build.MAX_SMEM_BYTES``, the gradient kernel's block sums and the
-    wavefront step's inverse orders included: every kernel takes the same
-    flags, so that their images agree bitwise). Near the kernel path's
-    record ceiling they may not: then both families
-    stay on the flat sweep, which finds the same hits, and no scene the flat
-    sweep took is refused."""
+    """(spheres, AA boxes): whether each family takes the cluster-skip sweep
+    (or in "bvh" mode the BVH walk). A family does from ``HIER_MIN``
+    records, as in JAX, as long as the tables with the cluster tables (and
+    in "bvh" mode the BVH tables, 19 floats a node) still fit one block's
+    shared memory (``build.MAX_SMEM_BYTES``, the gradient kernel's block
+    sums and the wavefront step's inverse orders included: every kernel
+    takes the same flags, so that their images agree bitwise). Near the
+    kernel path's record ceiling they may not: then both families stay on
+    the flat sweep, which finds the same hits, and no scene the flat sweep
+    took is refused."""
     want = (sizes[0] >= HIER_MIN, sizes[5] >= HIER_MIN)
+    bvh = SWEEP_MODE == "bvh"
     floats = _record_floats(sizes) + _STAGE_EXTRA + sum(
-        18 * sum(cluster_counts(n)) for n, on in zip((sizes[0], sizes[5]), want) if on)
+        18 * sum(cluster_counts(n)) + (19 * bvh_nodes(n) if bvh else 0)
+        for n, on in zip((sizes[0], sizes[5]), want) if on)
     return want if 4 * floats <= MAX_SMEM_BYTES else (False, False)
 
 
 def family_rows(sizes) -> dict:
     """Rows per column of each family in the packed buffer: the active
     records (at least one row, as in the JAX tables), then the cluster
-    tables and inverse orders of each family that ``hier_flags`` clusters
-    (no rows otherwise)."""
+    tables (with the BVH tables in "bvh" mode) and inverse orders of each
+    family that ``hier_flags`` clusters (no rows otherwise)."""
     n_sph, n_quad, n_mat, n_tex, n_med, n_box = sizes
     rows = {"sph": max(n_sph, 1), "quad": max(n_quad, 1), "box": max(n_box, 1),
             "med": max(n_med, 1), "mat": n_mat, "tex": n_tex}
     for f, n, on in zip("sb", (n_sph, n_box), hier_flags(sizes)):
         n_cl, n_l2 = cluster_counts(n) if on else (0, 0)
+        m = bvh_nodes(n) if on and SWEEP_MODE == "bvh" else 0
         rows.update({f + "cb": n_cl, f + "sb": n_l2, f + "ord": 6 * n_l2,
-                     f + "lord": 6 * n_cl, f + "iord": 6 * n_l2, f + "ilord": 6 * n_cl})
+                     f + "lord": 6 * n_cl, f + "bv": m, f + "bleaf": m, f + "bhit": 6 * m,
+                     f + "bmiss": 6 * m, f + "iord": 6 * n_l2, f + "ilord": 6 * n_cl})
     return rows
 
 
@@ -326,20 +354,25 @@ def cluster_tables(lo, hi, act):
     centroid orders along +x, then their reverse for -x, and so on for y and
     z; ``iord[d n_l2 + c2]`` is the place of supercluster c2 in order d and
     ``ilord[d n_cl + c1]`` the place of cluster c1 among its supercluster's
-    clusters in order d."""
+    clusters in order d; and ``raw``, the clusters' (lo, hi) [n_cl, 3]
+    before the collapse (JAX ``cl_lo_raw``/``cl_hi_raw``, :123-129: a padded
+    cluster inverted, lo = +BIG, hi = -BIG), from which ``threaded_bvh``
+    builds."""
     lo = torch.where(act[:, None], lo, BIG)
     hi = torch.where(act[:, None], hi, -BIG)
     n_cl, n_l2 = lo.shape[0] // CLUSTER, lo.shape[0] // SUPER
     ratio = SUPER // CLUSTER
 
     def boxes(n, per):
-        b_lo = lo.view(n, per, 3).amin(1)
-        b_hi = hi.view(n, per, 3).amax(1)
+        return lo.view(n, per, 3).amin(1), hi.view(n, per, 3).amax(1)
+
+    def collapse(b_lo, b_hi):
         empty = b_hi[:, :1] < b_lo[:, :1]
         return torch.where(empty, BIG, b_lo), torch.where(empty, BIG, b_hi)
 
-    cl_lo, cl_hi = boxes(n_cl, CLUSTER)
-    sb_lo, sb_hi = boxes(n_l2, SUPER)
+    raw = boxes(n_cl, CLUSTER)
+    cl_lo, cl_hi = collapse(*raw)
+    sb_lo, sb_hi = collapse(*boxes(n_l2, SUPER))
     cen = (sb_lo + sb_hi) * 0.5
     ccen = (cl_lo + cl_hi) * 0.5
     base = (torch.arange(n_l2, device=lo.device) * ratio)[:, None]
@@ -358,13 +391,83 @@ def cluster_tables(lo, hi, act):
             "ord": ords.reshape(-1).to(torch.float32),
             "lord": lords.reshape(-1).to(torch.float32),
             "iord": iord.reshape(-1).to(torch.float32),
-            "ilord": ilord.reshape(-1).to(torch.float32)}
+            "ilord": ilord.reshape(-1).to(torch.float32), "raw": raw}
+
+
+def threaded_bvh(cl_lo, cl_hi):
+    """JAX ``_build_threaded_bvh`` (megakernel.py:180-270): a binary BVH over
+    the clusters' raw bounds ``cl_lo``/``cl_hi`` [n_cl, 3] (padded clusters
+    inverted, so that min/max unions ignore them), threaded six times for
+    a stackless walk. Each span of the cluster list takes its bounds'
+    longest axis (ties x before y before z), is stably sorted by AABB min
+    along it and split at the median; nodes have pre-order ids (left child
+    id + 1, right id + 2 mid). For each direction d (+x, -x, +y, -y, +z,
+    -z) a hit at an internal node goes to its near child (judged by lo + hi
+    on d's axis), a hit at a leaf and every miss to the node's escape.
+    Nodes holding only padding collapse to the point BIG, which fails every
+    slab test.
+
+    Returns, with m = 2 n_cl - 1: {"bv": [6, m] node AABBs (x0, y0, z0, x1,
+    y1, z1), "bleaf": [m] the leaf's cluster id or -1, "bhit", "bmiss":
+    [6 m] the link of direction d at d m + node, -1 at the end}, f32 on
+    the bounds' device."""
+    n_cl = cl_lo.shape[0]
+    m = 2 * n_cl - 1
+    node_lo, node_hi, leaf, kids = [None] * m, [None] * m, [None] * m, [None] * m
+    order = torch.arange(n_cl, device=cl_lo.device)
+
+    def build(start, end, node):
+        nonlocal order
+        span = order[start:end]
+        lo, hi = cl_lo[span], cl_hi[span]
+        node_lo[node], node_hi[node] = lo.amin(0), hi.amax(0)
+        if end - start == 1:
+            leaf[node] = span[0].to(torch.float32)
+            return
+        leaf[node] = torch.tensor(-1.0, device=cl_lo.device)
+        ext = node_hi[node] - node_lo[node]
+        ax_x = (ext[0] >= ext[1]) & (ext[0] >= ext[2])
+        ax_y = ~ax_x & (ext[1] >= ext[2])
+        keys = torch.where(ax_x, lo[:, 0], torch.where(ax_y, lo[:, 1], lo[:, 2]))
+        order = torch.cat([order[:start], span[torch.argsort(keys, stable=True)],
+                           order[end:]])
+        mid = (end - start) // 2
+        kids[node] = (node + 1, node + 2 * mid)
+        build(start, start + mid, node + 1)
+        build(start + mid, end, node + 2 * mid)
+
+    build(0, n_cl, 0)
+    # The six threadings at once: direction d judges its axis d // 2,
+    # ascending for even d.
+    asc = torch.tensor([True, False] * 3, device=cl_lo.device)
+    hit, miss = [None] * m, [None] * m
+
+    def thread(node, escape):
+        if kids[node] is None:
+            hit[node] = miss[node] = escape
+            return
+        left, right = kids[node]
+        c_l = (node_lo[left] + node_hi[left]).repeat_interleave(2)
+        c_r = (node_lo[right] + node_hi[right]).repeat_interleave(2)
+        near_left = torch.where(asc, c_l <= c_r, c_l >= c_r)
+        hit[node] = torch.where(near_left, float(left), float(right))
+        miss[node] = escape
+        thread(left, torch.where(near_left, float(right), escape))
+        thread(right, torch.where(near_left, escape, float(left)))
+
+    thread(0, torch.full((6,), -1.0, device=cl_lo.device))
+    lo_arr, hi_arr = torch.stack(node_lo), torch.stack(node_hi)
+    empty = hi_arr[:, :1] < lo_arr[:, :1]
+    lo_arr, hi_arr = torch.where(empty, BIG, lo_arr), torch.where(empty, BIG, hi_arr)
+    return {"bv": torch.cat([lo_arr.t(), hi_arr.t()]), "bleaf": torch.stack(leaf),
+            "bhit": torch.stack(hit, 1).reshape(-1), "bmiss": torch.stack(miss, 1).reshape(-1)}
 
 
 def pack_clusters(sph, box, sizes) -> list:
     """The ``CLUSTER_FAMILIES`` and ``INVERSE_FAMILIES`` dicts for
     ``pack_tables``' sphere and box columns: the cluster tables of each
-    family that ``hier_flags`` clusters,
+    family that ``hier_flags`` clusters (in "bvh" mode with the BVH tables,
+    built on the host from the raw cluster bounds),
     from detached geometry (they only steer the sweep, and are rebuilt from
     the current geometry whenever the tables are packed), sphere bounds
     covering the motion from c0 to c0 + dp (JAX :305-320, :338-348)."""
@@ -387,12 +490,19 @@ def pack_clusters(sph, box, sizes) -> list:
                 hi = torch.stack([col("x1"), col("y1"), col("z1")], -1)
             act = torch.arange(n + pad, device=lo.device) < n
             t = cluster_tables(lo, hi, act)
+            if SWEEP_MODE == "bvh":
+                t.update({k: v.to(lo.device) for k, v in
+                          threaded_bvh(*(x.cpu() for x in t["raw"])).items()})
         else:
             empty = torch.zeros(0, dtype=torch.float32, device=cols["act"].device)
             t = {"cb": empty.view(6, 0), "sb": empty.view(6, 0), "ord": empty, "lord": empty,
                  "iord": empty, "ilord": empty}
+        if "bv" not in t:
+            empty = torch.zeros(0, dtype=torch.float32, device=t["ord"].device)
+            t.update(bv=empty.view(6, 0), bleaf=empty, bhit=empty, bmiss=empty)
         out += [dict(zip(AABB_KEYS, t["cb"])), dict(zip(AABB_KEYS, t["sb"])),
-                {"ord": t["ord"]}, {"lord": t["lord"]}]
+                {"ord": t["ord"]}, {"lord": t["lord"]}, dict(zip(AABB_KEYS, t["bv"])),
+                {"bleaf": t["bleaf"]}, {"bhit": t["bhit"]}, {"bmiss": t["bmiss"]}]
         inverse += [{"iord": t["iord"]}, {"ilord": t["ilord"]}]
     return out + inverse
 
@@ -668,11 +778,67 @@ def _hier_sweep(h, body, rec, ray, extra, famid, *, dir_idx, inv_d, alive, track
                 rec[8] = torch.where(upd, float(famid), rec[8])
 
 
+def _bvh_sweep(h, body, rec, ray, extra, famid, *, dir_idx, inv_d, alive, track, stats,
+               name):
+    """The threaded-BVH walk of one family over all lanes (JAX ``_bvh_sweep``,
+    :500-552, per lane): each live lane keeps its own node cursor, from node
+    0 along the threading of its own direction (``dir_idx``), slab-tests
+    the node's AABB with its running best_t (``could_hit``), tests the 16
+    records of a leaf it enters, and follows ``bhit`` on a hit and
+    ``bmiss`` on a miss until its cursor falls below 0. A record is taken
+    when strictly closer (the lane's first of equal t within a leaf, and
+    never one equal to a record found earlier), as in the kernel's
+    record-by-record walk; a record's candidate t does not depend on best_t,
+    so a leaf's 16 records are tested at once and reduced (``_hier_sweep``).
+    ``stats`` counts each node test as an "aabb" slab test and each record
+    of an entered leaf as a record test of ``name``."""
+    n, m = h["n"], h["m"]
+    ox, oy, oz = ray["ox"], ray["oy"], ray["oz"]
+    k16 = torch.arange(CLUSTER, device=ox.device)
+    node = torch.where(alive, 0, -1)
+    while True:
+        lanes = torch.nonzero(node >= 0).squeeze(1)
+        if not lanes.numel():
+            return
+        nd = node[lanes]
+        hit = could_hit(h["bv"], nd, ox[lanes], oy[lanes], oz[lanes],
+                        tuple(i[lanes] for i in inv_d), rec[0][lanes])
+        leaf = h["bleaf"][nd]
+        enter = hit & (leaf >= 0)
+        if stats is not None:
+            stats["aabb"] += lanes.numel()
+        li = lanes[enter]
+        if li.numel():
+            p = leaf[enter][:, None] * CLUSTER + k16
+            valid = p < n
+            if stats is not None:
+                stats[name] += int(valid.sum())
+            pi = torch.where(valid, p, 0)
+            sub = {k: (v[li][:, None] if torch.is_tensor(v) else v) for k, v in ray.items()}
+            sub_extra = {k: (tuple(x[li][:, None] for x in v) if isinstance(v, tuple) else v)
+                         for k, v in extra.items()}
+            closer, vals = body({k: col[pi] for k, col in h["cols"].items()}, best_t=BIG,
+                                aux=rec[6][li][:, None], **sub, **sub_extra)
+            t = torch.where(closer & valid, vals[0], float("inf"))
+            w = torch.argmin(t, dim=1, keepdim=True)
+            upd = t.gather(1, w)[:, 0] < rec[0][li]
+            for f, v in enumerate(vals):
+                v = v.expand_as(t).gather(1, w)[:, 0] if torch.is_tensor(v) else v
+                rec[f] = rec[f].index_copy(0, li, torch.where(upd, v, rec[f][li]))
+            if track:
+                rec[7] = rec[7].index_copy(0, li, torch.where(
+                    upd, pi.gather(1, w)[:, 0].to(torch.float32), rec[7][li]))
+                rec[8] = rec[8].index_copy(0, li, torch.where(upd, float(famid), rec[8][li]))
+        link = dir_idx[lanes] * m + nd
+        node = node.index_copy(0, lanes, torch.where(hit, h["bhit"][link], h["bmiss"][link]))
+
+
 def _closest_hit(tl, sizes, *, key, tm, ox, oy, oz, dx, dy, dz, a, inv_a, bn,
                  track=False, hier=None, alive=None, stats=None):
     """Closest-hit sweep (JAX ``make_family_bodies`` + ``_closest_hit``,
     :635-882): quads and media flat in record order, spheres and AA boxes
-    flat too or, for the families in ``hier``, through ``_hier_sweep``.
+    flat too or, for the families in ``hier``, through ``_hier_sweep`` (or
+    ``_bvh_sweep`` where ``hier`` holds the family's BVH tables).
     ``tl`` maps family → {key: list of floats}. Returns [best_t, fam, mat,
     p0, p1, p2, aux], and with ``track`` also the winner's record index and
     family id (``FAMID``; -1 on a miss) — the same values, the extra columns
@@ -695,7 +861,8 @@ def _closest_hit(tl, sizes, *, key, tm, ox, oy, oz, dx, dy, dz, a, inv_a, bn,
 
     def sweep(fam, keys, n, body, extra=lambda p: {}):
         if fam in hier:
-            _hier_sweep(hier[fam], body, rec, ray, extra(0), FAMID[fam], name=fam, **hkw)
+            walk = _bvh_sweep if "bv" in hier[fam] else _hier_sweep
+            walk(hier[fam], body, rec, ray, extra(0), FAMID[fam], name=fam, **hkw)
             return
         if stats is not None:
             stats[fam] += n * n_live
@@ -986,6 +1153,11 @@ def make_bounce(packed, background, *, max_depth, sizes, has_checker, has_noise,
                              cb=cols[f + "cb"], sb=cols[f + "sb"],
                              ord=cols[f + "ord"]["ord"].to(torch.int64),
                              lord=cols[f + "lord"]["lord"].to(torch.int64))
+            if SWEEP_MODE == "bvh":
+                hier[fam].update(m=bvh_nodes(n), bv=cols[f + "bv"],
+                                 bleaf=cols[f + "bleaf"]["bleaf"].to(torch.int64),
+                                 **{k: cols[f + k][k].to(torch.int64)
+                                    for k in ("bhit", "bmiss")})
     mat_cols = [cols["mat"][k] for k in MAT_KEYS]
     tex_cols = [cols["tex"][k] for k in TEX_KEYS]
     bg = [float(x) for x in background.tolist()]
@@ -1119,7 +1291,8 @@ def check_inputs(camv, packed, background, n_pix, sizes):
     if camv.numel() != camera.CAMV_LEN or background.numel() != 3:
         raise ValueError("camv must hold 28 entries and background 3")
     if packed.numel() != table_layout(sizes)["total"][0]:
-        raise ValueError("packed buffer does not match the table layout of sizes")
+        raise ValueError("packed buffer does not match the table layout of sizes (packed "
+                         "in another SWEEP_MODE?)")
     if not 0 <= n_pix < (1 << 24):
         # Pixel ids ride f32 in the kernel's slot arithmetic (JAX :1729-1731).
         raise ValueError(f"n_pix={n_pix} must be below 2^24")

@@ -103,6 +103,8 @@ def megakernel_pass(state, rid, seed_lane, min_alive, packed, background, *, max
                          f"{TILE_R}, got {tuple(state.shape)}")
     if not -2**31 <= int(seed_lane) < 2**31:
         raise ValueError("seed_lane must be an int32")
+    if packed.numel() != mk.table_layout(sizes)["total"][0]:
+        raise ValueError("packed buffer does not match the table layout of sizes")
     kw = dict(max_depth=max_depth, sizes=sizes, has_checker=has_checker, has_noise=has_noise)
     if state.device.type == "cpu":
         return pass_plain(state, rid, seed_lane, min_alive, packed, background, **kw)

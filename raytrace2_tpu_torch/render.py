@@ -178,7 +178,14 @@ class Renderer:
         return max(int(math.sqrt(self.num_samples)), 1)
 
     def reset(self) -> None:
+        """RayTracer::Reset (RayTracer.cpp:49-53): a zero accumulator."""
         self._state = init_state(self.width, self.height, self.device)
+
+    def resize(self, width: int, height: int) -> None:
+        """RayTracer::OnResize: reallocate and restart the accumulation
+        (RayTracer.cpp:87-104)."""
+        self.width, self.height = width, height
+        self.reset()
 
     def update(self, n_samples: int = 1) -> None:
         chunk = self.chunk_size
@@ -205,5 +212,20 @@ class Renderer:
     def state(self) -> RenderState:
         return self._state
 
+    def set_state(self, state: RenderState) -> None:
+        """Restore a checkpointed accumulator (resume; ``io.checkpoint``),
+        moved to the render device. Its image must have this renderer's
+        size."""
+        shape = (self.height, self.width, 3)
+        if tuple(state.accum.shape) != shape:
+            raise ValueError(f"checkpoint accumulator {tuple(state.accum.shape)} does not "
+                             f"match the render's {shape}")
+        self._state = RenderState(state.accum.to(self.device, torch.float32).contiguous(),
+                                  int(state.frame_idx))
+
     def linear_pixels(self) -> np.ndarray:
         return linear_image(self._state).cpu().numpy()
+
+    def display_pixels(self) -> np.ndarray:
+        """u8 display pixels [H, W, 3] (``display_image``)."""
+        return display_image(self._state).cpu().numpy()

@@ -2,13 +2,16 @@
 
     python -m raytrace2_tpu_torch.tools.ab_kernels ROOT_A ROOT_B
         [--what grad fwd v4 wf v3 b5 pallas]
-        [--cli-spp 64]
+        [--cli-spp 64] [--sweeps MODE_A MODE_B]
 
 Each ROOT is a directory that holds a ``raytrace2_tpu_torch`` package: a
 checkout, a ``git archive`` of another commit, or a copy with one change.
 The trees run in turns A, B, B, A, each in a process of its own that builds
 its kernels into its own ``_build/``, so two versions are compared inside
-one call on one card. One JSON line per run:
+one call on one card. ``--sweeps`` runs A's processes with
+``RT2_SWEEP_MODE=MODE_A`` and B's with ``MODE_B`` (default hier for both):
+``. . --sweeps hier bvh`` times the cluster skip against the threaded-BVH
+sweep in one tree. One JSON line per run:
 
 * ``grad``: the gradient kernel (B3) at Cornell 600², depth 50, 64 spp,
   sqrt_spp 2, and book 2 64², depth 50, 4 spp, CUDA events over 3
@@ -403,7 +406,8 @@ def _child(root, what, cli_spp):
     if what == "fwd":
         # Kept out of the timed CLI runs: the wavefront's first build (v4's
         # and B3's instances are built by the first timed calls' warm-ups).
-        build.build_all(("wavefront_step", "intersect_kernel"))
+        build.build_all((getattr(build, "step_target", lambda: "wavefront_step")(),
+                         "intersect_kernel"))
     dev = torch.device("cuda")
     run = {"grad": _run_grad, "fwd": lambda p, d: _run_fwd(p, d, cli_spp), "v4": _run_v4,
            "wf": _run_wf, "v3": _run_v3, "b5": _run_b5, "pallas": _run_pallas}[what]
@@ -420,6 +424,8 @@ def main(argv=None) -> int:
     p.add_argument("--what", nargs="+", default=["grad", "fwd"],
                    choices=["grad", "fwd", "v4", "wf", "v3", "b5", "pallas"])
     p.add_argument("--cli-spp", type=int, default=64, help="samples of each CLI render")
+    p.add_argument("--sweeps", nargs=2, default=["hier", "hier"], choices=["hier", "bvh"],
+                   help="RT2_SWEEP_MODE of A's and of B's runs")
     p.add_argument("--child", action="store_true", help=argparse.SUPPRESS)
     args = p.parse_args(argv)
     import torch
@@ -433,18 +439,19 @@ def main(argv=None) -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True)
     print(smi.stdout.strip(), flush=True)
-    a, b = (os.path.abspath(r) for r in args.roots)
+    a, b = ((os.path.abspath(r), m) for r, m in zip(args.roots, args.sweeps))
     for what in args.what:
-        for root in (a, b, b, a):
+        for root, sweep in (a, b, b, a):
             # Run as a script, so that the child imports the package from root.
             r = subprocess.run([sys.executable, os.path.abspath(__file__), root, root,
                                 "--what", what, "--cli-spp", str(args.cli_spp), "--child"],
-                               cwd=REPO,
+                               cwd=REPO, env=dict(os.environ, RT2_SWEEP_MODE=sweep),
                                capture_output=True, text=True, timeout=900)
             if r.returncode:
                 print(r.stdout[-2000:], r.stderr[-4000:], file=sys.stderr)
                 return r.returncode
-            print(r.stdout.strip().splitlines()[-1], flush=True)
+            line = json.loads(r.stdout.strip().splitlines()[-1])
+            print(json.dumps(dict(line, sweep=sweep)), flush=True)
     return 0
 
 

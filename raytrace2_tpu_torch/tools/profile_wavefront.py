@@ -144,7 +144,7 @@ class Profiler:
         from raytrace2_tpu_torch.ops.kernels import build
         from raytrace2_tpu_torch.ops.kernels import megakernel as mk
 
-        lib = build.load("wavefront_profile")
+        lib = build.load(build.step_target("wavefront_profile"))
         if (name == "profiled") != (prof is not None):
             raise ValueError("the profiled variant, and only it, takes the counters")
         counts = mk.counts(self.sizes, mk.n_noise_of(self.ntab))
@@ -166,19 +166,19 @@ class Profiler:
         from raytrace2_tpu_torch.ops.kernels import build
         from raytrace2_tpu_torch.ops.kernels import megakernel as mk
 
-        lib = build.load("wavefront_step")
-        build.load("wavefront_profile")
+        lib = build.load(build.step_target())
+        build.load(build.step_target("wavefront_profile"))
         smem = lib.wavefront_step_smem_bytes(*mk.counts(self.sizes, mk.n_noise_of(self.ntab)))
         return {"smem_bytes": smem, "threads_per_sm": lib.wavefront_step_threads_per_sm(smem),
-                "ptxas": {k: build.ptxas_usage(k) for k in ("wavefront_step",
-                                                            "wavefront_profile")}}
+                "ptxas": {k: build.ptxas_usage(k) for k in map(build.target_key, (
+                    build.step_target(), build.step_target("wavefront_profile")))}}
 
     def counters(self):
         import torch
 
         from raytrace2_tpu_torch.ops.kernels import build
 
-        n = build.load("wavefront_profile").wavefront_profile_counters()
+        n = build.load(build.step_target("wavefront_profile")).wavefront_profile_counters()
         return torch.zeros(n, dtype=torch.int64, device=self.dev)
 
     def batch(self, step=None, sort=None):

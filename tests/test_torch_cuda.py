@@ -533,3 +533,51 @@ def test_megakernel_v3_instances_match_plain(tmp_path, cuda, name):
         assert torch.equal(rad_k, rad_p) and torch.equal(new_k, new_p), min_alive
         live = (new_k[mk3.COL["alive"]] > 0).view(-1, mk3.TILE_R).sum(1)
         assert int(live.max()) <= min_alive
+
+
+@pytest.mark.parametrize("kernel", ["v4", "v4_block", "wavefront", "v3", "grad"])
+def test_bvh_instances_match_plain(tmp_path, cuda, monkeypatch, kernel):
+    """The bvh instances (RT2_SWEEP_MODE=bvh: the threaded-BVH walk) on the
+    grid scene against their plain versions in "bvh" mode: v4 on both
+    layouts, the wavefront step's K=2 then K=16 launch and one B4 pass
+    bitwise, B3 within 1e-3 of the largest cotangent with the same replayed
+    bounces."""
+    monkeypatch.setattr(mk, "SWEEP_MODE", "bvh")
+    block = kernel == "v4_block"
+    args, kw = _v4_args(write_scene(tmp_path, "grid"), 40, 24, 2, 8, cuda, block=block)
+    kw.pop("ntab")
+    assert mk.hier_flags(kw["sizes"]) == (True, True)
+    assert mk.table_layout(kw["sizes"])["sbv"][1] == mk.bvh_nodes(kw["sizes"][0])
+    n_slots, _ = mk.pixel_slots(40, 24, block)
+    if kernel.startswith("v4"):
+        kern = mk.trace_megakernel_batch(*args, n_pix=n_slots, block=block,
+                                         wave_frac=0.5 if block else 1.0, **kw)
+        plain = mk.trace_plain(*args, n_pix=n_slots, block=block,
+                               wave_frac=0.5 if block else 1.0, **kw)
+        assert float(kern.max()) > 0 and torch.equal(kern, plain)
+    elif kernel == "wavefront":
+        state = wf.init_wavefront_state(1024, args[0].tolist(), cuda)
+        bb = wf.scene_bounds(args[2], kw["sizes"])
+        for k in (wf.K_BOUNCES, wf.TAIL_K):
+            state = wf.sort_state(state, 2.0, *bb)
+            st_k = wf.wavefront_step(state.clone(), *args, k_bounces=k, **kw)
+            st_p = wf.step_plain(state.clone(), *args, k_bounces=k, **kw)
+            assert torch.equal(st_k, st_p)
+            state = st_k
+    elif kernel == "v3":
+        rs = np.random.RandomState(9)
+        o = torch.from_numpy(rs.uniform(-12, 12, (256, 3)).astype(np.float32)).to(cuda)
+        d = torch.from_numpy(rs.normal(size=(256, 3)).astype(np.float32)).to(cuda)
+        state, rid = mk3.init_state(o, d, torch.zeros(256, device=cuda))
+        kern = mk3.megakernel_pass(state, rid, 12345, 0, *args[2:], **kw)
+        plain = mk3.pass_plain(state, rid, 12345, 0, *args[2:], **kw)
+        assert all(torch.equal(a, b) for a, b in zip(kern, plain))
+    else:
+        g = torch.from_numpy(np.random.RandomState(5).uniform(0, 1, (40 * 24, 3))
+                             .astype(np.float32)).to(cuda)
+        counts = [torch.zeros(1, dtype=torch.int64, device=cuda) for _ in range(2)]
+        kern = mkg.grad_call(*args, g, n_pix=960, bounces=counts[0], **kw)
+        plain = mkg.grad_plain(*args, g, n_pix=960, bounces=counts[1], **kw)
+        assert int(counts[0]) == int(counts[1]) > 0
+        for a, b in zip(kern, plain):
+            assert float((a - b).abs().max()) <= 1e-3 * float(b.abs().max()) + 1e-6
