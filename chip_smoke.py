@@ -125,7 +125,28 @@ Phases, each printed on its own line:
      csrc/path_common.cuh, csrc/grad_adjoint.cuh and csrc/intersect_kernel.cu
      for the work this run's data took, or bytes moved, over the card's
      peak rates; beside it the same operations over the measured -fmad=false
-     ceiling of phase 16), and the ceilings.
+     ceiling of phase 16), and the ceilings;
+ 21. the differentiable scan (grad.render_image's fallback) at full width:
+     Cornell 600x600 depth 65 and the ellipsoid scene 600x600 depth 50, 1
+     spp each, an L2 loss against a fixed target: forward and backward
+     wall, peak device memory, every cotangent finite, no v4 or B3 launch;
+     the card's scan gradient against the CPU's at 64x64 depth 8 (1e-3 of
+     each group's largest cotangent, flipped paths out of the loss);
+ 22. the sharded paths (parallel/sharding.py) on the one card: a world of 1
+     under NCCL (render_samples_sharded_mega Cornell 600x600 64 spp bitwise
+     the Renderer's image; grad_sharded_auto at 64 spp against
+     value_and_grad_scene, one B3 launch), then two gloo ranks on cuda:0
+     (parallel.dryrun.run_ranks): Cornell 600x600 16 spp at meshes (1, 2)
+     bitwise and (2, 1) within 1e-6 relative, book 2 at (1, 2) through the
+     wavefront bitwise, grad_sharded_auto at (1, 2) under B3's gate; the
+     second dp rank's slots start at camv[25] > 0 in v4, the wavefront step
+     and B3;
+ 23. the live CLI: app.main --live --live-cols 80 on Cornell 600x600 16 spp
+     (one ANSI frame per launch, the PNG of the run without --live), and
+     --profile DIR (a Chrome trace whose kernel events name each v4
+     launch).
+Phases 21-23 run after phase 19 and before the kernels line of phase 20,
+whose JSON also carries their numbers.
 The last line is {"ok": true, "device": {...}}. Any failure exits non-zero
 before printing it, as does a machine without CUDA or a directory without
 the package.
@@ -173,6 +194,12 @@ OPS_AABB = 25
 # adjoint — 60 f32 operations for a Lambertian quad hit, the cheapest case,
 # counted from csrc/grad_adjoint.cuh (bounce_adjoint, resolve_adjoint).
 OPS_ADJOINT = 60
+# f32 operations of one noise evaluation, counted from csrc/path_common.cuh:
+# perlin_noise 121 (3 floor, 3 fraction, 12 Hermite weights, 7 weight
+# complements, 12 per lattice corner x 8; the TableLattice gathers are
+# integer work), turbulence 7 x (121 + 6) + 1, noise_factor's marble 6 and
+# Perlin 5 around them, and 3 to scale the albedo.
+OPS_NOISE = {"marble": 7 * (121 + 6) + 1 + 6 + 3, "perlin": 3 + 121 + 2 + 3}
 # The non-kernel path's chunk on Cornell (render.py CHUNK_SIZE; B5's launch
 # shapes are tools/ab_kernels.py B5_CASES).
 CHUNK_CORNELL = 65536
@@ -1001,6 +1028,15 @@ def main() -> None:
     bvh = bvh_phases(dev, card, work, book2, book2_16, wf_launch, captured, b1)
     bench = bench_phase(card)
     resume = resume_phase(card, cornell, work)
+    walls = [time.perf_counter()]
+    scan = scan_grad_phase(card, cornell, work)
+    walls.append(time.perf_counter())
+    sharded = sharded_phase(card, cornell, book2, work)
+    walls.append(time.perf_counter())
+    live = live_cli_phase(card, cornell, work)
+    walls.append(time.perf_counter())
+    say("phases 21-23 wall: " + ", ".join(f"{b - a:.1f} s" for a, b in zip(walls, walls[1:]))
+        + f", {walls[-1] - walls[0]:.1f} s together ({card})")
     shutil.rmtree(work)
     for name in ("jax", "raytrace2_tpu"):
         check(name not in sys.modules, f"{name} was imported")
@@ -1061,6 +1097,7 @@ def main() -> None:
         "shape": "book2 600x600, depth 50, 6 spp, a K=2 launch",
         "k16": k16, "k2_flat_ms": k2["flat_ms"],
         "launches_table_noise": b1["table_launches"],
+        "table_noise_launch": b1["table_noise"],
         "cli_mpaths_per_s": cli_mp,
         "instances": [instance("wavefront_step"), bvh_instance(0, None)],
         "split": splits["wavefront"],
@@ -1126,7 +1163,8 @@ def main() -> None:
         # with -fmad=false (a multiply and an add issued apart; phase 16).
         if k["bound_by"] == "operations":
             k["bound_ms_fmad_false"] = k["bound_ms"] * PEAK_F32_OPS / ceil["mul_add_ops_per_s"]
-    say(json.dumps({"kernels": kernels, "ceilings": ceil, "bench": bench, "resume": resume}))
+    say(json.dumps({"kernels": kernels, "ceilings": ceil, "bench": bench, "resume": resume,
+                    "scan_grad": scan, "sharded": sharded, "live_cli": live}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))
 
 
@@ -1368,15 +1406,36 @@ def b1_option_phases(dev, card, book2, book2_16) -> dict:
     bb = wf.scene_bounds(packed, sizes)
     for k in (wf.K_BOUNCES, wf.TAIL_K):
         state = wf.sort_state(state, float(spp), *bb)
+        stats = {}
         st_k = wf.wavefront_step(state.clone(), camv, 0, packed, bg, k_bounces=k, **wkw)
-        st_p = wf.step_plain(state.clone(), camv, 0, packed, bg, k_bounces=k, **wkw)
+        st_p = wf.step_plain(state.clone(), camv, 0, packed, bg, k_bounces=k, stats=stats,
+                             **wkw)
         torch.cuda.synchronize()
         check(torch.equal(st_k, st_p), f"wavefront K={k} with table noise differs from plain")
+        if k == wf.K_BOUNCES:
+            # The table-noise launch's time and bound: the sweep and shading
+            # operations plus each noise evaluation's (csrc/path_common.cuh
+            # TableLattice, perlin_noise, turbulence, noise_factor).
+            _, noise_ms = event_ms(lambda: wf.wavefront_step(
+                state.clone(), camv, 0, packed, bg, k_bounces=k, **wkw), 5)
+            noise_ops = sum(stats[f"noise_{t}"] * OPS_NOISE[t] for t in OPS_NOISE)
+            ops = sweep_ops(stats) + noise_ops
+            nbytes = 2 * 17 * 4 * n_rays + packed.numel() * 4 + ntab.numel() * 4
+            table_noise = dict(
+                ms=noise_ms, bound_ms=max(ops / PEAK_F32_OPS, nbytes / PEAK_BYTES) * 1e3,
+                bound_by="operations" if ops / PEAK_F32_OPS >= nbytes / PEAK_BYTES else "bytes",
+                noise_ops_share=noise_ops / ops, bounces=stats["bounces"],
+                **{f"noise_{t}": stats[f"noise_{t}"] for t in OPS_NOISE},
+                shape=f"book2 {size}x{size} {spp} spp depth 50, the first K={k} launch")
         state = st_k
     say(f"phase 13 table noise (noise_impl='table'), book2 {size}x{size} {spp} spp depth 50: "
         f"v4 bitwise equal to its plain version ({n_noise} pixels differ from hash noise); "
         f"the wavefront step's K={wf.K_BOUNCES} and K={wf.TAIL_K} launches bitwise equal to "
-        f"the plain step ({card})")
+        f"the plain step; the K={wf.K_BOUNCES} launch {table_noise['ms']:.4f} ms (mean of 5), "
+        f"{table_noise['bounces']} bounces, {table_noise['noise_marble']} marble and "
+        f"{table_noise['noise_perlin']} Perlin noise evaluations "
+        f"({table_noise['noise_ops_share']:.3f} of its f32 operations), bound "
+        f"{table_noise['bound_ms']:.4f} ms by {table_noise['bound_by']} ({card})")
 
     # ---- phase 14: this slice's main paths -------------------------------
     mk.LAUNCHES = wf.LAUNCHES = 0
@@ -1425,7 +1484,7 @@ def b1_option_phases(dev, card, book2, book2_16) -> dict:
         f"4 spp, depth 50: loss {float(loss):.4f}, {wf.LAUNCHES} wavefront + {mkg.LAUNCHES} "
         f"B3 launches, every leaf finite, max |d center0| {dc:.3g}, {g_wall:.1f} ms ({card})")
     out.update(v4_forced_launches=v4_main, table_launches=table_launches,
-               b3_book2=dict(ms=b3_ms, plain_ms=b3_plain_ms))
+               b3_book2=dict(ms=b3_ms, plain_ms=b3_plain_ms), table_noise=table_noise)
     return out
 
 
@@ -2133,6 +2192,382 @@ def non_kernel_phases(dev, card, scene_file, cornell, book2, ops_per_bounce):
         "library_ms": None,
         "shape": "cornell 600x600, depth 50, the first pass (min_alive 8 of 128)",
     }], ceil
+
+
+def scene_groups(tree) -> dict:
+    """{leaf group: [float leaves]} of a gradient FlatScene: the top-level
+    fields (spheres, quads, ..., camera) and the background."""
+    import dataclasses
+
+    out = {}
+    for f in dataclasses.fields(tree):
+        node = getattr(tree, f.name)
+        if node is None:
+            continue
+        leaves = ([getattr(node, g.name) for g in dataclasses.fields(node)]
+                  if dataclasses.is_dataclass(node) else [node])
+        leaves = [x for x in leaves if x is not None]
+        if leaves:
+            out[f.name] = leaves
+    return out
+
+
+def grad_gate(ours, ref, rtol=GRAD_RTOL, atol=GRAD_ATOL) -> dict:
+    """max|ours - ref| / max|ref| per leaf group of two gradient FlatScenes;
+    fails unless every group is finite and within ``rtol`` of its largest
+    cotangent (+ ``atol``)."""
+    import torch
+
+    out = {}
+    a, b = scene_groups(ours), scene_groups(ref)
+    for name, leaves in b.items():
+        scale = max(float(x.abs().max()) if x.numel() else 0.0 for x in leaves)
+        err = max(float((x.cpu() - y.cpu()).abs().max()) if y.numel() else 0.0
+                  for x, y in zip(a[name], leaves))
+        check(all(bool(torch.isfinite(x).all()) for x in a[name]) and err <= rtol * scale + atol,
+              f"gradient group {name}: max|d| {err:.4g} against max|g| {scale:.4g} (gate "
+              f"{rtol:g} max|g| + {atol:g})")
+        out[name] = err / scale if scale else 0.0
+    return out
+
+
+def scan_grad_phase(card, cornell, work) -> dict:
+    """Phase 21: the differentiable scan (grad.render_image's fallback) on the
+    card at full width: grad.value_and_grad_scene's steps (L2 loss against a
+    fixed target) on Cornell 600x600 at depth 65 (above B3's 64, so the scan,
+    with no v4 or B3 launch) and on the ellipsoid scene 600x600 at depth 50,
+    1 sample each: forward and backward wall, peak device memory, every
+    float cotangent finite. Then the card's scan gradient against the CPU's
+    at 64x64, depth 8, within 1e-3 of each leaf group's largest cotangent,
+    with the pixels whose path flips between the two (found from the
+    forward images under the scene's background and a white one) out of the
+    loss on both sides."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from test_torch_scenes import ellipsoid_scene_json
+
+    from raytrace2_tpu_torch import grad
+    from raytrace2_tpu_torch.ops.kernels import megakernel as mk
+    from raytrace2_tpu_torch.ops.kernels import megakernel_grad as mkg
+    from raytrace2_tpu_torch.ops.kernels import wavefront as wf
+    from raytrace2_tpu_torch.scene import loader, schema
+
+    dev = torch.device("cuda", 0)
+    ell = os.path.join(work, "ellipsoid_scan.json")
+    with open(ell, "w") as f:
+        json.dump(ellipsoid_scene_json(), f)
+    out = {}
+    for name, path, depth in (("cornell", cornell, 65), ("ellipsoid", ell, 50)):
+        host, _ = loader.load_scene(path)
+        feats = dict(host.features(), use_megakernel=True)
+        check(not grad.takes_kernel(feats, depth), f"{name} at depth {depth} takes the kernels")
+        scene = schema.to_device(host, dev)
+        target = torch.full((600, 600, 3), 0.25, device=dev)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        mk.LAUNCHES = wf.LAUNCHES = mkg.LAUNCHES = 0
+        params, leaves = grad.scene_params(scene)
+        t0 = time.perf_counter()
+        img = grad.render_image(params, feats, 0, width=600, height=600, n_samples=1,
+                                max_depth=depth, sqrt_spp=1)
+        loss = torch.sum((img - target) ** 2)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        g = grad.grad_tree(params, torch.autograd.grad(loss, leaves, allow_unused=True))
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        loss = loss.detach()
+        peak = torch.cuda.max_memory_allocated(dev)
+        check(mk.LAUNCHES == wf.LAUNCHES == mkg.LAUNCHES == 0,
+              f"{name} scan launched v4 {mk.LAUNCHES}, wavefront {wf.LAUNCHES}, B3 "
+              f"{mkg.LAUNCHES} times")
+        floats = [x for xs in scene_groups(g).values() for x in xs]
+        check(all(bool(torch.isfinite(x).all()) for x in floats), f"{name} scan gradient "
+                                                                 "not finite")
+        img = img.detach()
+        check(bool(torch.isfinite(img).all()) and float(img.mean()) > 0.0,
+              f"{name} scan image mean {float(img.mean())}")
+        nonzero = sum(int((x != 0).sum()) for x in floats)
+        out[name] = {"depth": depth, "forward_ms": (t1 - t0) * 1e3,
+                     "backward_ms": (t2 - t1) * 1e3, "peak_bytes": int(peak),
+                     "loss": float(loss), "nonzero_cotangents": nonzero}
+        say(f"phase 21 scan gradient, grad.render_image + torch.autograd.grad, {name} 600x600 "
+            f"1 spp depth {depth}: loss {float(loss):.6g}, forward {(t1 - t0) * 1e3:.1f} ms, "
+            f"backward {(t2 - t1) * 1e3:.1f} ms, peak device memory {peak / 2**30:.2f} GiB, "
+            f"{len(floats)} float leaves finite ({nonzero} nonzero entries), no v4/B3 launch "
+            f"({card})")
+        del img, loss, g, params, leaves, floats
+        torch.cuda.empty_cache()
+
+    kw = dict(width=64, height=64, n_samples=1, max_depth=8, sqrt_spp=1)
+    target = np.random.RandomState(0).uniform(size=(64, 64, 3)).astype(np.float32)
+    for name, path in (("cornell", cornell), ("ellipsoid", ell)):
+        host, _ = loader.load_scene(path)
+        feats = dict(host.features(), use_megakernel=False)
+        res = {}
+        for d in ("cpu", dev):
+            scene = schema.to_device(host, d)
+            with torch.no_grad():
+                imgs = [grad.render_image(s, feats, 0, **kw).cpu().numpy() for s in (
+                    scene, dataclasses.replace(scene, background=torch.ones(3, device=d)))]
+            res[str(d)] = (scene, imgs)
+        (s_cpu, i_cpu), (s_dev, i_dev) = res["cpu"], res[str(dev)]
+        flipped = np.zeros((64, 64), bool)
+        for a, b in zip(i_dev, i_cpu):
+            flipped |= np.any(np.abs(a - b) > 2e-5 + 2e-4 * np.abs(b), axis=-1)
+        check(flipped.mean() <= 0.005, f"{name} 64x64 card vs CPU scan: {int(flipped.sum())} "
+                                       "pixels flip")
+        weight = torch.from_numpy((~flipped).astype(np.float32)[..., None])
+        tt = torch.from_numpy(target)
+        grads = []
+        for scene, d in ((s_cpu, "cpu"), (s_dev, dev)):
+            w, t = weight.to(d), tt.to(d)
+            grads.append(grad.value_and_grad_scene(lambda im: torch.sum(w * (im - t) ** 2),
+                                                   scene, feats, 0, **kw))
+        (l_cpu, g_cpu), (l_dev, g_dev) = grads
+        check(abs(float(l_dev) - float(l_cpu)) <= 1e-4 * abs(float(l_cpu)),
+              f"{name} scan loss card {float(l_dev)} vs CPU {float(l_cpu)}")
+        rel = grad_gate(g_dev, g_cpu, rtol=1e-3, atol=1e-6)
+        out[name]["card_vs_cpu_64"] = {"flipped": int(flipped.sum()), "rel": rel}
+        say(f"phase 21 scan gradient card vs CPU, {name} 64x64 1 spp depth 8: "
+            f"{int(flipped.sum())} of 4096 pixels flip (out of the loss), max|d|/max|g| per "
+            f"group " + ", ".join(f"{k} {v:.2g}" for k, v in rel.items()) + " (gate 1e-3)")
+    return out
+
+
+def _sharded_ranks(cornell, book2) -> dict:
+    """One rank of phase 22's pair of gloo ranks on cuda:0: the kernel path
+    sharded at meshes (1, 2) and (2, 1) on Cornell 600x600 16 spp, book 2
+    at (1, 2) through the wavefront, and grad_sharded_auto at (1, 2) (B3 on
+    each rank's run of slots)."""
+    import torch
+
+    from raytrace2_tpu_torch.ops.kernels import megakernel as mk
+    from raytrace2_tpu_torch.ops.kernels import megakernel_grad as mkg
+    from raytrace2_tpu_torch.ops.kernels import wavefront as wf
+    from raytrace2_tpu_torch.parallel import sharding
+    from raytrace2_tpu_torch.scene import loader, schema
+
+    dev = torch.device("cuda", 0)
+    kw = dict(width=600, height=600, max_depth=50, sqrt_spp=4)
+    out = {}
+    meshes = {}
+    for name, path, (sp, dp) in (("cornell_1x2", cornell, (1, 2)),
+                                 ("cornell_2x1", cornell, (2, 1)),
+                                 ("book2_1x2", book2, (1, 2))):
+        host, _ = loader.load_scene(path)
+        scene = schema.to_device(host, dev)
+        feats = dict(host.features(), use_megakernel=True)
+        mesh = meshes.setdefault((sp, dp), sharding.make_mesh(sp=sp, dp=dp, device=dev))
+        spd = 16 // sp
+        sharding.render_samples_sharded_mega(scene, feats, 0, 0, samples_per_device=1,
+                                             mesh=mesh, **kw)  # warm-up
+        mk.LAUNCHES = wf.LAUNCHES = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        img = sharding.render_samples_sharded_mega(scene, feats, 0, 0, samples_per_device=spd,
+                                                   mesh=mesh, **kw)
+        torch.cuda.synchronize()
+        out[name] = {"image": img.cpu(), "ms": (time.perf_counter() - t0) * 1e3,
+                     "v4": mk.LAUNCHES, "wavefront": wf.LAUNCHES,
+                     "pix0": mesh.dp_index * sharding._slot_chunk(feats, 600, 600, dp)[0]}
+        if name == "cornell_1x2":
+            target = torch.full((600, 600, 3), 0.3, device=dev)
+            # Warm-up: the first backward loads torch's kernels for it.
+            sharding.grad_sharded_auto(scene, feats, target, 0, n_samples=1, mesh=mesh, **kw)
+            mkg.LAUNCHES = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss, g = sharding.grad_sharded_auto(scene, feats, target, 0, n_samples=16,
+                                                 mesh=mesh, **kw)
+            torch.cuda.synchronize()
+            out["grad_1x2"] = {"loss": float(loss), "b3": mkg.LAUNCHES,
+                               "ms": (time.perf_counter() - t0) * 1e3,
+                               "grad": schema.map_leaves(g, lambda x: x.cpu())}
+    return out
+
+
+def sharded_phase(card, cornell, book2, work) -> dict:
+    """Phase 22: the sharded paths on the one card. A world of 1 under NCCL:
+    render_samples_sharded_mega on Cornell 600x600 depth 50 64 spp at mesh
+    (1, 1), bitwise the Renderer's image of the same samples, and
+    grad_sharded_auto at 64 spp against value_and_grad_scene (B3's gate,
+    one B3 launch). Two gloo ranks on cuda:0: Cornell 600x600 16 spp at
+    (1, 2) bitwise and (2, 1) within 1e-6 relative, book 2 at (1, 2)
+    through the wavefront (the second rank's slots start past 0) bitwise,
+    grad_sharded_auto at (1, 2) within B3's gate."""
+    import torch
+
+    from raytrace2_tpu_torch import grad
+    from raytrace2_tpu_torch.ops import integrator
+    from raytrace2_tpu_torch.ops.kernels import megakernel as mk
+    from raytrace2_tpu_torch.ops.kernels import megakernel_grad as mkg
+    from raytrace2_tpu_torch.parallel import distributed, dryrun, sharding
+    from raytrace2_tpu_torch.render import Renderer
+    from raytrace2_tpu_torch.scene import loader, schema
+
+    dev = torch.device("cuda", 0)
+    out = {}
+    host, _ = loader.load_scene(cornell)
+    scene = schema.to_device(host, dev)
+    feats = dict(host.features(), use_megakernel=True)
+    distributed.initialize("nccl", init_method=f"file://{work}/nccl_rdzv", world_size=1,
+                           rank=0, timeout_s=300)
+    try:
+        check(torch.distributed.get_backend() == "nccl", "the world of 1 is not NCCL")
+        mesh = sharding.make_mesh(sp=1, dp=1, device=dev)
+        r = Renderer(host, 600, 600, num_samples=64, max_depth=50, seed=0, device=dev)
+        r.update(64)
+        ref = r.state.accum
+        kw = dict(width=600, height=600, max_depth=50, sqrt_spp=r.sqrt_spp)
+        sharding.render_samples_sharded_mega(scene, feats, 0, 0, samples_per_device=1,
+                                             mesh=mesh, **kw)  # warm-up
+        mk.LAUNCHES = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        img = sharding.render_samples_sharded_mega(scene, feats, 0, 0, samples_per_device=64,
+                                                   mesh=mesh, **kw)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        check(mk.LAUNCHES == 1 and torch.equal(img, ref),
+              f"NCCL world of 1: {mk.LAUNCHES} v4 launches, image equal to the Renderer's: "
+              f"{torch.equal(img, ref)}")
+        out["nccl_render"] = {"ms": ms, "launches": 1}
+        say(f"phase 22 NCCL world of 1, render_samples_sharded_mega Cornell 600x600 64 spp "
+            f"depth 50 mesh (1, 1): 1 v4 launch, bitwise the Renderer's image, {ms:.1f} ms "
+            f"({card})")
+        target = torch.full((600, 600, 3), 0.3, device=dev)
+        gkw = dict(width=600, height=600, max_depth=GRAD_DEPTH, sqrt_spp=GRAD_SQRT_SPP,
+                   n_samples=GRAD_SPP)
+        # Warm-up: the first backward loads torch's kernels for it.
+        sharding.grad_sharded_auto(scene, feats, target, 0, mesh=mesh, **dict(gkw, n_samples=1))
+        mkg.LAUNCHES = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, g = sharding.grad_sharded_auto(scene, feats, target, 0, mesh=mesh, **gkw)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        b3 = mkg.LAUNCHES
+        check(b3 == 1, f"grad_sharded_auto launched B3 {b3} times")
+        ref_loss, ref_g = grad.value_and_grad_scene(lambda im: torch.sum((im - target) ** 2),
+                                                    scene, feats, 0, **gkw)
+        check(abs(float(loss) - float(ref_loss)) <= 1e-5 * abs(float(ref_loss)),
+              f"sharded loss {float(loss)} vs {float(ref_loss)}")
+        rel = grad_gate(g, ref_g)
+        out["nccl_grad"] = {"ms": ms, "b3": b3, "rel": rel}
+        say(f"phase 22 NCCL world of 1, grad_sharded_auto Cornell 600x600 {GRAD_SPP} spp depth "
+            f"{GRAD_DEPTH}: 1 B3 launch, {ms:.1f} ms, against value_and_grad_scene max|d|/max|g| "
+            + ", ".join(f"{k} {v:.2g}" for k, v in rel.items()) + f" (gate {GRAD_RTOL:g}) "
+            f"({card})")
+    finally:
+        distributed.shutdown()
+
+    t0 = time.perf_counter()
+    ranks = dryrun.run_ranks(_sharded_ranks, 2, backend="gloo", args=(cornell, book2),
+                             timeout_s=300.0)
+    spawn_s = time.perf_counter() - t0
+    for name in ("cornell_1x2", "cornell_2x1", "book2_1x2"):
+        check(torch.equal(ranks[0][name]["image"], ranks[1][name]["image"]),
+              f"{name}: the two ranks hold different images")
+    singles = {}
+    for name, path in (("cornell", cornell), ("book2", book2)):
+        h, _ = loader.load_scene(path)
+        s = schema.to_device(h, dev)
+        singles[name] = integrator.render_progressive(
+            s, dict(h.features(), use_megakernel=True), 600, 600, 0, 16, 0, 50, 4).cpu()
+    for name, exact in (("cornell_1x2", True), ("cornell_2x1", False), ("book2_1x2", True)):
+        img = ranks[0][name]["image"]
+        ref = singles[name.split("_")[0]]
+        if exact:
+            check(torch.equal(img, ref), f"gloo {name}: not bitwise the single-device image")
+            detail = "bitwise"
+        else:
+            d = (img - ref).abs()
+            rel = float((d / ref.abs().clamp(min=1e-30)).max())
+            check(bool((d <= 1e-6 * ref.abs()).all()), f"gloo {name}: max rel {rel:.3g}")
+            detail = f"max rel {rel:.3g} (gate 1e-6)"
+        kern = "wavefront" if name.startswith("book2") else "v4"
+        launches = [ranks[r][name][kern] for r in (0, 1)]
+        check(all(n > 0 for n in launches), f"gloo {name}: launches per rank {launches}")
+        out[f"gloo_{name}"] = {"ms": [ranks[r][name]["ms"] for r in (0, 1)],
+                               "launches": launches,
+                               "pix0": [ranks[r][name]["pix0"] for r in (0, 1)]}
+        say(f"phase 22 gloo ranks on cuda:0, render_samples_sharded_mega {name} 600x600 16 spp "
+            f"depth 50: {kern} launches per rank {launches}, slot0 per rank "
+            f"{out[f'gloo_{name}']['pix0']}, {detail} against one device, ms per rank "
+            + ", ".join(f"{x:.1f}" for x in out[f"gloo_{name}"]["ms"]) + f" ({card})")
+    gr = ranks[0]["grad_1x2"]
+    h, _ = loader.load_scene(cornell)
+    target = torch.full((600, 600, 3), 0.3, device=dev)
+    ref_loss, ref_g = grad.value_and_grad_scene(
+        lambda im: torch.sum((im - target) ** 2), schema.to_device(h, dev),
+        dict(h.features(), use_megakernel=True), 0, width=600, height=600, n_samples=16,
+        max_depth=50, sqrt_spp=4)
+    check(all(ranks[r]["grad_1x2"]["b3"] == 1 for r in (0, 1)), "gloo grad: B3 launches")
+    check(abs(gr["loss"] - float(ref_loss)) <= 1e-5 * abs(float(ref_loss)),
+          f"gloo grad loss {gr['loss']} vs {float(ref_loss)}")
+    rel = grad_gate(gr["grad"], ref_g)
+    out["gloo_grad_1x2"] = {"ms": [ranks[r]["grad_1x2"]["ms"] for r in (0, 1)], "rel": rel}
+    say(f"phase 22 gloo ranks on cuda:0, grad_sharded_auto Cornell 600x600 16 spp depth 50 mesh "
+        f"(1, 2): one B3 launch per rank (the second at slot0 "
+        f"{ranks[1]['cornell_1x2']['pix0']}), max|d|/max|g| "
+        + ", ".join(f"{k} {v:.2g}" for k, v in rel.items()) + f" (gate {GRAD_RTOL:g}), ms per "
+        "rank " + ", ".join(f"{x:.1f}" for x in out["gloo_grad_1x2"]["ms"])
+        + f"; both ranks spawned and done in {spawn_s:.1f} s ({card})")
+    out["gloo_spawn_s"] = spawn_s
+    return out
+
+
+def live_cli_phase(card, cornell, work) -> dict:
+    """Phase 23: the live CLI on the card. app.main --live --live-cols 80 on
+    Cornell 600x600 16 spp (stdout captured): one ANSI frame per launch,
+    and the PNG of the run without --live; --profile DIR writes a Chrome
+    trace whose kernel events name v4's launches."""
+    from raytrace2_tpu_torch import app
+    from raytrace2_tpu_torch.ops.kernels import megakernel as mk
+
+    args = ["--samples", "16", "--width", "600", "--height", "600", "--depth", "50",
+            "--device", "cuda"]
+    plain, live = os.path.join(work, "plain.png"), os.path.join(work, "live.png")
+    check(app.main([cornell, plain, "--quiet", *args]) == 0, "app.main without --live")
+    buf = io.StringIO()
+    mk.LAUNCHES = 0
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = app.main([cornell, live, "--live", "--live-cols", "80", *args])
+    live_s = time.perf_counter() - t0
+    text = buf.getvalue()
+    frames = text.count("\x1b[0m\n\x1b[2Ksample ")
+    check(rc == 0 and mk.LAUNCHES > 0 and frames == mk.LAUNCHES,
+          f"--live: rc {rc}, {frames} frames for {mk.LAUNCHES} v4 launches")
+    with open(plain, "rb") as f, open(live, "rb") as g:
+        check(f.read() == g.read(), "--live wrote another PNG than the run without it")
+    say(f"phase 23 live CLI: app.main --live --live-cols 80 Cornell 600x600 16 spp depth 50: "
+        f"{frames} ANSI frames for {mk.LAUNCHES} v4 launches, {len(text)} characters, "
+        f"{live_s:.2f} s, PNG equal to the run without --live ({card})")
+    prof = os.path.join(work, "prof")
+    mk.LAUNCHES = 0
+    t0 = time.perf_counter()
+    check(app.main([cornell, os.path.join(work, "prof.png"), "--quiet", "--profile", prof,
+                    *args]) == 0, "app.main --profile")
+    prof_s = time.perf_counter() - t0
+    with open(os.path.join(prof, "trace.json")) as f:
+        events = json.load(f)["traceEvents"]
+    v4_events = [e for e in events if e.get("cat") == "kernel"
+                 and "megakernel_v4" in e.get("name", "")]
+    check(len(v4_events) == mk.LAUNCHES > 0,
+          f"--profile: {len(v4_events)} kernel events name megakernel_v4 for {mk.LAUNCHES} "
+          f"launches ({len(events)} events)")
+    v4_us = sum(float(e.get("dur", 0.0)) for e in v4_events)
+    say(f"phase 23 --profile: trace.json with {len(events)} events, {len(v4_events)} kernel "
+        f"events of megakernel_v4 (= its launches), {v4_us / 1e3:.2f} ms of v4 on the card's "
+        f"clock, run {prof_s:.2f} s ({card})")
+    return {"live_s": live_s, "frames": frames, "profile_s": prof_s,
+            "profile_v4_events": len(v4_events), "profile_v4_ms": v4_us / 1e3}
 
 
 if __name__ == "__main__":

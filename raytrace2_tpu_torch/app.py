@@ -5,9 +5,14 @@ the same argv, ``local/data/settings.json`` and output naming as the JAX
 package's CLI, with its resume (``--checkpoint``, ``--checkpoint-every``:
 the accumulator as one ``.npz``, interchangeable with the JAX package's)
 and progressive previews (``--preview-every``: the output PNG rewritten
-every N samples). The device is explicit: ``cuda`` (the default) renders
-through the Hopper kernels and fails when no card is present; ``cpu`` runs
-their plain PyTorch versions.
+every N samples), and its live surface: ``--live`` (an ANSI preview redrawn
+in the terminal after each batch, ``--live-cols`` wide; implies
+``--watch``), ``--watch`` (reload the scene and restart the accumulation
+when its file changes), single keys on a TTY (q finish, w snapshot, r reset,
+c write the camera) and ``--profile DIR`` (a ``torch.profiler`` Chrome trace
+of the render loop, the card's kernels included). The device is explicit:
+``cuda`` (the default) renders through the Hopper kernels and fails when no
+card is present; ``cpu`` runs their plain PyTorch versions.
 """
 
 from __future__ import annotations
@@ -19,9 +24,6 @@ import os
 import sys
 import time
 from datetime import datetime
-
-# Flags of the JAX CLI that a later slice of the port brings (the live CLI).
-_NOT_PORTED_FLAGS = ("live", "watch", "profile")
 
 
 def load_app_settings(path: str) -> dict:
@@ -97,27 +99,79 @@ def build_parser() -> argparse.ArgumentParser:
                    help="accumulator checkpoint path (resume if it exists)")
     p.add_argument("--checkpoint-every", type=int, default=0,
                    help="checkpoint the accumulator every N samples")
+    p.add_argument("--live", action="store_true",
+                   help="progressive ANSI preview in the terminal (the headless analog of "
+                        "the reference's render window); implies --watch")
+    p.add_argument("--watch", action="store_true",
+                   help="reload the scene and restart the accumulation when the scene file "
+                        "changes mid-render (the reference's load-scene panel, "
+                        "App.cpp:210-229)")
+    p.add_argument("--live-cols", type=int, default=100,
+                   help="columns of the --live preview")
+    p.add_argument("--profile", default=None, metavar="DIR",
+                   help="write a torch.profiler Chrome trace of the render loop into DIR")
     p.add_argument("--quiet", action="store_true")
-    # Accepted so that they can be refused with a clear message.
-    p.add_argument("--live", action="store_true", help=argparse.SUPPRESS)
-    p.add_argument("--watch", action="store_true", help=argparse.SUPPRESS)
-    p.add_argument("--profile", default=None, help=argparse.SUPPRESS)
     return p
+
+
+class _KeyControls:
+    """Single keys that steer a running render (JAX ``app._KeyControls``):
+    the headless analog of the reference's ImGui panel (App.cpp:210-229).
+    Active only when stdin is a TTY; elsewhere ``poll`` returns nothing, so
+    piped and CI runs are unaffected.
+
+    Keys: q finish now (write the image and exit), w write a snapshot, r
+    reset the accumulation, c write the camera JSON (WriteCamera,
+    src/Serialize.cpp:47-54)."""
+
+    def __init__(self, enabled: bool):
+        self.active = False
+        if not enabled:
+            return
+        try:
+            import termios
+            import tty
+
+            self._fd = sys.stdin.fileno()
+            if not os.isatty(self._fd):
+                return
+            self._termios = termios
+            self._saved = termios.tcgetattr(self._fd)
+            tty.setcbreak(self._fd)
+            self.active = True
+            # Restore the terminal on any exit (Ctrl-C, a render error);
+            # close() is idempotent.
+            import atexit
+
+            atexit.register(self.close)
+        except (ImportError, OSError, ValueError):
+            self.active = False
+
+    def poll(self) -> str:
+        """The keys pressed since the last poll ('' if none)."""
+        if not self.active:
+            return ""
+        import select
+
+        keys = []
+        while select.select([sys.stdin], [], [], 0)[0]:
+            keys.append(sys.stdin.read(1))
+        return "".join(keys)
+
+    def close(self) -> None:
+        if self.active:
+            self._termios.tcsetattr(self._fd, self._termios.TCSADRAIN, self._saved)
+            self.active = False
 
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    refused = [f"--{name.replace('_', '-')}" for name in _NOT_PORTED_FLAGS
-               if getattr(args, name)]
-    if refused:
-        print(f"error: {', '.join(refused)} not ported yet (ROADMAP queue A item 5)",
-              file=sys.stderr)
-        return 2
 
     import torch
 
     from raytrace2_tpu_torch.io import checkpoint as ckpt_io
     from raytrace2_tpu_torch.io import image as image_io
+    from raytrace2_tpu_torch.io import term
     from raytrace2_tpu_torch.ops.kernels import intersect_kernel, megakernel, wavefront
     from raytrace2_tpu_torch.render import CHUNK_SIZE, Renderer, resolve_device
     from raytrace2_tpu_torch.scene import loader
@@ -147,11 +201,16 @@ def main(argv=None) -> int:
     log(f"Max Depth: {settings['max_depth']}")
     log(f"Scene Path: {scene_path}")
 
-    try:
+    def load():
         scene, dims = loader.load_scene(scene_path, seed=args.seed)
         if args.camera:
             scene = dataclasses.replace(scene, camera=loader.load_camera_file(args.camera))
-    except (OSError, loader.SceneError, json.JSONDecodeError) as e:
+        return scene, dims
+
+    load_errors = (OSError, loader.SceneError, json.JSONDecodeError)
+    try:
+        scene, dims = load()
+    except load_errors as e:
         print(f"Failed to load scene: {e}", file=sys.stderr)
         return 1
 
@@ -162,11 +221,11 @@ def main(argv=None) -> int:
     elif args.height:
         height = args.height
 
+    renderer_kw = dict(num_samples=settings["num_samples"], max_depth=settings["max_depth"],
+                       seed=args.seed, backend=args.backend, device=device,
+                       chunk_size=args.chunk_size or CHUNK_SIZE)
     try:
-        renderer = Renderer(scene, width, height, num_samples=settings["num_samples"],
-                            max_depth=settings["max_depth"], seed=args.seed,
-                            backend=args.backend, device=device,
-                            chunk_size=args.chunk_size or CHUNK_SIZE)
+        renderer = Renderer(scene, width, height, **renderer_kw)
     except NotImplementedError as e:
         print(f"error: {e}", file=sys.stderr)
         return 1
@@ -189,7 +248,6 @@ def main(argv=None) -> int:
     device_name = (torch.cuda.get_device_name(device) if device.type == "cuda"
                    else "cpu")
     total = settings["num_samples"]
-    rays_per_sample = width * height
     batch = args.batch or max(min(total // 10, 64), 1)
     for gate in (args.preview_every, args.checkpoint_every):
         if gate:
@@ -201,17 +259,57 @@ def main(argv=None) -> int:
 
     counters = {"megakernel_v4": megakernel, "wavefront_step": wavefront,
                 "intersect_kernel": intersect_kernel}
-    module = counters.get(renderer.kernel)
-    launches0 = module.LAUNCHES if module else 0
-    sorts0 = wavefront.SORTS
-    t0 = time.perf_counter()
-    done0 = renderer.frame_idx
+
+    def start():
+        """(kernel module, its launches, wavefront sorts, t0, first sample)
+        at the start of the current renderer's timed run."""
+        module = counters.get(renderer.kernel)
+        return (module, module.LAUNCHES if module else 0, wavefront.SORTS,
+                time.perf_counter(), renderer.frame_idx)
+
+    watch = args.watch or args.live
+    watch_mtime = os.stat(scene_path).st_mtime if watch else None
+    keys = _KeyControls(enabled=watch)
+    if keys.active:
+        log("Keys: [q]uit+save  [w]rite snapshot  [r]eset  [c]amera save")
+    profiler = None
+    if args.profile:
+        activities = [torch.profiler.ProfilerActivity.CPU]
+        if device.type == "cuda":
+            activities.append(torch.profiler.ProfilerActivity.CUDA)
+        profiler = torch.profiler.profile(activities=activities)
+        profiler.__enter__()
+    module, launches0, sorts0, t0, done0 = start()
+    first_frame = True
     while renderer.frame_idx < total:
+        if watch:
+            try:
+                mtime = os.stat(scene_path).st_mtime
+            except OSError:
+                mtime = watch_mtime  # mid-swap: retry on the next batch
+            if mtime != watch_mtime:
+                try:
+                    new_scene, new_dims = load()
+                    # The edited file's size unless the command line pinned
+                    # one: the accumulation restarts either way (the
+                    # reference's resize, RayTracer.cpp:87-104).
+                    new_w, new_h = ((new_dims or (width, height))
+                                    if not (args.width or args.height) else (width, height))
+                    new_renderer = Renderer(new_scene, new_w, new_h, **renderer_kw)
+                except (*load_errors, NotImplementedError) as e:
+                    # A partial write or a bad edit: keep rendering the old
+                    # scene; the next change retries.
+                    log(f"Scene reload failed (keeping current): {e}")
+                else:
+                    watch_mtime = mtime
+                    renderer, width, height = new_renderer, new_w, new_h
+                    module, launches0, sorts0, t0, done0 = start()
+                    log(f"Scene reloaded: {scene_path} (accumulation reset)")
         renderer.update(min(batch, total - renderer.frame_idx))
         sync()  # the launch is asynchronous; time what the card did
         i = renderer.frame_idx
         dt = time.perf_counter() - t0
-        rate = (i - done0) * rays_per_sample / max(dt, 1e-9) / 1e6
+        rate = (i - done0) * width * height / max(dt, 1e-9) / 1e6
         if args.metrics:
             rec = {"event": "dispatch", "sample": i, "total": total,
                    "elapsed_s": round(dt, 4), "mpaths_per_s": round(rate, 4),
@@ -221,12 +319,41 @@ def main(argv=None) -> int:
                 rec["device_mem_bytes"] = int(torch.cuda.memory_allocated(device))
             with open(args.metrics, "a") as f:
                 f.write(json.dumps(rec) + "\n")
-        log(f"sample {i}/{total}  {rate:.2f} Mpaths/s")
+        pressed = keys.poll()
+        if "r" in pressed:
+            renderer.reset()
+            module, launches0, sorts0, t0, done0 = start()
+            log("Accumulation reset")
+        if "w" in pressed:
+            image_io.write_image(renderer.linear_pixels(), out_path)
+            log(f"Snapshot written: {out_path}")
+        if "c" in pressed:
+            cam_path = out_path + ".camera.json"
+            loader.write_camera(renderer.scene.camera, cam_path)
+            log(f"Camera written: {cam_path}")
+        if "q" in pressed:
+            log("Quit requested: writing image")
+            break
+        if args.live:
+            term.redraw(renderer.linear_pixels(), args.live_cols, first=first_frame,
+                        status=f"sample {i}/{total}  {rate:.2f} Mpaths/s"
+                               + ("  [q/w/r/c]" if keys.active else ""))
+            first_frame = False
+        else:
+            log(f"sample {i}/{total}  {rate:.2f} Mpaths/s")
         if args.preview_every and i % args.preview_every == 0 and i < total:
             image_io.write_image(renderer.linear_pixels(), out_path)
         if args.checkpoint and args.checkpoint_every and i % args.checkpoint_every == 0:
             ckpt_io.save_state(args.checkpoint, renderer.state)
 
+    keys.close()
+    if profiler is not None:
+        sync()
+        profiler.__exit__(None, None, None)
+        os.makedirs(args.profile, exist_ok=True)
+        trace = os.path.join(args.profile, "trace.json")
+        profiler.export_chrome_trace(trace)
+        log(f"Profile written: {trace}")
     lin = renderer.linear_pixels()
     if args.metrics:
         dt = time.perf_counter() - t0
@@ -242,7 +369,7 @@ def main(argv=None) -> int:
                 "event": "done", "samples": renderer.frame_idx, "total": total,
                 **kernel,
                 "elapsed_s": round(dt, 4),
-                "mpaths_per_s": round((renderer.frame_idx - done0) * rays_per_sample
+                "mpaths_per_s": round((renderer.frame_idx - done0) * width * height
                                       / max(dt, 1e-9) / 1e6, 4),
                 "width": width, "height": height, "scene": scene_name,
                 "device": device_name, "mean_linear": float(lin.mean()),

@@ -16,11 +16,16 @@ camera gradients are exactly zero there; a noise texture makes them
 continuous.
 
 Noise textures differentiate through hash noise or, with
-``noise_impl="table"``, the reference's Perlin tables (held constant). The
-JAX package falls back to its XLA scan for scenes outside the gradient
-kernel's gates (ellipsoids, depth above 64, more than 4,096 records). That
-path is not ported yet: such scenes raise ``NotImplementedError`` naming the
-ROADMAP item that brings them.
+``noise_impl="table"``, the reference's Perlin tables (held constant).
+
+Outside the gradient kernel's gates — ellipsoids, depth above 64, more than
+4,096 records, or ``use_megakernel`` set to False — ``render_image`` falls
+back to the non-kernel path's differentiable scan, as the JAX package does
+(``grad.py:56-83``): a Python loop of ``integrator.render_sample(...,
+differentiable=True)`` over the samples, threefry streams (or murmur with
+``rng_impl="murmur"``), the dense closest hit, and every bounce's residuals
+kept for the backward. A features dict without ``use_megakernel`` takes
+the kernel path, as ``integrator.render_progressive`` reads it.
 """
 
 from __future__ import annotations
@@ -32,40 +37,38 @@ from raytrace2_tpu_torch.ops.kernels import megakernel_grad as mkg
 from raytrace2_tpu_torch.scene import schema
 
 
-def _check_supported(features, max_depth) -> None:
+def takes_kernel(features, max_depth) -> bool:
+    """Whether ``render_image`` takes the kernel path (forward kernel and
+    B3) for these features at this depth, rather than the scan."""
     sizes = features.get("mega_sizes")
-    if sizes is None:
-        raise NotImplementedError(
-            "scene has no kernel sizes (ellipsoids): its gradient needs the non-kernel "
-            "path's differentiable scan, which is not ported yet (ROADMAP queue A item 12)")
-    if not mkg.grad_supported(tuple(sizes), max_depth):
-        raise NotImplementedError(
-            f"depth {max_depth} (gradient kernel: at most {mkg.GRAD_MAX_DEPTH}) or "
-            f"{integrator.n_records(features)} records (at most {mkg.MAX_RECORDS}) "
-            "need the non-kernel path's differentiable scan, which is not ported yet "
-            "(ROADMAP queue A item 12)")
+    return (bool(features.get("use_megakernel", True)) and sizes is not None
+            and mkg.grad_supported(tuple(sizes), max_depth))
 
 
 def render_image(scene, features, seed, *, width, height, n_samples, max_depth,
-                 sqrt_spp):
+                 sqrt_spp, chunk_size=None):
     """Differentiable ``n_samples``-sample render → mean radiance [H, W, 3] on
     the scene's device (a CUDA device runs the kernels, a CPU device their
     plain versions). ``features`` is ``scene.features()`` as a dict or as
-    sorted items."""
+    sorted items. ``chunk_size`` bounds the scan's [rays, records]
+    intermediates per chunk (the kernel path ignores it)."""
     features = dict(features)
-    _check_supported(features, max_depth)
-    acc = integrator.render_progressive(scene, features, width, height, 0, n_samples,
-                                        seed, max_depth, sqrt_spp, differentiable=True)
+    features.pop("use_pallas", None)  # B5 has no VJP (JAX grad.py:57)
+    if takes_kernel(features, max_depth):
+        acc = integrator.render_progressive(scene, features, width, height, 0, n_samples,
+                                            seed, max_depth, sqrt_spp, differentiable=True)
+        return acc / n_samples
+    acc = torch.zeros((height, width, 3), dtype=torch.float32, device=scene.background.device)
+    for s in range(int(n_samples)):
+        acc = acc + integrator.render_sample(scene, features, width, height, s, seed,
+                                             max_depth, sqrt_spp, chunk_size,
+                                             differentiable=True)
     return acc / n_samples
 
 
-def value_and_grad_scene(loss_fn, scene, features, seed, **render_kw):
-    """(loss, d loss / d scene) for ``loss_fn(image) -> scalar tensor``.
-
-    ``scene`` is a FlatScene of tensors on the render device
-    (``schema.to_device``). The gradient is a FlatScene of the same shape:
-    a tensor for every float leaf (zeros where the loss does not reach it)
-    and None for the integer and bool leaves."""
+def scene_params(scene):
+    """(params, leaves): ``scene`` with every float leaf a fresh autograd
+    leaf, and those leaves in ``schema.map_leaves`` order."""
     leaves = []
 
     def as_leaf(x):
@@ -78,9 +81,15 @@ def value_and_grad_scene(loss_fn, scene, features, seed, **render_kw):
         leaves.append(x)
         return x
 
-    params = schema.map_leaves(scene, as_leaf)
-    loss = loss_fn(render_image(params, features, seed, **render_kw))
-    grads = iter(torch.autograd.grad(loss, leaves, allow_unused=True))
+    return schema.map_leaves(scene, as_leaf), leaves
+
+
+def grad_tree(params, grads):
+    """The gradient as a FlatScene shaped like ``params``: ``grads`` (in
+    ``scene_params``' leaf order; None where the loss does not reach a
+    leaf, which becomes zeros) on the float leaves, None on the integer and
+    bool ones."""
+    grads = iter(grads)
 
     def grad_of(x):
         if not x.is_floating_point():
@@ -88,4 +97,17 @@ def value_and_grad_scene(loss_fn, scene, features, seed, **render_kw):
         d = next(grads)
         return torch.zeros_like(x) if d is None else d
 
-    return loss.detach(), schema.map_leaves(params, grad_of)
+    return schema.map_leaves(params, grad_of)
+
+
+def value_and_grad_scene(loss_fn, scene, features, seed, **render_kw):
+    """(loss, d loss / d scene) for ``loss_fn(image) -> scalar tensor``.
+
+    ``scene`` is a FlatScene of tensors on the render device
+    (``schema.to_device``). The gradient is a FlatScene of the same shape:
+    a tensor for every float leaf (zeros where the loss does not reach it)
+    and None for the integer and bool leaves."""
+    params, leaves = scene_params(scene)
+    loss = loss_fn(render_image(params, features, seed, **render_kw))
+    return loss.detach(), grad_tree(params, torch.autograd.grad(loss, leaves,
+                                                                allow_unused=True))

@@ -74,16 +74,17 @@ def camera_frame(cam, width: int, height: int) -> dict:
 
 
 def make_camv(cam, width: int, height: int, sample0: int, n_samples: int,
-              sqrt_spp: int, seed: int, block: int = _TILE_BLOCK) -> torch.Tensor:
+              sqrt_spp: int, seed: int, block: int = _TILE_BLOCK,
+              slot0: int = 0) -> torch.Tensor:
     """The 28-entry control vector (JAX integrator.py:365-378), f32 CPU.
-    slot0 (a shard's first pixel) is 0: one device renders every pixel.
-    ``block`` is the side of the pixel block of the lane layout
-    (``PIXEL_BLOCK`` for the block-tiled one)."""
+    ``slot0`` is the first slot of a shard's run of the lane layout (0: one
+    device renders every pixel). ``block`` is the side of the pixel block of
+    the lane layout (``PIXEL_BLOCK`` for the block-tiled one)."""
     frame = camera_frame(cam, width, height)
     tail = torch.tensor([
         float(frame["defocus_angle"].detach()), float(width), float(width * height),
         float(sample0), float(n_samples), float(sqrt_spp), float(seed),
-        0.0, float(-(-width // block)), float(height),
+        float(slot0), float(-(-width // block)), float(height),
     ], dtype=torch.float32)
     return torch.cat([
         frame["pixel00"], frame["pixel_delta_u"], frame["pixel_delta_v"],
@@ -108,7 +109,7 @@ def generate_rays(cam, width: int, height: int, sample_idx: int, sqrt_spp: int, 
     [N, 5] from the caller's generator (the murmur camera draws)."""
     u = rng.uniform(rng.fold_in(keys, 0x7FFFFFFF), 5) if uniforms is None else uniforms
     device = u.device
-    frame = {k: v.detach().to(device) for k, v in camera_frame(cam, width, height).items()}
+    frame = {k: v.to(device) for k, v in camera_frame(cam, width, height).items()}
     if pixel_ids is None:
         pixel_ids = torch.arange(width * height, dtype=torch.int32, device=device)
     xs = (pixel_ids % width).to(torch.float32)
@@ -121,7 +122,7 @@ def generate_rays(cam, width: int, height: int, sample_idx: int, sqrt_spp: int, 
                     + (xs + px)[:, None] * frame["pixel_delta_u"][None, :]
                     + (ys + py)[:, None] * frame["pixel_delta_v"][None, :])
     disk = rng.disk_from_uniforms(u[:, 2], u[:, 3])
-    if float(frame["defocus_angle"]) > 0.0:
+    if float(frame["defocus_angle"].detach()) > 0.0:
         origins = (frame["center"][None, :]
                    + disk[:, 0:1] * frame["defocus_disk_u"][None, :]
                    + disk[:, 1:2] * frame["defocus_disk_v"][None, :])

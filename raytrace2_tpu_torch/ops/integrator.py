@@ -105,43 +105,81 @@ def noise_tables(scene, features):
     return None
 
 
+def slot_tile(features) -> int:
+    """Lanes of one tile of the kernel path's slot layout for ``features``:
+    a shard's run of slots is a whole number of them (JAX
+    ``sharding.py:137-142``). The linear v4 layout's tile is one CUDA block
+    (``mk.TILE``), the block-tiled one's a 16x16 pixel block
+    (``mk.BLOCK_TILE``), the wavefront's its slot padding grain
+    (``wf.SLOT_TILE``)."""
+    _, _, linear, wavefront = mega_schedule(features)
+    if wavefront:
+        return wf.SLOT_TILE
+    return mk.TILE if linear else mk.BLOCK_TILE
+
+
+def slot_layout(features, width: int, height: int):
+    """(n_slots, slot_of_pixel [H, W] int64) of the kernel path's slot
+    layout: the block-tiled one where v4 takes it, else linear."""
+    _, _, linear, wavefront = mega_schedule(features)
+    return mk.pixel_slots(width, height, block=not (linear or wavefront))
+
+
 def _render_batch_megakernel(scene, packed, features, width, height, sample0,
-                             n_samples, seed, max_depth, sqrt_spp, differentiable=False):
+                             n_samples, seed, max_depth, sqrt_spp, differentiable=False,
+                             pix0=0, n_local=None):
     """Radiance SUM over samples [sample0, sample0 + n_samples), [H, W, 3],
     from one launch of the v4 kernel or one wavefront pass (a launch per K
     bounces). ``scene`` and ``packed`` live on the render device.
 
+    ``pix0``/``n_local`` (JAX :346-378,460-461): a shard runs the
+    ``n_local`` slots from ``pix0`` of the slot layout (``slot_layout``;
+    both whole ``slot_tile``s) and gets that flat slot tile back,
+    [n_local, 3], which the caller de-tiles once it holds every shard's.
+    The streams are keyed by global pixel id, so any split renders each
+    pixel as one device does.
+
     ``differentiable=True`` goes through ``megakernel_grad.DiffRender``
     (JAX :407-436): the same forward, and a backward that launches the
     replay kernel; ``camv`` and ``packed`` then carry the scene leaves'
-    graph."""
+    graph. The replay walks the linear layout, so a differentiable shard
+    must not be on the block-tiled one."""
     _, wave_frac, linear, wavefront = mega_schedule(features)
     block = not (linear or wavefront)
+    if differentiable and block and n_local is not None:
+        raise ValueError("a differentiable shard needs the linear slot layout "
+                         "(features mega_linear=True)")
     n_pix = width * height
     camv = camera.make_camv(scene.camera, width, height, sample0, n_samples, sqrt_spp, seed,
-                            **({"block": mk.BLOCK} if block else {})).to(packed.device)
+                            **({"block": mk.BLOCK} if block else {}),
+                            slot0=pix0).to(packed.device)
     ntab = noise_tables(scene, features)
     kw = dict(max_depth=max_depth, sizes=tuple(features["mega_sizes"]),
               has_checker=int(features.get("has_checker", 1)),
               has_noise=bool(features.get("has_noise", False)), ntab=ntab)
     background = scene.background.to(torch.float32).contiguous()
     mat_types = _material_types(scene, features)
+    n_slots = n_pix
     if block:
         n_slots, slot_of_pixel = mk.pixel_slots(width, height, block=True)
         slot_of_pixel = slot_of_pixel.reshape(-1).to(packed.device)
+    if n_local is not None:
+        n_slots = n_local
+    n_out = n_pix if n_local is None else n_local
 
     def forward(camv, seed, packed, background):
         if block:
             out = mk.trace_megakernel_batch(camv, seed, packed, background, n_pix=n_slots,
                                             block=True, wave_frac=wave_frac,
                                             mat_types=mat_types, **kw)
-            return out[slot_of_pixel]  # de-tile: each pixel's slot (JAX :463-465)
+            # De-tile: each pixel's slot (JAX :463-465); a shard keeps its tile.
+            return out if n_local is not None else out[slot_of_pixel]
         if not wavefront:
-            return mk.trace_megakernel_batch(camv, seed, packed, background, n_pix=n_pix,
+            return mk.trace_megakernel_batch(camv, seed, packed, background, n_pix=n_slots,
                                              wave_frac=wave_frac, mat_types=mat_types, **kw)
         return wf.trace_wavefront_batch(
             camv, seed, packed, background,
-            n_rays=-(-n_pix // wf.SLOT_TILE) * wf.SLOT_TILE,
+            n_rays=-(-n_slots // wf.SLOT_TILE) * wf.SLOT_TILE,
             sort_every=int(features.get("mega_sort_every", wf.SORT_EVERY)),
             k_bounces=int(features.get("mega_k_bounces", wf.K_BOUNCES)),
             key_mode=str(features.get("mega_sort_key", "pos")),
@@ -149,14 +187,16 @@ def _render_batch_megakernel(scene, packed, features, width, height, sample0,
             tail_frac=float(features.get("mega_tail_frac", wf.TAIL_FRAC)),
             tail_compact=bool(features.get("mega_tail_compact", False)),
             sort_impl=str(features.get("mega_sort_impl", wf.SORT_IMPL)),
-            **kw)[:n_pix]
+            **kw)[:n_out]
 
     if differentiable:
         radiance = mkg.DiffRender.apply(
             camv, packed, background, int(seed), forward,
-            dict(n_pix=n_pix, mat_types=mat_types, **kw))
+            dict(n_pix=n_out, mat_types=mat_types, **kw))
     else:
         radiance = forward(camv, int(seed), packed, background)
+    if n_local is not None:
+        return radiance  # the sharded caller keeps the flat slot tile
     return radiance.reshape(height, width, 3)
 
 
@@ -265,12 +305,17 @@ def trace_rays(scene, features, o, d, time, keys, max_depth: int,
     are alive than the next phase's capacity (``width // ratio``), then
     gathers the survivors (stable, with their keys: the streams do not
     change) into that smaller buffer; the last phase runs dry. The alive
-    count is read on the host once per bounce."""
+    count is read on the host once per bounce.
+
+    ``differentiable=True`` is JAX's ``lax.scan`` (:210-214): exactly
+    ``max_depth`` steps over every ray, with no compaction and no early
+    exit, differentiable under ``torch.autograd`` (the step writes no state
+    in place). It never takes B4, and it drops ``use_bvh_spheres``
+    (:188-193): hit selection is detached either way, so the estimator is
+    the dense sweep's."""
     if differentiable:
-        raise NotImplementedError(
-            "trace_rays(differentiable=True), the differentiable scan of the non-kernel "
-            "path, is not ported yet (ROADMAP queue A item 12, the differentiable scan)")
-    if (mega_seed is not None and features.get("use_megakernel", False)
+        features = {k: v for k, v in features.items() if k != "use_bvh_spheres"}
+    elif (mega_seed is not None and features.get("use_megakernel", False)
             and features.get("mega_sizes") is not None):
         return _trace_megakernel(scene, features, o, d, time, mega_seed, max_depth)
 
@@ -281,6 +326,10 @@ def trace_rays(scene, features, o, d, time, keys, max_depth: int,
                  throughput=torch.ones((n, 3), dtype=o.dtype, device=o.device),
                  radiance=torch.zeros((n, 3), dtype=o.dtype, device=o.device),
                  alive=torch.ones((n,), dtype=torch.bool, device=o.device), bounce=0)
+    if differentiable:
+        for _ in range(max_depth):
+            state = step(state)
+        return state["radiance"]
     ratio = int(features.get("compaction_ratio", 8))
     num_phases = int(features.get("compaction_phases", 3))
     radiance_full = torch.zeros((n, 3), dtype=o.dtype, device=o.device)
@@ -368,7 +417,9 @@ def render_progressive(scene, features, width: int, height: int, sample0: int,
     (``pack_scene``) may be passed to reuse the table buffer;
     ``differentiable=True`` packs the scene inside the graph and returns a
     sum that autograd differentiates through the replay kernel. Otherwise
-    the non-kernel path: a loop of ``render_sample``."""
+    the non-kernel path: a loop of ``render_sample``, which with
+    ``differentiable=True`` traces each sample with the differentiable scan
+    (``trace_rays``)."""
     if features.get("use_megakernel", True) and features.get("mega_sizes") is not None:
         _check_kernel_features(features)
         if packed is None or differentiable:

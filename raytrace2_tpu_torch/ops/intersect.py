@@ -56,6 +56,16 @@ class Hit(NamedTuple):
     material: torch.Tensor    # [N] int
 
 
+def _root_sqrt(disc):
+    """sqrt(disc) of a quadratic's discriminant where it is positive, else
+    0, with no cotangent at or below 0: sqrt'(0) is inf, and the backward of
+    a root that loses (or of a padded record) multiplies it by a zero
+    cotangent (NaN). The value is sqrt's wherever disc >= 0, so hits do not
+    move (JAX's safe sqrt, which keeps sqrt(0), agrees in the forward)."""
+    pos = disc > 0.0
+    return torch.where(pos, torch.sqrt(torch.where(pos, disc, 1.0)), 0.0)
+
+
 def _first_min(ts):
     """(min, argmin) along the last axis, first index on a tie."""
     idx = torch.argmin(ts, -1)
@@ -92,7 +102,7 @@ def _sphere_ts(spheres, o, d, time, t_min, t_max):
     c_coef = cc - 2.0 * (o_c0 + tt * o_disp) + oo - r2[None, :]
     disc = h * h - a * c_coef
     has_root = disc >= 0.0
-    sq = torch.sqrt(torch.where(has_root, disc, 1.0))
+    sq = _root_sqrt(disc)
     root0 = (h - sq) / a
     root1 = (h + sq) / a
     tmin, tmax = t_min[:, None], t_max[:, None]
@@ -136,7 +146,7 @@ def _ellipsoid_ts(ell, o, d, time, t_min, t_max):
     cc = _dot(oc, oc) - (ell.radius * ell.radius)[None]
     disc = h * h - a * cc
     has_root = disc >= 0.0
-    sq = torch.sqrt(torch.where(has_root, disc, 1.0))
+    sq = _root_sqrt(disc)
     a_safe = torch.where(a > 0.0, a, 1.0)
     root0 = (h - sq) / a_safe
     root1 = (h + sq) / a_safe
@@ -328,10 +338,18 @@ def closest_hit(scene, o, d, time, u_media=None, t_min=None, t_max=None, feature
     t, fam = _first_min(torch.stack([bt_s, bt_q, bt_m, bt_e], -1))
     valid = t < BIG
 
-    rec_s = _sphere_record(scene.spheres, o, d, time, bt_s, bi_s)
-    rec_q = _quad_record(scene.quads, o, d, bt_q, bi_q)
-    rec_m = _media_record(scene.media, o, d, bt_m, bi_m)
-    rec_e = _ellipsoid_record(scene.ellipsoids, o, d, time, bt_e, bi_e) if has_ell else rec_s
+    # Each family's record at its own best t, or at t = 0 where it has no
+    # hit: only the winner's record is kept, and a point at t = BIG along an
+    # unnormalised direction overflows to inf, which the backward of the
+    # discarded record multiplies by its zero cotangent (NaN).
+    def rec_t(bt):
+        return torch.where(bt < BIG, bt, 0.0)
+
+    rec_s = _sphere_record(scene.spheres, o, d, time, rec_t(bt_s), bi_s)
+    rec_q = _quad_record(scene.quads, o, d, rec_t(bt_q), bi_q)
+    rec_m = _media_record(scene.media, o, d, rec_t(bt_m), bi_m)
+    rec_e = (_ellipsoid_record(scene.ellipsoids, o, d, time, rec_t(bt_e), bi_e)
+             if has_ell else rec_s)
 
     def pick(s, q, m, e):
         def sel(f, a, b):

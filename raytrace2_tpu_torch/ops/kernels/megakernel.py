@@ -982,9 +982,11 @@ def noise_factor(npx, npy, npz, t_scale, t_ntype, nseed, ntab=None, base_i=None)
 
 
 def _shade_advance(carry, rec, mat6, tex_resolve, bg, key, *, has_checker,
-                   has_noise, max_depth, n_med, ntab=None):
+                   has_noise, max_depth, n_med, ntab=None, stats=None):
     """Shade + state advance (JAX ``_shade_advance``, :1047-1265); noise
-    from the tables in ``ntab`` when it is given."""
+    from the tables in ``ntab`` when it is given. ``stats`` (a dict,
+    optional) gets the live lanes' noise evaluations added, by kind
+    ("noise_marble", "noise_perlin")."""
     (bn, alive_f, ox, oy, oz, dx, dy, dz, tpr, tpg, tpb, rr, rg, rb) = carry
     alive = alive_f > 0.0
     a = dx * dx + dy * dy + dz * dz
@@ -1024,6 +1026,10 @@ def _shade_advance(carry, rec, mat6, tex_resolve, bg, key, *, has_checker,
         # JAX kernel's whole-tile branch); points are clamped to 0 on miss
         # lanes, where best_t = BIG would overflow.
         sel_n = (ttype == float(defs.TEX_NOISE)) & valid
+        if stats is not None:
+            marble = t_ntype == float(defs.NOISE_MARBLE)
+            stats["noise_marble"] += int((sel_n & alive & marble).sum())
+            stats["noise_perlin"] += int((sel_n & alive & ~marble).sum())
         idx = torch.nonzero(sel_n).squeeze(1)
         if idx.numel():
             npx = torch.where(valid, px, 0.0)[idx]
@@ -1140,7 +1146,8 @@ def make_bounce(packed, background, *, max_depth, sizes, has_checker, has_noise,
     ``ntab`` (``pack_noise_tables``) switches noise to the tables;
     ``stats`` (a dict, optional) gets each live lane's sweep tests added
     ("bounces", "aabb", and the record tests of "sph", "quad", "box",
-    "med"), which is what the kernel's bound counts."""
+    "med") and its noise evaluations ("noise_marble", "noise_perlin"),
+    which is what the kernel's bound counts."""
     cols = unpack_buffer(packed, sizes)
     tl = {fam: {k: v.tolist() for k, v in cols[fam].items()}
           for fam in ("sph", "quad", "box", "med")}
@@ -1163,7 +1170,8 @@ def make_bounce(packed, background, *, max_depth, sizes, has_checker, has_noise,
     bg = [float(x) for x in background.tolist()]
     n_med = sizes[4]
     if stats is not None:
-        for k in ("bounces", "aabb", "sph", "quad", "box", "med"):
+        for k in ("bounces", "aabb", "sph", "quad", "box", "med", "noise_marble",
+                  "noise_perlin"):
             stats.setdefault(k, 0)
 
     def tex_resolve(idx_f):
@@ -1184,7 +1192,7 @@ def make_bounce(packed, background, *, max_depth, sizes, has_checker, has_noise,
         mat6 = tuple(c[midx] for c in mat_cols)
         out = _shade_advance(carry, rec[:7], mat6, tex_resolve, bg, key,
                              has_checker=has_checker, has_noise=has_noise,
-                             max_depth=max_depth, n_med=n_med, ntab=ntab)
+                             max_depth=max_depth, n_med=n_med, ntab=ntab, stats=stats)
         return (out, (rec[2], rec[7], rec[8])) if track else out
 
     return bounce

@@ -222,6 +222,8 @@ def grad_plain(camv, seed, packed, background, g, *, n_pix, max_depth, sizes,
                 carry = tuple(c.index_copy(0, live, v) for c, v in zip(carry, sub))
             out = (carry[11] * gl[:, 0] + carry[12] * gl[:, 1]
                    + carry[13] * gl[:, 2]).sum()
+            if not out.requires_grad:
+                continue  # no lane of the chunk is in the image (a shard past its edge)
             grads = torch.autograd.grad(out, leaves, allow_unused=True)
         for a, d in zip(acc, grads):
             if d is not None:

@@ -53,6 +53,23 @@ class Quads:
         return self.d.shape[0]
 
 
+def derive_quad_plane(quads: Quads) -> Quads:
+    """The derived plane rows (normal, d, w) recomputed from q, u and v in
+    torch (JAX ``schema.derive_quad_plane``): the differentiable analog of
+    ``make_quads``' numpy derivation (Quad.hpp:24-29). Use it after
+    perturbing quad geometry, since the intersector reads the derived rows,
+    not q, u and v."""
+    u, v = quads.u, quads.v
+    n_raw = torch.stack([u[:, 1] * v[:, 2] - u[:, 2] * v[:, 1],
+                         u[:, 2] * v[:, 0] - u[:, 0] * v[:, 2],
+                         u[:, 0] * v[:, 1] - u[:, 1] * v[:, 0]], dim=-1)
+    nn = torch.sum(n_raw * n_raw, dim=-1, keepdim=True)
+    safe_nn = torch.where(nn > 0, nn, 1.0)
+    normal = n_raw / torch.sqrt(safe_nn)
+    return dataclasses.replace(quads, normal=normal, d=torch.sum(normal * quads.q, dim=-1),
+                               w=n_raw / safe_nn)
+
+
 @dataclasses.dataclass(frozen=True)
 class Boxes:
     """Axis-aligned boxes, swept by the kernel's slab test. The loader also

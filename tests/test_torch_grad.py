@@ -16,6 +16,7 @@ JAX runs eagerly here (``jax.disable_jit``): one evaluation of the noise
 scenes' replay is seconds op by op, where compiling it takes most of a
 minute."""
 
+import dataclasses
 import json
 
 import jax
@@ -407,23 +408,20 @@ def test_book1_gradient_through_wavefront(tmp_path):
 
 
 @pytest.mark.parametrize("case", ["ellipsoid", "depth65", "table_noise"])
-def test_unsupported_gradients_raise(tmp_path, case):
-    """The JAX package falls back to its XLA scan for ellipsoids and depth
-    above 64; the port refuses, naming the ROADMAP item that brings each.
-    Table noise, refused until B1's table Perlin was ported, now takes the
-    gradient kernel's path: the gradient is finite and reaches the noise
-    texture's scale."""
+def test_unsupported_gradients_raise(tmp_path, case, monkeypatch):
+    """Ellipsoids and depth above 64, refused until the differentiable scan
+    was ported, now take it, as the JAX package does: the gradient is
+    finite, equals autograd through the scan's own loop of
+    ``integrator.render_sample(..., differentiable=True)``, and never
+    reaches the replay kernel's wrapper. Table noise, refused until B1's
+    table Perlin was ported, takes the gradient kernel's path: the gradient
+    is finite and reaches the noise texture's scale."""
     if case == "ellipsoid":
-        p = tmp_path / "ell.json"
-        p.write_text(json.dumps({
-            "materials": [{"type": "lambertian", "albedo": [0.5, 0.5, 0.5]}],
-            "primitives": [{"type": "sphere", "radius": 1, "material": 0}],
-            "scene": [{"transform": {"scale": [1, 2, 1]}, "primitive": 0}]}))
-        host, _ = loader.load_scene(str(p))
-        scene, feats, kw, item = schema.to_device(host, "cpu"), host.features(), KW, "A item 12"
+        scene, feats = _load(tmp_path, "ellipsoid")
+        kw = KW
     elif case == "depth65":
         scene, feats = _load(tmp_path, "grad_solid")
-        kw, item = dict(KW, max_depth=65), "A item 12"
+        kw = dict(KW, max_depth=65)
     else:
         scene, feats = _load(tmp_path, "grad_noise", noise_impl="table")
         _, g = grad.value_and_grad_scene(torch.mean, scene, feats, 0, **KW)
@@ -432,8 +430,25 @@ def test_unsupported_gradients_raise(tmp_path, case):
         assert all(torch.isfinite(x).all() for x in floats)
         assert float(g.textures.scale.abs().max()) > 0.0
         return
-    with pytest.raises(NotImplementedError, match=item):
-        grad.value_and_grad_scene(torch.mean, scene, feats, 0, **kw)
+
+    def no_kernel(*a, **k):
+        raise AssertionError("the scan's backward reached the replay kernel's wrapper")
+
+    monkeypatch.setattr(mkg, "grad_call", no_kernel)
+    loss, g = grad.value_and_grad_scene(torch.mean, scene, feats, 0, **kw)
+    floats = []
+    schema.map_leaves(g, lambda x: floats.append(x) if x is not None else None)
+    assert all(torch.isfinite(x).all() for x in floats)
+    assert float(g.materials.albedo.abs().max()) > 0.0
+    albedo = scene.materials.albedo.detach().clone().requires_grad_(True)
+    moved = dataclasses.replace(scene, materials=dataclasses.replace(scene.materials,
+                                                                     albedo=albedo))
+    img = sum(integrator.render_sample(moved, feats, kw["width"], kw["height"], s, 0,
+                                       kw["max_depth"], kw["sqrt_spp"], differentiable=True)
+              for s in range(kw["n_samples"])) / kw["n_samples"]
+    want = torch.autograd.grad(torch.mean(img), albedo)[0]
+    assert float(loss) == pytest.approx(float(torch.mean(img.detach())), rel=1e-6)
+    torch.testing.assert_close(g.materials.albedo, want, rtol=1e-5, atol=1e-7)
 
 
 # ---------------------------------------------------------------------------

@@ -119,10 +119,14 @@ def test_cli_camera_override(tmp_path):
                      "--camera", str(tmp_path / "missing.json")]) == 1
 
 
-def test_cli_errors(tmp_path, monkeypatch):
+def test_cli_errors(tmp_path, monkeypatch, capsys):
     assert app.main([str(tmp_path / "missing.json"), "--device", "cpu", "--quiet"]) == 1
-    assert app.main([write_scene(tmp_path, "cornell"), "--device", "cpu", "--quiet",
-                     "--live"]) == 2
+    # --live, refused until the live CLI was ported, now draws its ANSI frame.
+    capsys.readouterr()
+    assert app.main([write_scene(tmp_path, "cornell"), str(tmp_path / "live.png"), "--device",
+                     "cpu", "--quiet", "--live", "--live-cols", "16", "--width", "8",
+                     "--samples", "1", "--depth", "2"]) == 0
+    assert "\x1b[38;2;" in capsys.readouterr().out
     # The kernel path forced above its record ceiling, and the sphere BVH.
     huge = _many_spheres(tmp_path, MAX_SMEM_RECORDS + 1)
     for backend in ("mega", "bvh"):

@@ -137,3 +137,34 @@ def test_table_noise_ad_matches_fd(tmp_path, leaf, idx):
     assert abs(want) > 5e-5, want  # the table noise makes the integrand continuous
     assert np.sign(got) == np.sign(want), (got, want)
     assert 0.5 < abs(got / want) < 2.0, (got, want)
+
+
+@pytest.mark.parametrize("ntab", [False, True], ids=["hash", "table"])
+def test_noise_evaluations_counted(tmp_path, ntab):
+    """``make_bounce``'s ``stats`` count each live lane's noise evaluation
+    by kind (what chip_smoke.py's bound of a table-noise launch counts): the
+    feature scene's two noise textures (one marble, one Perlin) are met on
+    some of 2,048 random rays, every counted lane shades a noise texture,
+    and counting changes no bounce."""
+    host, _ = loader.load_scene(write_scene(tmp_path, "feature"))
+    feats = host.features()
+    dev = schema.to_device(host, "cpu")
+    sizes = tuple(feats["mega_sizes"])
+    packed = mk.pack_buffer(dev, sizes)
+    tab = integrator.noise_tables(dev, dict(feats, noise_impl="table")) if ntab else None
+    rs = np.random.RandomState(5)
+    n = 2048
+    o = torch.from_numpy(rs.uniform(-3, 3, (3, n)).astype(np.float32))
+    o[1] = o[1].abs() + 0.2
+    d = torch.from_numpy(rs.normal(size=(3, n)).astype(np.float32))
+    carry = (torch.zeros(n), torch.ones(n), *o, *d, torch.ones(n), torch.ones(n), torch.ones(n),
+             torch.zeros(n), torch.zeros(n), torch.zeros(n))
+    key = torch.from_numpy(rs.randint(0, 2**31, n).astype(np.int64))
+    kw = dict(max_depth=6, sizes=sizes, has_checker=feats["has_checker"], has_noise=True,
+              ntab=tab)
+    stats = {}
+    out = mk.make_bounce(packed, dev.background, stats=stats, **kw)(key, torch.zeros(n), carry)
+    ref = mk.make_bounce(packed, dev.background, **kw)(key, torch.zeros(n), carry)
+    assert all(torch.equal(a, b) for a, b in zip(out, ref))
+    assert stats["noise_marble"] > 0 and stats["noise_perlin"] > 0
+    assert stats["noise_marble"] + stats["noise_perlin"] <= stats["bounces"] == n

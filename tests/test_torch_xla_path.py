@@ -11,6 +11,7 @@ near-tie; images are held to the image gate (``_gate``): the mean within
 1e-3, at most 0.5 % of pixels differing by more than 1e-4, and at least
 60 dB over the others."""
 
+import dataclasses
 import json
 
 import jax
@@ -28,7 +29,7 @@ from raytrace2_tpu.scene import loader as jax_loader
 from raytrace2_tpu.scene import schema as jax_schema
 from raytrace2_tpu_torch import app, interop
 from raytrace2_tpu_torch.io import compare, image
-from raytrace2_tpu_torch.ops import integrator, intersect, materials, textures
+from raytrace2_tpu_torch.ops import camera, integrator, intersect, materials, rng, textures
 from raytrace2_tpu_torch.ops.kernels import intersect_kernel as pk
 from raytrace2_tpu_torch.render import CHUNK_SIZE_LARGE, Renderer, display_image
 from raytrace2_tpu_torch.scene import loader, schema
@@ -168,9 +169,21 @@ def test_bvh_and_differentiable_scan_raise(tmp_path):
     with pytest.raises(NotImplementedError, match="queue A item 12, the sphere BVH"):
         intersect.closest_hit(scene, torch.zeros(2, 3), torch.ones(2, 3), torch.zeros(2),
                               features={"use_bvh_spheres": True})
-    o, d, tm = torch.zeros(4, 3), torch.ones(4, 3), torch.zeros(4)
-    with pytest.raises(NotImplementedError, match="queue A item 12, the differentiable scan"):
-        integrator.trace_rays(scene, host.features(), o, d, tm, None, 4, differentiable=True)
+    # The differentiable scan, refused until it was ported, runs exactly
+    # max_depth steps over every ray: its radiance equals the compacting
+    # loop's, and it is differentiable in the scene's leaves.
+    o, d, tm = camera.generate_rays(scene.camera, 4, 4, 0, 1,
+                                    rng.pixel_sample_key(0, torch.arange(16), 0))
+    keys = rng.pixel_sample_key(0, torch.arange(16), 0)
+    fast = integrator.trace_rays(scene, host.features(), o, d, tm, keys, 4)
+    albedo = scene.materials.albedo.clone().requires_grad_(True)
+    moved = dataclasses.replace(scene, materials=dataclasses.replace(scene.materials,
+                                                                     albedo=albedo))
+    scan = integrator.trace_rays(moved, host.features(), o, d, tm, keys, 4,
+                                 differentiable=True)
+    torch.testing.assert_close(scan.detach(), fast, rtol=0, atol=0)
+    (d_albedo,) = torch.autograd.grad(scan.sum(), albedo)
+    assert torch.isfinite(d_albedo).all() and float(d_albedo.abs().max()) > 0.0
 
 
 def test_cli_pallas_and_chunk_size(tmp_path):
