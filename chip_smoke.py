@@ -138,9 +138,17 @@ Phases, each printed on its own line:
      value_and_grad_scene, one B3 launch), then two gloo ranks on cuda:0
      (parallel.dryrun.run_ranks): Cornell 600x600 16 spp at meshes (1, 2)
      bitwise and (2, 1) within 1e-6 relative, book 2 at (1, 2) through the
-     wavefront bitwise, grad_sharded_auto at (1, 2) under B3's gate; the
-     second dp rank's slots start at camv[25] > 0 in v4, the wavefront step
-     and B3;
+     wavefront bitwise, book 2 at (1, 2) through v4 forced (the block-tiled
+     layout with wave regeneration) bitwise, grad_sharded_auto at (1, 2)
+     under B3's gate; the second dp rank's slots start at camv[25] > 0 in
+     v4, the wavefront step and B3. On the same ranks the non-kernel
+     drivers: train_step_analog with use_pallas (render_samples_sharded
+     through B5) on Cornell 600x600 depth 50, 1 spp, against the
+     single-device pallas route, and render_grad_sharded (the scan) on
+     Cornell 64x64 depth 8 against value_and_grad_scene's scan under B3's
+     gate. Last the dry run's entry point, python -m
+     raytrace2_tpu_torch.parallel.dryrun, as two gloo ranks on cuda:0 and
+     under torchrun as a world of 1 under NCCL;
  23. the live CLI: app.main --live --live-cols 80 on Cornell 600x600 16 spp
      (one ANSI frame per launch, the PNG of the run without --live), and
      --profile DIR (a Chrome trace whose kernel events name each v4
@@ -210,6 +218,9 @@ BOOK2_MEAN_64 = 0.4436
 # Gate of B3 against its plain version, per leaf group: float atomics sum in
 # another order than autograd.
 GRAD_RTOL, GRAD_ATOL = 1e-3, 1e-6
+# Gate of a sharded non-kernel render against one device (JAX's
+# test_sharding tolerance): its shards trace other batches of rays.
+PALLAS_RTOL, PALLAS_ATOL = 2e-4, 2e-5
 # The gradient main path (bench.py --grad): 64 samples per dispatch,
 # sqrt_spp 2, depth 50.
 GRAD_SPP, GRAD_SQRT_SPP, GRAD_DEPTH = 64, 2, 50
@@ -2342,10 +2353,13 @@ def scan_grad_phase(card, cornell, work) -> dict:
 def _sharded_ranks(cornell, book2) -> dict:
     """One rank of phase 22's pair of gloo ranks on cuda:0: the kernel path
     sharded at meshes (1, 2) and (2, 1) on Cornell 600x600 16 spp, book 2
-    at (1, 2) through the wavefront, and grad_sharded_auto at (1, 2) (B3 on
-    each rank's run of slots)."""
+    at (1, 2) through the wavefront and through v4 forced (the block-tiled
+    layout), grad_sharded_auto at (1, 2) (B3 on each rank's run of slots),
+    train_step_analog through B5 and render_grad_sharded (the scan)."""
     import torch
 
+    from raytrace2_tpu_torch import render as render_mod
+    from raytrace2_tpu_torch.ops.kernels import intersect_kernel as pk
     from raytrace2_tpu_torch.ops.kernels import megakernel as mk
     from raytrace2_tpu_torch.ops.kernels import megakernel_grad as mkg
     from raytrace2_tpu_torch.ops.kernels import wavefront as wf
@@ -2356,12 +2370,14 @@ def _sharded_ranks(cornell, book2) -> dict:
     kw = dict(width=600, height=600, max_depth=50, sqrt_spp=4)
     out = {}
     meshes = {}
-    for name, path, (sp, dp) in (("cornell_1x2", cornell, (1, 2)),
-                                 ("cornell_2x1", cornell, (2, 1)),
-                                 ("book2_1x2", book2, (1, 2))):
+    for name, path, (sp, dp), extra in (("cornell_1x2", cornell, (1, 2), {}),
+                                        ("cornell_2x1", cornell, (2, 1), {}),
+                                        ("book2_1x2", book2, (1, 2), {}),
+                                        ("book2v4_1x2", book2, (1, 2),
+                                         {"mega_wavefront": False})):
         host, _ = loader.load_scene(path)
         scene = schema.to_device(host, dev)
-        feats = dict(host.features(), use_megakernel=True)
+        feats = dict(host.features(), use_megakernel=True, **extra)
         mesh = meshes.setdefault((sp, dp), sharding.make_mesh(sp=sp, dp=dp, device=dev))
         spd = 16 // sp
         sharding.render_samples_sharded_mega(scene, feats, 0, 0, samples_per_device=1,
@@ -2388,6 +2404,29 @@ def _sharded_ranks(cornell, book2) -> dict:
             out["grad_1x2"] = {"loss": float(loss), "b3": mkg.LAUNCHES,
                                "ms": (time.perf_counter() - t0) * 1e3,
                                "grad": schema.map_leaves(g, lambda x: x.cpu())}
+    host, _ = loader.load_scene(cornell)
+    scene = schema.to_device(host, dev)
+    mesh = meshes[(1, 2)]
+    # The non-kernel drivers. The features carry no B5 extents: the sharded
+    # render reads them.
+    pk.LAUNCHES = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state = sharding.train_step_analog(
+        scene, dict(host.features(), use_pallas=True), render_mod.init_state(600, 600, dev), 0,
+        width=600, height=600, max_depth=50, sqrt_spp=1, samples_per_device=1, mesh=mesh)
+    torch.cuda.synchronize()
+    out["pallas_1x2"] = {"image": state.accum.cpu(), "frame_idx": state.frame_idx,
+                         "ms": (time.perf_counter() - t0) * 1e3, "b5": pk.LAUNCHES}
+    target = torch.full((64, 64, 3), 0.3, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss, g = sharding.render_grad_sharded(scene, host.features(), target, 0, width=64,
+                                           height=64, max_depth=8, sqrt_spp=1, n_samples=1,
+                                           mesh=mesh)
+    torch.cuda.synchronize()
+    out["scan_1x2"] = {"loss": float(loss), "ms": (time.perf_counter() - t0) * 1e3,
+                       "grad": schema.map_leaves(g, lambda x: x.cpu())}
     return out
 
 
@@ -2398,12 +2437,17 @@ def sharded_phase(card, cornell, book2, work) -> dict:
     grad_sharded_auto at 64 spp against value_and_grad_scene (B3's gate,
     one B3 launch). Two gloo ranks on cuda:0: Cornell 600x600 16 spp at
     (1, 2) bitwise and (2, 1) within 1e-6 relative, book 2 at (1, 2)
-    through the wavefront (the second rank's slots start past 0) bitwise,
-    grad_sharded_auto at (1, 2) within B3's gate."""
+    through the wavefront (the second rank's slots start past 0) and through
+    v4 forced (the block-tiled layout) bitwise, grad_sharded_auto at (1, 2)
+    within B3's gate; train_step_analog through B5 against the pallas route
+    and render_grad_sharded (the scan) against value_and_grad_scene; then
+    the dry run's entry point as two gloo ranks on cuda:0 and under
+    torchrun as a world of 1 under NCCL."""
     import torch
 
     from raytrace2_tpu_torch import grad
     from raytrace2_tpu_torch.ops import integrator
+    from raytrace2_tpu_torch.ops.kernels import intersect_kernel as pk
     from raytrace2_tpu_torch.ops.kernels import megakernel as mk
     from raytrace2_tpu_torch.ops.kernels import megakernel_grad as mkg
     from raytrace2_tpu_torch.parallel import distributed, dryrun, sharding
@@ -2470,16 +2514,19 @@ def sharded_phase(card, cornell, book2, work) -> dict:
     ranks = dryrun.run_ranks(_sharded_ranks, 2, backend="gloo", args=(cornell, book2),
                              timeout_s=300.0)
     spawn_s = time.perf_counter() - t0
-    for name in ("cornell_1x2", "cornell_2x1", "book2_1x2"):
+    for name in ("cornell_1x2", "cornell_2x1", "book2_1x2", "book2v4_1x2", "pallas_1x2"):
         check(torch.equal(ranks[0][name]["image"], ranks[1][name]["image"]),
               f"{name}: the two ranks hold different images")
     singles = {}
-    for name, path in (("cornell", cornell), ("book2", book2)):
+    for name, path, extra in (("cornell", cornell, {}), ("book2", book2, {}),
+                              ("book2v4", book2, {"mega_wavefront": False})):
         h, _ = loader.load_scene(path)
         s = schema.to_device(h, dev)
         singles[name] = integrator.render_progressive(
-            s, dict(h.features(), use_megakernel=True), 600, 600, 0, 16, 0, 50, 4).cpu()
-    for name, exact in (("cornell_1x2", True), ("cornell_2x1", False), ("book2_1x2", True)):
+            s, dict(h.features(), use_megakernel=True, **extra), 600, 600, 0, 16, 0, 50,
+            4).cpu()
+    for name, exact in (("cornell_1x2", True), ("cornell_2x1", False), ("book2_1x2", True),
+                        ("book2v4_1x2", True)):
         img = ranks[0][name]["image"]
         ref = singles[name.split("_")[0]]
         if exact:
@@ -2490,7 +2537,7 @@ def sharded_phase(card, cornell, book2, work) -> dict:
             rel = float((d / ref.abs().clamp(min=1e-30)).max())
             check(bool((d <= 1e-6 * ref.abs()).all()), f"gloo {name}: max rel {rel:.3g}")
             detail = f"max rel {rel:.3g} (gate 1e-6)"
-        kern = "wavefront" if name.startswith("book2") else "v4"
+        kern = "wavefront" if name == "book2_1x2" else "v4"
         launches = [ranks[r][name][kern] for r in (0, 1)]
         check(all(n > 0 for n in launches), f"gloo {name}: launches per rank {launches}")
         out[f"gloo_{name}"] = {"ms": [ranks[r][name]["ms"] for r in (0, 1)],
@@ -2518,7 +2565,70 @@ def sharded_phase(card, cornell, book2, work) -> dict:
         + ", ".join(f"{k} {v:.2g}" for k, v in rel.items()) + f" (gate {GRAD_RTOL:g}), ms per "
         "rank " + ", ".join(f"{x:.1f}" for x in out["gloo_grad_1x2"]["ms"])
         + f"; both ranks spawned and done in {spawn_s:.1f} s ({card})")
+    # The non-kernel drivers against one device: the pallas route (B5) and
+    # the scan.
+    h, _ = loader.load_scene(cornell)
+    s = schema.to_device(h, dev)
+    pallas = ranks[0]["pallas_1x2"]
+    ref = integrator.render_sample(s, dict(h.features(), use_pallas=True,
+                                           pallas_extents=pk.live_extents(h)),
+                                   600, 600, 0, 0, 50, 1).cpu()
+    d = (pallas["image"] - ref).abs()
+    b5 = [ranks[r]["pallas_1x2"]["b5"] for r in (0, 1)]
+    check(pallas["frame_idx"] == 1 and all(n > 0 for n in b5)
+          and bool(torch.isfinite(pallas["image"]).all())
+          and bool((d <= PALLAS_ATOL + PALLAS_RTOL * ref.abs()).all()),
+          f"gloo train_step_analog with use_pallas: frame_idx {pallas['frame_idx']}, B5 "
+          f"launches per rank {b5}, max|d| {float(d.max()):.3g} against the pallas route")
+    out["gloo_pallas_1x2"] = {"ms": [ranks[r]["pallas_1x2"]["ms"] for r in (0, 1)],
+                              "b5": b5, "max_abs": float(d.max()),
+                              "bitwise": bool(torch.equal(pallas["image"], ref))}
+    say(f"phase 22 gloo ranks on cuda:0, train_step_analog with use_pallas (the sharded "
+        f"non-kernel render through B5, extents read by render_samples_sharded) Cornell 600x600 1 spp "
+        f"depth 50 mesh (1, 2): B5 launches per rank {b5}, max|d| {float(d.max()):.3g} "
+        f"against the single-device pallas route (bitwise: "
+        f"{out['gloo_pallas_1x2']['bitwise']}; gate {PALLAS_RTOL:g} rel + {PALLAS_ATOL:g}), "
+        "ms per rank (first call) " + ", ".join(f"{x:.1f}" for x in out["gloo_pallas_1x2"]["ms"])
+        + f" ({card})")
+    scan = ranks[0]["scan_1x2"]
+    check(ranks[1]["scan_1x2"]["loss"] == scan["loss"], "gloo scan: the ranks' losses differ")
+    target = torch.full((64, 64, 3), 0.3, device=dev)
+    ref_loss, ref_g = grad.value_and_grad_scene(
+        lambda im: torch.sum((im - target) ** 2), s, dict(h.features(), use_megakernel=False),
+        0, width=64, height=64, n_samples=1, max_depth=8, sqrt_spp=1)
+    check(abs(scan["loss"] - float(ref_loss)) <= 1e-5 * abs(float(ref_loss)),
+          f"gloo scan loss {scan['loss']} vs {float(ref_loss)}")
+    rel = grad_gate(scan["grad"], ref_g)
+    out["gloo_scan_1x2"] = {"ms": [ranks[r]["scan_1x2"]["ms"] for r in (0, 1)], "rel": rel}
+    say(f"phase 22 gloo ranks on cuda:0, render_grad_sharded (the scan) Cornell 64x64 1 spp "
+        f"depth 8 mesh (1, 2): against value_and_grad_scene's scan max|d|/max|g| "
+        + ", ".join(f"{k} {v:.2g}" for k, v in rel.items()) + f" (gate {GRAD_RTOL:g}), ms per "
+        "rank (first call) " + ", ".join(f"{x:.1f}" for x in out["gloo_scan_1x2"]["ms"])
+        + f" ({card})")
     out["gloo_spawn_s"] = spawn_s
+
+    # The dry run's entry point (every sharded entry point at 16x16, finite
+    # results, a nonzero kernel-route gradient): two gloo ranks on cuda:0,
+    # then under torchrun a world of 1 under NCCL.
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    for label, cmd in (
+            ("2 gloo ranks on cuda:0", [sys.executable, "-m", "raytrace2_tpu_torch.parallel.dryrun",
+                                        "--nproc", "2", "--device", "cuda:0", "--backend",
+                                        "gloo", "--timeout", "300"]),
+            ("torchrun, a world of 1 under NCCL",
+             [sys.executable, "-m", "torch.distributed.run", "--standalone",
+              "--nproc_per_node", "1", "-m", "raytrace2_tpu_torch.parallel.dryrun",
+              "--device", "cuda", "--timeout", "300"])):
+        t0 = time.perf_counter()
+        r = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True, text=True, timeout=400)
+        wall = time.perf_counter() - t0
+        rows = [json.loads(line) for line in r.stdout.splitlines() if line.startswith("{")]
+        check(r.returncode == 0 and rows and "kernel_grad_nonzero" in rows[0],
+              f"dryrun, {label}: rc {r.returncode}, {len(rows)} rows; stderr "
+              f"{r.stderr[-1500:]}")
+        out[f"dryrun {label}"] = {"s": wall, "rows": rows}
+        say(f"phase 22 python -m raytrace2_tpu_torch.parallel.dryrun, {label}: "
+            + "; ".join(json.dumps(row) for row in rows) + f"; {wall:.1f} s ({card})")
     return out
 
 

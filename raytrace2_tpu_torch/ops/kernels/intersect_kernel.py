@@ -112,11 +112,12 @@ def pack_scene(spheres, quads):
 
 def live_extents(scene) -> tuple[int, int]:
     """(ns, nq): one past the last active sphere and the last active quad of
-    a host scene (numpy leaves, as the loader builds it; 0 for a family with
-    none), read once per scene. Records past them are padding, which never
-    hits (``act`` is 0)."""
+    a scene (numpy leaves, as the loader builds it, or tensors, read to the
+    host; 0 for a family with none), read once per scene. Records past them
+    are padding, which never hits (``act`` is 0)."""
     def extent(active):
-        idx = np.flatnonzero(np.asarray(active))
+        idx = np.flatnonzero(active.cpu().numpy() if torch.is_tensor(active)
+                             else np.asarray(active))
         return int(idx[-1]) + 1 if idx.size else 0
 
     return extent(scene.spheres.active), extent(scene.quads.active)

@@ -36,6 +36,7 @@ import torch.distributed as dist
 from raytrace2_tpu_torch import grad as grad_mod
 from raytrace2_tpu_torch import render as render_mod
 from raytrace2_tpu_torch.ops import camera, integrator, rng
+from raytrace2_tpu_torch.ops.kernels import intersect_kernel as pk
 from raytrace2_tpu_torch.parallel import distributed
 from raytrace2_tpu_torch.scene import schema
 
@@ -130,8 +131,12 @@ def render_samples_sharded(scene, features, sample0, seed, *, width, height, max
     """Radiance sum [H, W, 3] over ``samples_per_device * sp`` progressive
     samples on the non-kernel path: rank (i, j) traces samples ``sample0 +
     i·spd + [0, spd)`` of dp shard j's pixels. ``use_pallas`` in the
-    features runs B5 for the closest hit."""
+    features runs B5 for the closest hit, over the live extents in
+    ``features["pallas_extents"]`` or, when absent, read here once from
+    the scene."""
     features = dict(features)
+    if features.get("use_pallas") and features.get("pallas_extents") is None:
+        features["pallas_extents"] = pk.live_extents(scene)
     n = width * height
     _check_slots(n)
     start, stop = _pixel_range(n, mesh.dp, mesh.dp_index)
@@ -155,21 +160,18 @@ def _slot_chunk(features, width, height, dp) -> tuple[int, torch.Tensor]:
 
 
 def render_samples_sharded_mega(scene, features, sample0, seed, *, width, height, max_depth,
-                                sqrt_spp, samples_per_device, mesh, packed=None):
+                                sqrt_spp, samples_per_device, mesh):
     """The kernel path sharded (JAX ``render_samples_sharded_mega``): each dp
     rank launches v4, or runs the wavefront, on its run of whole slot tiles
     from its ``pix0`` (``camv[25]``), the sp ranks on disjoint sample
     blocks; the flat slot image is summed over the world and de-tiled once.
     Returns the radiance sum [H, W, 3] over ``sp · samples_per_device``
-    samples. ``packed`` (``integrator.pack_scene``) may be passed to reuse
-    the tables."""
+    samples."""
     features = dict(features)
     chunk, slot_of_pixel = _slot_chunk(features, width, height, mesh.dp)
     pix0 = mesh.dp_index * chunk
-    if packed is None:
-        packed = integrator.pack_scene(scene, features)
     tile = integrator._render_batch_megakernel(
-        scene, packed, features, width, height,
+        scene, integrator.pack_scene(scene, features), features, width, height,
         int(sample0) + mesh.sp_index * samples_per_device, samples_per_device, seed,
         max_depth, sqrt_spp, pix0=pix0, n_local=chunk)
     flat = _gather_image(tile, pix0, chunk * mesh.dp)

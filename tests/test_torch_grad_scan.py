@@ -119,7 +119,10 @@ def test_scan_gradient_ellipsoid(tmp_path):
     """The ellipsoid scene (no kernel sizes), 16², 2 samples, depth 4."""
     g = _compare(write_scene(tmp_path, "ellipsoid"), {},
                  dict(width=16, height=16, n_samples=2, max_depth=4, sqrt_spp=1))
-    assert float(np.abs(g.ellipsoids.center0.numpy()).max()) >= 0.0
+    # Paths hit the ellipsoid: its material's albedo takes a cotangent (its
+    # geometry takes none here, as in JAX: a path of constant lambertian
+    # albedos does not vary with where it hits).
+    assert float(np.abs(g.materials.albedo.numpy()[0]).max()) > 0.0
 
 
 def test_scan_gradient_depth65(tmp_path, monkeypatch):
@@ -271,7 +274,7 @@ def test_scan_cotangents_finite_tangent_and_tir(tmp_path):
     floats = []
     schema.map_leaves(g, lambda x: floats.append(x))
     assert all(torch.isfinite(x).all() for x in floats)
-    assert float(g.spheres.center0.abs().max()) >= 0.0
+    assert float(g.materials.albedo[1].abs().max()) > 0.0  # the floor, through the glass
     assert float(g.background.abs().max()) > 0.0
 
 
