@@ -153,8 +153,26 @@ Phases, each printed on its own line:
      (one ANSI frame per launch, the PNG of the run without --live), and
      --profile DIR (a Chrome trace whose kernel events name each v4
      launch).
-Phases 21-23 run after phase 19 and before the kernels line of phase 20,
-whose JSON also carries their numbers.
+ 24. the sphere BVH's main paths through app.main at 600x600, 1 spp, depth
+     50: book 1 --backend bvh, book 2 --backend xla (the walk from 256
+     spheres on) and the 5,000-sphere grid through auto (above 4,096
+     records); the walk (csrc/bvh_traverse.cu) launches and no other
+     kernel; on each path's first and fourth launches the walk's hits
+     against the dense sweep's, the float64 roots deciding; each path's
+     image at 48x48, 2 spp, depth 8 against the dense sweep's;
+ 25. the walk against its plain version, bitwise, on those launches (book
+     1's 65,536-ray chunk and book 2's 16,384-ray chunk among them), timed
+     beside the plain walk and the dense sphere sweep, with its bound;
+ 26. RAYTRACE2_DOUBLE=1, then 0, in subprocesses: the corpus Cornell on the
+     non-kernel path at 64x64 card against CPU, and one 600x600 sample
+     timed;
+ 27. the tools: tools.validate (the golden gate on renders/
+     cornell32k_mega.npy and the throughput ladder at 2 spp),
+     check_table_grad, bench_big_grad (book 2 600x600, 4 spp) and
+     sweep_wavefront (book 2 600x600, sort_impl multi against gather).
+Phases 21-27 run after phase 19 and before the kernels line of phase 20,
+whose JSON also carries their numbers (the walk's entry, bvh_traverse,
+beside the kernels).
 The last line is {"ok": true, "device": {...}}. Any failure exits non-zero
 before printing it, as does a machine without CUDA or a directory without
 the package.
@@ -332,10 +350,8 @@ def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs an NVIDIA GPU")
     sys.path.insert(0, ROOT)
-    sys.path.insert(0, os.path.join(ROOT, "tools"))
     sys.path.insert(0, os.path.join(ROOT, "tests"))
     try:
-        import make_scene
         from test_torch_scenes import feature_scene_json
 
         from test_torch_scenes import GRAD_SCENES
@@ -350,7 +366,7 @@ def main() -> None:
         from raytrace2_tpu_torch.ops.kernels import wavefront as wf
         from raytrace2_tpu_torch.render import Renderer
         from raytrace2_tpu_torch.scene import loader, schema
-        from raytrace2_tpu_torch.tools import optimize_scene
+        from raytrace2_tpu_torch.tools import check_table_grad, make_scene, optimize_scene
     except ImportError as e:
         fail(f"run from the root of a checkout of the repository: {e}")
     for name in ("jax", "raytrace2_tpu"):
@@ -395,7 +411,12 @@ def main() -> None:
             *((f"closed {n}", scene_file(n, obj), False, (v4,)) for n, obj, _ in CLOSED),
             *((f"grad_{k}", scene_file(f"grad_{k}", GRAD_SCENES[k]), False, (b3,))
               for k in ("solid", "noise", "media")),
-            ("grad_noise (table noise)", os.path.join(work, "grad_noise.json"), True, (b3,))]:
+            ("grad_noise (table noise)", os.path.join(work, "grad_noise.json"), True, (b3,)),
+            ("cornell_corpus", scene_file("cornell_corpus",
+                                          make_scene.cornell_box_corpus().to_json()), False,
+             (v4,)),
+            ("table_grad (table noise)", scene_file("table_grad", check_table_grad.NOISE_SCENE),
+             True, (v4, b3))]:
         host = loader.load_scene(path)[0]
         f = host.features()
         ds = schema.to_device(host, "cpu")
@@ -406,7 +427,7 @@ def main() -> None:
             masks[k][name] = (mk3.instance_features(*args) if k == v3
                               else mk.scene_features(*args, ntab))
     grad_masks = masks[b3]
-    targets = ["wavefront_step", "intersect_kernel"]
+    targets = ["wavefront_step", "intersect_kernel", "bvh_traverse"]
     targets += sorted({build.feature_target(k, m) for k in masks for m in masks[k].values()})
     targets += ["wavefront_profile", *sorted({build.grad_target(grad_masks[k], True)
                                               for k in ("cornell", "book2")}),
@@ -1048,6 +1069,15 @@ def main() -> None:
     walls.append(time.perf_counter())
     say("phases 21-23 wall: " + ", ".join(f"{b - a:.1f} s" for a, b in zip(walls, walls[1:]))
         + f", {walls[-1] - walls[0]:.1f} s together ({card})")
+    walls = [time.perf_counter()]
+    walk, bvh_paths = sphere_bvh_phases(dev, card, scene_file, book2)
+    walls.append(time.perf_counter())
+    double = double_phase(card)
+    walls.append(time.perf_counter())
+    tools = tools_phase(card, work)
+    walls.append(time.perf_counter())
+    say("phases 24-27 wall: " + ", ".join(f"{b - a:.1f} s" for a, b in zip(walls, walls[1:]))
+        + f", {walls[-1] - walls[0]:.1f} s together ({card})")
     shutil.rmtree(work)
     for name in ("jax", "raytrace2_tpu"):
         check(name not in sys.modules, f"{name} was imported")
@@ -1169,13 +1199,15 @@ def main() -> None:
         "instances": [bvh_instance(i, m) for i, m in enumerate(
             (None, masks[v4]["book2"], masks[v3]["book2"], masks[b3]["book2"]))],
     })
+    kernels.append(walk)
     for k in kernels:
         # The same bound against the card's measured ceiling for code built
         # with -fmad=false (a multiply and an add issued apart; phase 16).
         if k["bound_by"] == "operations":
             k["bound_ms_fmad_false"] = k["bound_ms"] * PEAK_F32_OPS / ceil["mul_add_ops_per_s"]
     say(json.dumps({"kernels": kernels, "ceilings": ceil, "bench": bench, "resume": resume,
-                    "scan_grad": scan, "sharded": sharded, "live_cli": live}))
+                    "scan_grad": scan, "sharded": sharded, "live_cli": live,
+                    "bvh_paths": bvh_paths, "double": double, "tools": tools}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))
 
 
@@ -2678,6 +2710,336 @@ def live_cli_phase(card, cornell, work) -> dict:
         f"clock, run {prof_s:.2f} s ({card})")
     return {"live_s": live_s, "frames": frames, "profile_s": prof_s,
             "profile_v4_events": len(v4_events), "profile_v4_ms": v4_us / 1e3}
+
+
+# The image gate of a BVH path against the dense sweep on the same streams:
+# the dense sweep's expanded quadratic (c0.c0 - 2 o.c0 + o.o - r^2) cancels
+# at these scenes' scales, so it finds false hits just past t_min next to a
+# sphere a ray leaves (self-intersection) and the paths part there: the
+# means within 5 % and 85 % of the pixels within 1e-3 (book 1, book 2 and
+# the 5,000-sphere grid at 48x48, 2 spp, depth 8 on the CPU: 99 %, 99 % and
+# 90 %). The hit gate on the main paths' launches decides which is right.
+BVH_IMAGE_MEAN_RTOL, BVH_IMAGE_NEAR, BVH_IMAGE_SHARE = 0.05, 1e-3, 0.85
+# The hit gate on a launch: a ray passes where the walk and the dense sweep
+# pick the same sphere, where the walk's sphere is the nearer by the float64
+# roots, or where the nearer root lies within BVH_NEAR_SURFACE of the origin
+# (a ray leaving a surface: both float32 tests cancel there, the walk's
+# oc.oc - r^2 on book 1's radius-1,000 ground too); at least this share of
+# the rays passes.
+BVH_HIT_OK_SHARE, BVH_NEAR_SURFACE = 0.995, 1e-2
+
+def exact_sphere_t(spheres, o, d, tm, t_min, prim):
+    """Float64 nearest root above t_min of each ray's sphere ``prim`` (inf
+    where the sphere is missed or prim is -1)."""
+    import torch
+
+    p = prim.clamp(min=0).long()
+    c = spheres.center0[p].double() + tm.double()[:, None] * spheres.displacement[p].double()
+    oc, dd = c - o.double(), d.double()
+    a, h = (dd * dd).sum(1), (dd * oc).sum(1)
+    cc = (oc * oc).sum(1) - spheres.radius[p].double() ** 2
+    disc = h * h - a * cc
+    sq = torch.sqrt(disc.clamp(min=0.0))
+    r0, r1 = (h - sq) / a, (h + sq) / a
+    t = torch.where(r0 > t_min.double(), r0, torch.where(r1 > t_min.double(), r1, float("inf")))
+    return torch.where((disc >= 0) & (prim >= 0), t, float("inf"))
+
+
+def sphere_bvh_phases(dev, card, scene_file, book2):
+    """Phases 24-25: the sphere BVH walk (csrc/bvh_traverse.cu).
+
+    24. The three BVH main paths through app.main at 600x600, 1 spp, depth
+        50, the launch counts reset before each and read after: book 1
+        --backend bvh (65,536-ray chunks), book 2 --backend xla (1,005
+        spheres: the walk from 256 on; 16,384-ray chunks) and the
+        5,000-sphere grid through auto (above 4,096 records: the non-kernel
+        path). The walk launches and no other kernel; the done record
+        names the route and kernel. Each path's first launch and its fourth
+        are captured; on them the walk's hits are held against the dense
+        sweep's (BVH_HIT_OK_SHARE, the float64 roots deciding); then
+        each path's image at 48x48, 2 spp, depth 8 against the dense
+        sweep's on the same streams (BVH_IMAGE_*).
+    25. The walk against its plain version, bitwise, on the captured
+        launches (book 1's 65,536-ray chunk and book 2's 16,384-ray chunk
+        among them), timed with CUDA events beside the plain walk and the
+        dense sphere sweep of the same rays; its bound from the nodes and
+        leaves the plain walk visited.
+    Returns the kernels-line entry of bvh_traverse and the paths' records."""
+    import numpy as np
+    import torch
+
+    from test_torch_scenes import separated_spheres_json
+
+    from raytrace2_tpu_torch import app
+    from raytrace2_tpu_torch.ops import bvh_traverse, integrator, intersect
+    from raytrace2_tpu_torch.ops.kernels import intersect_kernel as pk
+    from raytrace2_tpu_torch.ops.kernels import megakernel as mk
+    from raytrace2_tpu_torch.ops.kernels import megakernel_v3 as mk3
+    from raytrace2_tpu_torch.ops.kernels import wavefront as wf
+    from raytrace2_tpu_torch.render import Renderer
+    from raytrace2_tpu_torch.scene import loader
+    from raytrace2_tpu_torch.tools import make_scene
+
+    paths = (("book1", scene_file("book1", make_scene.book1_final(0).to_json()), "bvh"),
+             ("book2", book2, "xla"),
+             ("grid5000", scene_file("grid5000", separated_spheres_json(5000)), "auto"))
+    work = os.path.dirname(book2)
+    records, captured = {}, {}
+    orig = bvh_traverse.closest_sphere
+    for name, path, backend in paths:
+        calls = []
+
+        def capture(tables, o, d, time_, t_min, t_max, max_depth, stats=None):
+            if len(calls) in (0, 3):
+                captured[(name, len(calls))] = (tables, *(x.clone() for x in
+                                                          (o, d, time_, t_min, t_max)),
+                                                max_depth)
+            calls.append(o.shape[0])
+            return orig(tables, o, d, time_, t_min, t_max, max_depth, stats)
+
+        out, metrics = os.path.join(work, f"{name}_bvh.png"), os.path.join(work, f"{name}.jsonl")
+        bvh_traverse.LAUNCHES = pk.LAUNCHES = mk.LAUNCHES = wf.LAUNCHES = mk3.LAUNCHES = 0
+        bvh_traverse.closest_sphere = capture
+        try:
+            rc = app.main([path, out, "--samples", "1", "--width", "600", "--height", "600",
+                           "--depth", "50", "--device", "cuda", "--metrics", metrics,
+                           "--quiet", "--backend", backend])
+        finally:
+            bvh_traverse.closest_sphere = orig
+        counts = dict(walk=bvh_traverse.LAUNCHES, b5=pk.LAUNCHES, v4=mk.LAUNCHES,
+                      wavefront=wf.LAUNCHES, b4=mk3.LAUNCHES)
+        check(rc == 0, f"app.main {name} --backend {backend} exited {rc}")
+        with open(metrics) as f:
+            done = [json.loads(line) for line in f][-1]
+        check(counts["walk"] == len(calls) > 0 and not any(
+            v for k, v in counts.items() if k != "walk"), f"{name} BVH main path: {counts}")
+        check((done["route"], done["kernel"], done["launches"]) == (
+            "bvh", "bvh_traverse", counts["walk"]), f"{name} done record {done}")
+        check(np.isfinite(done["mean_linear"]) and done["mean_linear"] > 0,
+              f"{name}: mean linear radiance {done['mean_linear']}")
+        host, _ = loader.load_scene(path)
+        r = Renderer(host, 48, 48, num_samples=2, max_depth=8, backend=backend, device=dev)
+        img = r.render(batch=2)
+        feats = {k: v for k, v in r._features.items() if k != "use_bvh_spheres"}
+        dense = (integrator.render_progressive(r.scene, feats, 48, 48, 0, 2, 0, 8, 1)
+                 / 2).cpu().numpy()
+        d_mean = abs(float(img.mean()) / float(dense.mean()) - 1.0)
+        near = float((np.abs(img - dense).max(-1) <= BVH_IMAGE_NEAR).mean())
+        check(d_mean <= BVH_IMAGE_MEAN_RTOL and near >= BVH_IMAGE_SHARE,
+              f"{name} BVH image vs the dense sweep's: means {d_mean:.3%} apart, "
+              f"{near:.1%} of pixels within {BVH_IMAGE_NEAR}")
+        records[name] = dict(backend=backend, launches=counts["walk"], chunks=sorted(
+            set(calls), reverse=True)[:3], mean_linear=done["mean_linear"],
+            mpaths_per_s=done["mpaths_per_s"], elapsed_s=done["elapsed_s"],
+            bvh_depth=r._features["bvh_depth"], nodes=r.scene.sphere_bvh.num_nodes,
+            image_48=dict(mean_rel_diff=d_mean, share_within_1e3=near))
+        say(f"phase 24 BVH main path {name}: app.main 600x600 1 spp depth 50 --backend "
+            f"{backend} -> route bvh, {counts['walk']} walk launches (= launches per sample), "
+            f"no other kernel, tree of {r.scene.sphere_bvh.num_nodes} nodes, depth "
+            f"{r._features['bvh_depth']}; mean linear radiance {done['mean_linear']:.4f}, "
+            f"{done['mpaths_per_s']:.4f} Mpaths/s over {done['elapsed_s']:.3f} s; 48x48 2 spp "
+            f"depth 8 against the dense sweep: means {d_mean:.3%} apart, {near:.1%} of pixels "
+            f"within {BVH_IMAGE_NEAR} ({card})")
+
+    launches = {}
+    for (name, idx), (tables, o, d, tm, t0, t1, depth) in sorted(captured.items()):
+        label = f"{name} launch {idx} ({o.shape[0]} rays)"
+        (t_k, p_k), ms = event_ms(lambda: bvh_traverse.closest_sphere(tables, o, d, tm, t0, t1,
+                                                                      depth), 5)
+        stats = {}
+        (t_p, p_p), plain_ms = wall_ms(lambda: bvh_traverse.closest_sphere_plain(
+            tables, o, d, tm, t0, t1, depth, stats))
+        check(torch.equal(p_k, p_p) and torch.equal(t_k.view(torch.int32),
+                                                    t_p.view(torch.int32)),
+              f"the walk on {label} differs from its plain version")
+        spheres = captured_spheres(tables)
+        dense_fn = lambda: intersect._first_min(intersect._sphere_ts(  # noqa: E731
+            spheres, o, d, tm, t0, t1))
+        (t_d, i_d), dense_ms = event_ms(dense_fn, 3)
+        p_d = torch.where(t_d < intersect.BIG, i_d, -1)
+        differ = p_d != p_k.long()
+        e_k = exact_sphere_t(spheres, o, d, tm, t0, p_k)
+        e_d = exact_sphere_t(spheres, o, d, tm, t0, p_d)
+        right = differ & (e_k <= e_d * (1 + 1e-6))
+        near = differ & ~right & (torch.minimum(e_k, e_d) < BVH_NEAR_SURFACE)
+        n_diff, n_right, n_near = int(differ.sum()), int(right.sum()), int(near.sum())
+        share_ok = 1.0 - (n_diff - n_right - n_near) / o.shape[0]
+        check(share_ok >= BVH_HIT_OK_SHARE,
+              f"{label}: the walk and the dense sweep differ on {n_diff} rays, the walk the "
+              f"nearer by the float64 roots on {n_right}, {n_near} within "
+              f"{BVH_NEAR_SURFACE} of the origin: {share_ok:.3%} of rays agree or are right")
+        ops, nbytes = bvh_traverse.bound_counts(stats, o.shape[0], tables[2].numel(),
+                                                tables[7].numel())
+        bound_ms = max(ops / PEAK_F32_OPS, nbytes / PEAK_BYTES) * 1e3
+        bound_by = "operations" if ops / PEAK_F32_OPS >= nbytes / PEAK_BYTES else "bytes"
+        launches[label] = dict(n=o.shape[0], ms=ms, plain_ms=plain_ms, dense_ms=dense_ms,
+                               bound_ms=bound_ms, bound_by=bound_by, ops=ops, bytes=nbytes,
+                               nodes=stats["nodes"], leaves=stats["leaves"],
+                               longest_walk=stats["steps"], hits=int((p_k >= 0).sum()),
+                               dense_differs=n_diff, walk_right=n_right, near_surface=n_near,
+                               share_ok=share_ok,
+                               max_abs_err=float((t_k - t_p).abs().max()))
+        say(f"phase 25 walk vs plain, {label}: bitwise (t and sphere); {int((p_k >= 0).sum())} "
+            f"hit; kernel {ms:.4f} ms (mean of 5, CUDA events), plain walk {plain_ms:.1f} ms "
+            f"({stats['steps']} steps), the dense sphere sweep of the same rays "
+            f"{dense_ms:.3f} ms; {stats['nodes']} nodes and {stats['leaves']} leaves visited "
+            f"-> {ops:.6g} f32 ops, {nbytes} B -> bound {bound_ms:.5f} ms by {bound_by}; the "
+            f"dense sweep picks another sphere on {n_diff} rays: the walk's the nearer by the "
+            f"float64 roots on {n_right}, {n_near} within {BVH_NEAR_SURFACE} of the origin "
+            f"(f32's reach) ({card})")
+    main = launches[next(k for k in launches if k.startswith("book1 launch 0"))]
+    return {
+        "name": "bvh_traverse", "route": "cuda",
+        "source": "raytrace2_tpu_torch/csrc/bvh_traverse.cu",
+        "replaces": "raytrace2_tpu/ops/bvh_traverse.py:38 (traverse_one, XLA while_loop)",
+        "status": "ported, PR 12: a device loop of the JAX package outside Pallas, written as "
+                  "a kernel",
+        "design": "one thread a ray, the stack in local memory (64 entries, the depth "
+                  "checked on the host), the slab test with NaN as a miss, the sphere leaf of "
+                  "_sphere_best_bvh",
+        "launches": records["book1"]["launches"],
+        "max_abs_err": main["max_abs_err"],
+        "ms": main["ms"], "plain_ms": main["plain_ms"],
+        "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+        "library_ms": None,
+        "shape": "book1 600x600 --backend bvh, the first 65,536-ray chunk's first launch "
+                 "(launches: that path's 1-spp run)",
+        "dense_ms": main["dense_ms"],
+        "launches_measured": launches,
+    }, records
+
+
+def captured_spheres(tables):
+    """The spheres of the walk's tables (``bvh_traverse.pack``) under the
+    field names of ``schema.Spheres`` that ``intersect._sphere_ts`` reads."""
+    import types
+
+    import torch
+
+    c0, disp, rad = tables[5:]
+    return types.SimpleNamespace(center0=c0, displacement=disp, radius=rad,
+                                 active=torch.ones_like(rad, dtype=torch.bool))
+
+
+DOUBLE_WORKER = """
+import json, time, numpy as np, torch
+from raytrace2_tpu_torch import defs
+from raytrace2_tpu_torch.ops import integrator
+from raytrace2_tpu_torch.scene import schema
+from raytrace2_tpu_torch.tools import make_scene
+host, _, _ = make_scene.load("cornell_corpus")
+feat = dict(host.features(), use_megakernel=False)
+imgs = {}
+for dev in ("cuda", "cpu"):
+    scene = schema.to_device(host, dev)
+    imgs[dev] = integrator.render_progressive(scene, feat, 64, 64, 0, 2, 0, 50, 1).cpu().numpy()
+scene = schema.to_device(host, "cuda")
+integrator.render_sample(scene, feat, 600, 600, 0, 0, 50, 1, chunk_size=65536)
+torch.cuda.synchronize()
+t0 = time.perf_counter()
+img = integrator.render_sample(scene, feat, 600, 600, 1, 0, 50, 1, chunk_size=65536)
+torch.cuda.synchronize()
+ms = (time.perf_counter() - t0) * 1e3
+diff = np.abs(imgs["cuda"] - imgs["cpu"])
+scale = float(np.abs(imgs["cpu"]).max())
+print(json.dumps({"real": defs.REAL.__name__, "dtype": str(img.dtype),
+                  "image_dtype": str(imgs["cuda"].dtype), "scale": scale,
+                  "median_rel": float(np.median(diff)) / scale,
+                  "share_apart": float((diff > (1e-9 if defs.DOUBLE else 1e-4) * scale).mean()),
+                  "sample_ms": ms, "mean": float(img.mean())}))
+"""
+
+
+def double_phase(card) -> dict:
+    """Phase 26: RAYTRACE2_DOUBLE in subprocesses (the dtype binds at
+    import), =1 then =0: the corpus Cornell on the non-kernel path at 64x64,
+    2 spp, depth 50, card against CPU (float64: the median |diff| at most
+    1e-12 of the scale and at most 5 % of values apart by more than 1e-9 of
+    it, where a path parts at a transcendental's ulp; float32: 1e-5 and
+    1e-4), and one 600x600 sample, depth 50, timed."""
+    out = {}
+    for double in ("1", "0"):
+        env = dict(os.environ, RAYTRACE2_DOUBLE=double, PYTHONPATH=ROOT)
+        p = subprocess.run([sys.executable, "-c", DOUBLE_WORKER], capture_output=True,
+                           text=True, env=env, cwd=ROOT, timeout=600)
+        check(p.returncode == 0, f"RAYTRACE2_DOUBLE={double} worker: {p.stderr[-2000:]}")
+        rec = json.loads(p.stdout.strip().splitlines()[-1])
+        want = "float64" if double == "1" else "float32"
+        check(rec["real"] == want and rec["dtype"] == f"torch.{want}"
+              and rec["image_dtype"] == want, f"RAYTRACE2_DOUBLE={double}: {rec}")
+        check(rec["median_rel"] <= (1e-12 if double == "1" else 1e-5)
+              and rec["share_apart"] <= 0.05,
+              f"RAYTRACE2_DOUBLE={double}: card against CPU {rec}")
+        out[want] = rec
+        say(f"phase 26 RAYTRACE2_DOUBLE={double}: the corpus Cornell on the non-kernel path, "
+            f"{want}; 64x64 2 spp depth 50 card against CPU: median |diff| "
+            f"{rec['median_rel']:.3g} of the scale, {rec['share_apart']:.2%} of values apart; "
+            f"one 600x600 sample depth 50: {rec['sample_ms']:.1f} ms, mean {rec['mean']:.4f} "
+            f"({card})")
+    out["f64_over_f32"] = out["float64"]["sample_ms"] / out["float32"]["sample_ms"]
+    return out
+
+
+def tools_phase(card, work) -> dict:
+    """Phase 27: the tools on the card. tools.validate: the golden step
+    (the corpus Cornell at 600x600, depth 50, 1,024 spp on v4 against
+    renders/cornell32k_mega.npy: the mean within 1 % of 0.15941 and block
+    PSNR >= 40 dB) and the ladder at 2 spp; check_table_grad (64x64, depth
+    3: AD against FD of three leaves through B3 with table noise);
+    bench_big_grad (book 2 600x600, 4 spp, depth 50, one timed step beyond
+    the first, AD against FD at 64x64); sweep_wavefront (book 2 600x600, 8
+    spp, the production schedule with sort_impl multi and gather: the same
+    image). Each exits 0, its JSON lines parsed."""
+    from raytrace2_tpu_torch.tools import (bench_big_grad, check_table_grad, sweep_wavefront,
+                                           validate)
+
+    def run(main, argv):
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = main(argv)
+        wall = time.perf_counter() - t0
+        lines = [json.loads(x) for x in buf.getvalue().splitlines() if x.startswith("{")]
+        check(rc == 0, f"{main.__module__} {argv} exited {rc}: {buf.getvalue()[-2000:]}")
+        return lines, wall
+
+    out = {}
+    vdir = os.path.join(work, "validate")
+    _, wall = run(validate.main, ["--golden-spp", "1024", "--bench-spp", "2", "--out", vdir])
+    with open(os.path.join(vdir, "results.json")) as f:
+        res = json.load(f)
+    g = res["golden"]
+    out["validate"] = dict(res, wall_s=wall)
+    say(f"phase 27 tools.validate: golden corpus Cornell 600x600 1024 spp depth 50 on "
+        f"{g['kernel']}: mean {g['mean']:.5f} (golden {g['golden_mean']}), block PSNR "
+        f"{g['block_psnr_db']:.2f} dB (gate {g['gate']}), {g['seconds']:.2f} s, "
+        f"{g['paths_per_sec'] / 1e6:.1f} Mpaths/s; ladder at 2 spp: "
+        + ", ".join(f"{k} {res[k]['paths_per_sec'] / 1e6:.2f} Mpaths/s (route {res[k]['route']})"
+                    for k, *_ in validate.LADDER) + f"; {wall:.1f} s ({card})")
+    lines, wall = run(check_table_grad.main, [])
+    out["check_table_grad"] = dict(leaves=lines[:-1], wall_s=wall)
+    say("phase 27 check_table_grad 64x64 depth 3, table noise: " + ", ".join(
+        f"{r['leaf']} AD {r['ad']:.5g} FD {r['fd']:.5g}" for r in lines[:-1])
+        + f"; all within the rule; {wall:.1f} s ({card})")
+    lines, wall = run(bench_big_grad.main, ["--res", "600", "--spp", "4", "--steps", "1"])
+    step = next(r for r in lines if "train_step_s" in r)
+    first = next(r for r in lines if "first_step_s" in r)
+    fd = next(r for r in lines if "leaf" in r)
+    out["bench_big_grad"] = dict(lines=lines, wall_s=wall)
+    say(f"phase 27 bench_big_grad book2 600x600 4 spp depth 50: first step "
+        f"{first['first_step_s']:.2f} s, a step {step['train_step_s']:.3f} s "
+        f"({step['fwdbwd_mpaths_s']:.3f} Mpaths/s fwd+bwd), grad finite; AD {fd['ad']:.5g} "
+        f"against FD {fd['fd']:.5g} at 64x64 ({card})")
+    lines, wall = run(sweep_wavefront.main, [
+        "book2_final", "--res", "600", "--spp", "8", "--keys", "pos", "--kb", "2",
+        "--sort-every", "1", "--tail-k", "16", "--tail-frac", "0.65",
+        "--sort-impl", "multi,gather"])
+    out["sweep_wavefront"] = dict(configs=lines, wall_s=wall)
+    check(all(r["same_image"] for r in lines), "sweep_wavefront: images differ")
+    say("phase 27 sweep_wavefront book2 600x600 8 spp depth 50, K=2 then K=16 below 65 %: "
+        + ", ".join(f"{r['sort_impl']} {r['mpaths_s']:.2f} Mpaths/s" for r in lines)
+        + f", the same image bit for bit ({card})")
+    return out
 
 
 if __name__ == "__main__":

@@ -85,8 +85,10 @@ def build_parser() -> argparse.ArgumentParser:
                         "above 256 records) when the scene fits it, else the non-kernel "
                         "path (ellipsoids, more than 4,096 records); mega: the kernel "
                         "path; wavefront: force the sorted wavefront; xla: the non-kernel "
-                        "path with the dense closest hit; pallas: the non-kernel path "
-                        "with the fused intersect kernel; bvh is not ported yet")
+                        "path with the dense closest hit (its spheres through the BVH walk "
+                        "from 256 active spheres); pallas: the non-kernel path with the "
+                        "fused intersect kernel; bvh: the non-kernel path, spheres "
+                        "through the BVH walk")
     p.add_argument("--chunk-size", type=int, default=None,
                    help="rays per chunk on the non-kernel path (default 65536, or 16384 "
                         "above 1,024 records)")
@@ -172,6 +174,7 @@ def main(argv=None) -> int:
     from raytrace2_tpu_torch.io import checkpoint as ckpt_io
     from raytrace2_tpu_torch.io import image as image_io
     from raytrace2_tpu_torch.io import term
+    from raytrace2_tpu_torch.ops import bvh_traverse
     from raytrace2_tpu_torch.ops.kernels import intersect_kernel, megakernel, wavefront
     from raytrace2_tpu_torch.render import CHUNK_SIZE, Renderer, resolve_device
     from raytrace2_tpu_torch.scene import loader
@@ -258,7 +261,7 @@ def main(argv=None) -> int:
             torch.cuda.synchronize(device)
 
     counters = {"megakernel_v4": megakernel, "wavefront_step": wavefront,
-                "intersect_kernel": intersect_kernel}
+                "intersect_kernel": intersect_kernel, "bvh_traverse": bvh_traverse}
 
     def start():
         """(kernel module, its launches, wavefront sorts, t0, first sample)

@@ -1,16 +1,29 @@
-"""Constants and type ids (port of ``raytrace2_tpu/defs.py``).
+"""Constants, type ids and the dtype policy (port of
+``raytrace2_tpu/defs.py``).
 
-Everything on the compute path is float32. The JAX package's f64
-verification mode (``RAYTRACE2_DOUBLE``) belongs to its XLA path and has no
-counterpart here yet. "Infinity" is float32's max, not IEEE inf, as in the
-reference (src/Defs.hpp:7).
+``REAL`` is float32, as the reference compiles without ``DOUBLE``.
+``RAYTRACE2_DOUBLE=1`` in the environment is the ``#define DOUBLE`` analog
+(src/Defs.hpp:4-7), read once at import as in the JAX package: ``REAL``
+becomes float64 (``TORCH_REAL`` its torch dtype), the loader builds float64
+scenes, and the non-kernel path (camera rays, threefry uniforms, closest
+hit, shading, the accumulator) computes in float64, a verification mode for
+holding the f32 arithmetic against f64 ground truth. The kernels stay
+float32: their packers cast the scene to float32, so the kernel routes'
+images do not change under the toggle; the BVH walk computes in float32
+too. "Infinity" is the REAL type's max, not IEEE inf, as in the reference
+(src/Defs.hpp:7).
 """
 
 from __future__ import annotations
 
-import numpy as np
+import os
 
-REAL = np.float32
+import numpy as np
+import torch
+
+DOUBLE = os.environ.get("RAYTRACE2_DOUBLE", "") not in ("", "0")
+REAL = np.float64 if DOUBLE else np.float32
+TORCH_REAL = torch.float64 if DOUBLE else torch.float32
 INDEX = np.int32
 
 INFINITY = REAL(np.finfo(REAL).max)

@@ -32,6 +32,7 @@ from __future__ import annotations
 
 import torch
 
+from raytrace2_tpu_torch import defs
 from raytrace2_tpu_torch.ops import integrator
 from raytrace2_tpu_torch.ops.kernels import megakernel_grad as mkg
 from raytrace2_tpu_torch.scene import schema
@@ -58,7 +59,8 @@ def render_image(scene, features, seed, *, width, height, n_samples, max_depth,
         acc = integrator.render_progressive(scene, features, width, height, 0, n_samples,
                                             seed, max_depth, sqrt_spp, differentiable=True)
         return acc / n_samples
-    acc = torch.zeros((height, width, 3), dtype=torch.float32, device=scene.background.device)
+    acc = torch.zeros((height, width, 3), dtype=defs.TORCH_REAL,
+                      device=scene.background.device)
     for s in range(int(n_samples)):
         acc = acc + integrator.render_sample(scene, features, width, height, s, seed,
                                              max_depth, sqrt_spp, chunk_size,

@@ -13,7 +13,7 @@ import dataclasses
 
 import numpy as np
 
-from raytrace2_tpu_torch.scene import schema
+from raytrace2_tpu_torch.scene import bvh, schema
 
 _NESTED = {
     "spheres": schema.Spheres,
@@ -24,6 +24,7 @@ _NESTED = {
     "textures": schema.Textures,
     "camera": schema.CameraParams,
     "ellipsoids": schema.Ellipsoids,
+    "sphere_bvh": bvh.BVHArrays,
 }
 
 
@@ -33,8 +34,7 @@ def _leaves(cls, src) -> dict:
 
 def from_jax_scene(jax_flat_scene) -> schema.FlatScene:
     """A ``raytrace2_tpu.scene.schema.FlatScene`` (host numpy or device jax
-    arrays) as the port's host ``FlatScene``. The JAX sphere BVH is an
-    XLA-path structure and is not carried over."""
+    arrays) as the port's host ``FlatScene``, its sphere BVH included."""
     kw = {}
     for name, cls in _NESTED.items():
         src = getattr(jax_flat_scene, name)

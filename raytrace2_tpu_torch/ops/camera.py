@@ -15,6 +15,7 @@ import math
 
 import torch
 
+from raytrace2_tpu_torch import defs
 from raytrace2_tpu_torch.ops import rng
 
 CAMV_LEN = 28
@@ -26,8 +27,6 @@ _TILE_BLOCK = 64
 PIXEL_BLOCK = 16
 
 
-def _f32(x) -> torch.Tensor:
-    return torch.as_tensor(x, dtype=torch.float32).cpu()
 
 
 def _normalize(v: torch.Tensor) -> torch.Tensor:
@@ -42,13 +41,19 @@ def _cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     ], dim=-1)
 
 
-def camera_frame(cam, width: int, height: int) -> dict:
-    """Derived camera quantities (Camera::Update, Camera.hpp:16-48), f32 on
-    the CPU: pixel00, pixel_delta_u/v, center, defocus_disk_u/v,
+def camera_frame(cam, width: int, height: int, dtype=None) -> dict:
+    """Derived camera quantities (Camera::Update, Camera.hpp:16-48) on the
+    CPU, in ``dtype`` (``defs.TORCH_REAL`` by default; the kernels' camv is
+    float32): pixel00, pixel_delta_u/v, center, defocus_disk_u/v,
     defocus_angle."""
-    center, look_at, vup = _f32(cam.center), _f32(cam.look_at), _f32(cam.vup)
-    vfov, focus = _f32(cam.vfov), _f32(cam.focus_dist)
-    defocus_angle = _f32(cam.defocus_angle)
+    dtype = dtype or defs.TORCH_REAL
+
+    def real(x):
+        return torch.as_tensor(x, dtype=dtype).cpu()
+
+    center, look_at, vup = real(cam.center), real(cam.look_at), real(cam.vup)
+    vfov, focus = real(cam.vfov), real(cam.focus_dist)
+    defocus_angle = real(cam.defocus_angle)
     h = torch.tan(vfov * (math.pi / 180.0) / 2.0)
     w = _normalize(center - look_at)
     u = _normalize(_cross(vup, w))
@@ -80,7 +85,7 @@ def make_camv(cam, width: int, height: int, sample0: int, n_samples: int,
     ``slot0`` is the first slot of a shard's run of the lane layout (0: one
     device renders every pixel). ``block`` is the side of the pixel block of
     the lane layout (``PIXEL_BLOCK`` for the block-tiled one)."""
-    frame = camera_frame(cam, width, height)
+    frame = camera_frame(cam, width, height, torch.float32)
     tail = torch.tensor([
         float(frame["defocus_angle"].detach()), float(width), float(width * height),
         float(sample0), float(n_samples), float(sqrt_spp), float(seed),
@@ -112,8 +117,8 @@ def generate_rays(cam, width: int, height: int, sample_idx: int, sqrt_spp: int, 
     frame = {k: v.to(device) for k, v in camera_frame(cam, width, height).items()}
     if pixel_ids is None:
         pixel_ids = torch.arange(width * height, dtype=torch.int32, device=device)
-    xs = (pixel_ids % width).to(torch.float32)
-    ys = torch.div(pixel_ids, width, rounding_mode="floor").to(torch.float32)
+    xs = (pixel_ids % width).to(defs.TORCH_REAL)
+    ys = torch.div(pixel_ids, width, rounding_mode="floor").to(defs.TORCH_REAL)
     s_i, s_j = stratum(int(sample_idx), int(sqrt_spp))
     recip = 1.0 / sqrt_spp
     px = (s_i + u[:, 0]) * recip - 0.5

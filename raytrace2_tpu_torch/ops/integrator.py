@@ -41,6 +41,7 @@ from __future__ import annotations
 
 import torch
 
+from raytrace2_tpu_torch import defs
 from raytrace2_tpu_torch.ops import camera, intersect, materials, rng
 from raytrace2_tpu_torch.ops.kernels import megakernel as mk
 from raytrace2_tpu_torch.ops.kernels import megakernel_grad as mkg
@@ -232,8 +233,7 @@ def _make_step(scene, features, background, mega_seed=None):
     has_media = features.get("has_media", True)
     use_murmur = features.get("rng_impl") == "murmur" and mega_seed is not None
     n_med_active = (features.get("mega_sizes") or (0,) * 6)[4]
-    tables = (intersect.pallas_tables(scene, features)
-              if features.get("use_pallas", False) else None)
+    tables = intersect.route_tables(scene, features)
 
     def step(st):
         keys = st["keys"]
@@ -320,7 +320,7 @@ def trace_rays(scene, features, o, d, time, keys, max_depth: int,
         return _trace_megakernel(scene, features, o, d, time, mega_seed, max_depth)
 
     n = o.shape[0]
-    background = scene.background.to(torch.float32)
+    background = scene.background.to(o.dtype)
     step = _make_step(scene, features, background, mega_seed=mega_seed)
     state = dict(o=o, d=d, time=time, keys=keys,
                  throughput=torch.ones((n, 3), dtype=o.dtype, device=o.device),
@@ -427,7 +427,8 @@ def render_progressive(scene, features, width: int, height: int, sample0: int,
         return _render_batch_megakernel(scene, packed, features, width, height,
                                         sample0, n_samples, seed, max_depth, sqrt_spp,
                                         differentiable=differentiable)
-    acc = torch.zeros((height, width, 3), dtype=torch.float32, device=scene.background.device)
+    acc = torch.zeros((height, width, 3), dtype=defs.TORCH_REAL,
+                      device=scene.background.device)
     for i in range(int(n_samples)):
         acc += render_sample(scene, features, width, height, sample0 + i, seed, max_depth,
                              sqrt_spp, chunk_size, differentiable)

@@ -12,8 +12,11 @@ uv, material, front face) is rebuilt once per ray from its index.
 
 ``features["use_pallas"]`` takes the sphere and quad families through the
 fused kernel B5 (``ops/kernels/intersect_kernel.py``), as the JAX package's
-``backend="pallas"`` does. The sphere BVH (``use_bvh_spheres``) is not
-ported.
+``backend="pallas"`` does. ``features["use_bvh_spheres"]`` (with
+``scene.sphere_bvh`` and ``features["bvh_depth"]``) takes the spheres
+through the BVH walk (``ops/bvh_traverse.py``, kernel
+``csrc/bvh_traverse.cu``) and the quads densely, as the JAX package's
+``_sphere_best_bvh``; ``use_pallas`` takes precedence.
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ from typing import NamedTuple
 import torch
 
 from raytrace2_tpu_torch import defs
+from raytrace2_tpu_torch.ops import bvh_traverse
 from raytrace2_tpu_torch.ops.kernels import intersect_kernel as pk
 from raytrace2_tpu_torch.ops.kernels.megakernel import _cross
 
@@ -286,9 +290,13 @@ def pallas_tables(scene, features):
 
 def _sphere_quad_best_pallas(o, d, time, t_min, t_max, tables):
     """Per-family best (t, index) of spheres and quads from B5 over
-    ``tables`` = (sph, qd, n_sph, n_quad) (``pallas_tables``)."""
+    ``tables`` = (sph, qd, n_sph, n_quad) (``pallas_tables``). B5 computes
+    in float32: float64 rays (``RAYTRACE2_DOUBLE``) are rounded to it, and
+    t comes back in the rays' dtype."""
     sph, qd, n_sph, n_quad = tables
-    t, code = pk.closest_hit(o, d, time, t_min, t_max, sph, qd, n_sph=n_sph, n_quad=n_quad)
+    t, code = pk.closest_hit(*(x.to(torch.float32) for x in (o, d, time, t_min, t_max)),
+                             sph, qd, n_sph=n_sph, n_quad=n_quad)
+    t = t.to(o.dtype)
     fam = code >> pk.FAM_SHIFT           # -1 (miss) stays -1
     idx = (code & ((1 << pk.FAM_SHIFT) - 1)).to(torch.int64)
     is_s, is_q = fam == 0, fam == 1
@@ -296,28 +304,55 @@ def _sphere_quad_best_pallas(o, d, time, t_min, t_max, tables):
             torch.where(is_q, t, BIG), torch.where(is_q, idx, 0))
 
 
+def uses_bvh(scene, features) -> bool:
+    """Whether ``closest_hit`` takes the spheres through the BVH walk."""
+    return (not features.get("use_pallas", False) and features.get("use_bvh_spheres", False)
+            and scene.sphere_bvh is not None)
+
+
+def route_tables(scene, features):
+    """The tables ``closest_hit`` takes for the route ``features`` pick:
+    B5's ``pallas_tables``, the BVH walk's ``bvh_traverse.pack``, or None
+    on the dense route. A bounce loop makes them once."""
+    if features.get("use_pallas", False):
+        return pallas_tables(scene, features)
+    if uses_bvh(scene, features):
+        return bvh_traverse.pack(scene.sphere_bvh, scene.spheres)
+    return None
+
+
+def _sphere_best_bvh(o, d, time, t_min, t_max, tables, max_depth: int):
+    """Per-ray best (t, sphere index) through the BVH walk, BIG and 0 on a
+    miss (JAX ``_sphere_best_bvh``); t in the rays' dtype."""
+    bt, bp = bvh_traverse.closest_sphere(tables, o, d, time, t_min, t_max, max_depth)
+    miss = bp < 0
+    return (torch.where(miss, BIG, bt.to(o.dtype)),
+            torch.where(miss, 0, bp).to(torch.int64))
+
+
 def closest_hit(scene, o, d, time, u_media=None, t_min=None, t_max=None, features=None,
                 tables=None) -> Hit:
     """Closest hit of N rays against the whole scene (JAX ``closest_hit``).
 
     ``u_media`` [N, M]: free-path uniforms; None treats media as absent.
-    ``t_min``/``t_max`` default to [1e-3, BIG]. ``tables``: B5's
-    ``pallas_tables`` of the scene (rows and live extents), made here when
-    None and ``features["use_pallas"]`` is set."""
+    ``t_min``/``t_max`` default to [1e-3, BIG]. ``tables``: the route's
+    ``route_tables`` (B5's rows and live extents, or the BVH walk's
+    tables), made here when None."""
     n = o.shape[0]
     features = features or {}
     if t_min is None:
-        t_min = torch.full((n,), float(defs.T_MIN), device=o.device)
+        t_min = torch.full((n,), float(defs.T_MIN), dtype=o.dtype, device=o.device)
     if t_max is None:
-        t_max = torch.full((n,), BIG, device=o.device)
-    if features.get("use_bvh_spheres", False):
-        raise NotImplementedError(
-            "the sphere BVH (use_bvh_spheres, --backend bvh) is not ported yet "
-            "(ROADMAP queue A item 12, the sphere BVH)")
+        t_max = torch.full((n,), BIG, dtype=o.dtype, device=o.device)
 
     if features.get("use_pallas", False):
         bt_s, bi_s, bt_q, bi_q = _sphere_quad_best_pallas(
             o, d, time, t_min, t_max, tables or pallas_tables(scene, features))
+    elif uses_bvh(scene, features):
+        bt_s, bi_s = _sphere_best_bvh(o, d, time, t_min, t_max,
+                                      tables or route_tables(scene, features),
+                                      int(features["bvh_depth"]))
+        bt_q, bi_q = _first_min(_quad_ts(scene.quads, o, d, t_min, t_max))
     else:
         bt_s, bi_s = _first_min(_sphere_ts(scene.spheres, o, d, time, t_min, t_max))
         bt_q, bi_q = _first_min(_quad_ts(scene.quads, o, d, t_min, t_max))
@@ -325,14 +360,14 @@ def closest_hit(scene, o, d, time, u_media=None, t_min=None, t_max=None, feature
     if features.get("has_media", True) and u_media is not None:
         bt_m, bi_m = _first_min(_media_ts(scene.media, o, d, time, t_min, t_max, u_media))
     else:
-        bt_m = torch.full((n,), BIG, device=o.device)
+        bt_m = torch.full((n,), BIG, dtype=o.dtype, device=o.device)
         bi_m = torch.zeros((n,), dtype=torch.int64, device=o.device)
 
     has_ell = features.get("has_ellipsoids", False) and scene.ellipsoids is not None
     if has_ell:
         bt_e, bi_e = _first_min(_ellipsoid_ts(scene.ellipsoids, o, d, time, t_min, t_max))
     else:
-        bt_e = torch.full((n,), BIG, device=o.device)
+        bt_e = torch.full((n,), BIG, dtype=o.dtype, device=o.device)
         bi_e = torch.zeros((n,), dtype=torch.int64, device=o.device)
 
     t, fam = _first_min(torch.stack([bt_s, bt_q, bt_m, bt_e], -1))

@@ -282,6 +282,14 @@ def _bind_intersect_profile(lib: ctypes.CDLL) -> None:
     lib.intersect_profile_counters.restype = ctypes.c_int
 
 
+def _bind_bvh_traverse(lib: ctypes.CDLL) -> None:
+    i, p = ctypes.c_int, ctypes.c_void_p
+    lib.bvh_traverse_launch.argtypes = [i, *[p] * 13, i, p, p, p]
+    lib.bvh_traverse_launch.restype = i
+    lib.bvh_traverse_error_string.argtypes = [i]
+    lib.bvh_traverse_error_string.restype = ctypes.c_char_p
+
+
 def _bind_megakernel_v3(lib: ctypes.CDLL) -> None:
     i, p = ctypes.c_int, ctypes.c_void_p
     lib.megakernel_v3_launch.argtypes = [i, p, p, *_COUNTS[:8], p, p, i, i, i, i, i, i, p, p]
@@ -302,7 +310,7 @@ _BINDERS = {"megakernel_v4": _bind_megakernel_v4, "wavefront_step": _bind_wavefr
             "megakernel_v3": _bind_megakernel_v3, "grad_profile": _bind_grad_profile,
             "wavefront_profile": _bind_wavefront_profile,
             "megakernel_profile": _bind_megakernel_profile, "roofline": _bind_roofline,
-            "intersect_profile": _bind_intersect_profile}
+            "intersect_profile": _bind_intersect_profile, "bvh_traverse": _bind_bvh_traverse}
 
 
 def load(t) -> ctypes.CDLL:
@@ -507,6 +515,39 @@ def launch_intersect_kernel(o, d, time, t_min, t_max, sph, qd, out_t, out_code, 
     if err:
         msg = lib.intersect_kernel_error_string(err).decode()
         raise RuntimeError(f"intersect_kernel launch failed: {msg} (cudaError {err})")
+
+
+def launch_bvh_traverse(o, d, time, t_min, t_max, tables, out_t, out_prim) -> None:
+    """Launch ``bvh_traverse`` over N rays (one thread a ray) and the walk's
+    ``tables`` (``bvh_traverse.pack``: node boxes, children, leaf prims,
+    sphere centres, displacements, radii), writing ``out_t`` [N] f32 and
+    ``out_prim`` [N] int32; raises where the launch is refused. The caller
+    checks the tree's depth against the kernel's stack
+    (``bvh_traverse.MAX_STACK``)."""
+    lo, hi, left, right, prim, c0, disp, rad = tables
+    device = _require_cuda(o=o, d=d, time=time, t_min=t_min, t_max=t_max, box_lo=lo,
+                           box_hi=hi, center0=c0, displacement=disp, radius=rad, out_t=out_t)
+    n = out_t.numel()
+    for name, t in (("left", left), ("right", right), ("prim", prim), ("out_prim", out_prim)):
+        if t.dtype != torch.int32 or t.device != device or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous int32 tensor on {device}")
+    if o.numel() != 3 * n or d.numel() != 3 * n or out_prim.numel() != n or any(
+            x.numel() != n for x in (time, t_min, t_max)):
+        raise ValueError("ray columns must hold N (o, d: N x 3) entries")
+    m = left.numel()
+    if lo.numel() != 3 * m or hi.numel() != 3 * m or right.numel() != m or prim.numel() != m:
+        raise ValueError("the node tables must hold M (boxes: M x 3) entries")
+    if c0.numel() != 3 * rad.numel() or disp.numel() != 3 * rad.numel():
+        raise ValueError("the sphere tables must hold S (centres, displacements: S x 3) entries")
+    lib = load("bvh_traverse")
+    stream = torch.cuda.current_stream(device).cuda_stream
+    err = lib.bvh_traverse_launch(
+        device.index, *(x.data_ptr() for x in (o, d, time, t_min, t_max, lo, hi, left, right,
+                                                prim, c0, disp, rad)),
+        int(n), out_t.data_ptr(), out_prim.data_ptr(), stream)
+    if err:
+        msg = lib.bvh_traverse_error_string(err).decode()
+        raise RuntimeError(f"bvh_traverse launch failed: {msg} (cudaError {err})")
 
 
 def launch_megakernel_v3(background, packed, state, rid, radiance, *, seed_lane, min_alive,

@@ -41,6 +41,7 @@ import torch
 from raytrace2_tpu_torch import defs
 from raytrace2_tpu_torch.ops.kernels import build
 from raytrace2_tpu_torch.ops.kernels.megakernel import _cross
+from raytrace2_tpu_torch.scene import schema
 
 BIG = 3.0e38
 TILE_P = 128      # records per tile (the Pallas kernel's primitive tile)
@@ -93,6 +94,8 @@ def pack_scene(spheres, quads):
     (``QUAD_KEYS``), contiguous f32 on the scene's device. The cross
     products and ``q·(v×w)`` are fused as XLA contracts them, so the rows
     equal the JAX package's bit for bit."""
+    spheres, quads = schema.as_float32(spheres), schema.as_float32(quads)
+
     def rows(cols):
         x = torch.stack([c.to(torch.float32) for c in cols])
         return torch.nn.functional.pad(x, (0, -x.shape[1] % TILE_P)).contiguous()

@@ -45,6 +45,7 @@ import torch
 from raytrace2_tpu_torch import defs
 from raytrace2_tpu_torch.ops import camera, rng
 from raytrace2_tpu_torch.ops.kernels.build import MAX_SMEM_BYTES
+from raytrace2_tpu_torch.scene import schema
 
 BIG = 3.0e38
 
@@ -510,8 +511,9 @@ def pack_clusters(sph, box, sizes) -> list:
 def pack_buffer(scene, sizes) -> torch.Tensor:
     """The scene's table columns (``pack_tables``) and cluster tables
     (``pack_clusters``) as one contiguous f32 buffer laid out by
-    ``table_layout``, on the scene's device."""
-    tables = pack_tables(scene, sizes)
+    ``table_layout``, on the scene's device; float64 leaves (under
+    ``RAYTRACE2_DOUBLE``) are read as float32."""
+    tables = pack_tables(schema.as_float32(scene), sizes)
     tables = (*tables, *pack_clusters(tables[0], tables[2], sizes))
     return torch.cat([tbl[k] for (_, keys), tbl in zip(ALL_FAMILIES, tables)
                       for k in keys]).contiguous()

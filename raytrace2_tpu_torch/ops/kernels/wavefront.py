@@ -175,17 +175,23 @@ def sort_state(state, n_samples, bb_lo, bb_hi, key_mode="pos", sort_impl="gather
     """The state permuted by ascending key: an argsort of the int32 keys
     (stable, or unstable for "gather_unstable": any order of equal keys
     gives the same image, since per-slot math is keyed by pixel id) and one
-    gather of the [17, n] state."""
+    gather of the [17, n] state. "multi" stands in for the JAX package's
+    one multi-operand ``lax.sort`` of the keys and the 17 columns (stable):
+    one stable sort of the keys, whose permutation is applied column by
+    column, with no gather of the packed state; its image is the "gather"
+    one bit for bit."""
     global SORTS
-    if sort_impl == "multi":
-        raise NotImplementedError(
-            "sort_impl='multi' (one multi-operand sort) is not ported; the gather "
-            "gives the same image (ROADMAP queue A item 10)")
-    if sort_impl not in ("gather", "gather_unstable"):
+    if sort_impl not in ("gather", "gather_unstable", "multi"):
         raise ValueError(f"unknown sort_impl {sort_impl!r}")
     keys = sort_keys(state, n_samples, bb_lo, bb_hi, key_mode)
-    perm = torch.argsort(keys, stable=sort_impl == "gather")
     SORTS += 1
+    if sort_impl == "multi":
+        perm = torch.sort(keys, stable=True).indices
+        out = torch.empty_like(state)
+        for i in range(state.shape[0]):
+            torch.index_select(state[i], 0, perm, out=out[i])
+        return out
+    perm = torch.argsort(keys, stable=sort_impl == "gather")
     return state.index_select(1, perm)
 
 

@@ -12,14 +12,22 @@ into 16-bit halves so that no product leaves int64.
 A threefry key is an int64 tensor [..., 2] of its two words, as
 ``jax.random.key_data`` gives them (``jax_threefry_partitionable``, the
 default: ``uniform`` hashes the counters (0, i) and xors the two output
-words).
+words; under ``RAYTRACE2_DOUBLE`` it joins them into one 64-bit draw, as
+JAX does under x64). The murmur draws stay float32 under the toggle, as
+the JAX package's do (its ``astype(float32)`` times a weakly typed
+constant). ``unit_vec3``, ``in_unit_sphere``, ``in_unit_disk`` and
+``on_hemisphere`` take one key [2] (or a batch [..., 2]) and a shape, as
+their JAX counterparts do.
 """
 
 from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
+
+from raytrace2_tpu_torch import defs
 
 MASK32 = 0xFFFFFFFF
 GOLDEN = 0x9E3779B9
@@ -159,13 +167,88 @@ def bounce_key(base_key: torch.Tensor, bounce_idx) -> torch.Tensor:
     return fold_in(base_key, bounce_idx)
 
 
-def uniform(key: torch.Tensor, n: int) -> torch.Tensor:
-    """``jax.random.uniform(k, (n,))`` for every key of [N, 2] → [N, n]:
-    counters (0, i), bits = x0 ^ x1, mantissa fill minus one."""
+def _uniform_bits(key: torch.Tensor, shape: tuple, double: bool) -> torch.Tensor:
+    """``jax.random.uniform(k, shape)`` in [0, 1) for every key of [..., 2]
+    → [..., *shape]: threefry of the counters (0, i) over the flattened
+    shape. float32 (``jax_enable_x64`` off): bits = x0 ^ x1, 23 mantissa
+    bits; float64 (on): the 64-bit draw x0 << 32 | x1, 52 mantissa bits."""
+    n = math.prod(shape)
     i = torch.arange(n, dtype=torch.int64, device=key.device)
     x0, x1 = threefry2x32(key[..., None, 0], key[..., None, 1], 0, i)
-    bits = ((x0 ^ x1) >> 9) | 0x3F800000
-    return bits.to(torch.int32).view(torch.float32) - 1.0
+    if double:
+        bits = (x0 << 20) | (x1 >> 12) | 0x3FF0000000000000
+        u = bits.view(torch.float64) - 1.0
+    else:
+        u = (((x0 ^ x1) >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
+    return u.reshape((*key.shape[:-1], *shape))
+
+
+def uniform(key: torch.Tensor, n: int) -> torch.Tensor:
+    """``jax.random.uniform(k, (n,))`` for every key of [N, 2] → [N, n],
+    in ``defs.REAL`` (float64 draws under ``RAYTRACE2_DOUBLE``, as JAX's
+    under x64)."""
+    return _uniform_bits(key, (n,), defs.DOUBLE)
+
+
+def uniform_shape(key: torch.Tensor, shape=(), minval=0.0, maxval=1.0) -> torch.Tensor:
+    """``jax.random.uniform(key, shape, minval=, maxval=)`` of one key [2]
+    (or a batch [..., 2]): the [0, 1) draw scaled as JAX scales it,
+    max(minval, u·(maxval − minval) + minval), the constants in the draw's
+    dtype."""
+    u = _uniform_bits(key, tuple(shape), defs.DOUBLE)
+    npt = np.float64 if defs.DOUBLE else np.float32
+    lo, hi = npt(minval), npt(maxval)
+    if (lo, hi) == (0.0, 1.0):
+        return u
+    return torch.clamp(u * float(hi - lo) + float(lo), min=float(lo))
+
+
+def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
+    """``jax.random.split(key, num)`` (partitionable threefry): key i is the
+    hash of the counter (0, i), [..., num, 2]."""
+    i = torch.arange(num, dtype=torch.int64, device=key.device)
+    return torch.stack(threefry2x32(key[..., None, 0], key[..., None, 1], 0, i), dim=-1)
+
+
+def normal(key: torch.Tensor, shape=()) -> torch.Tensor:
+    """``jax.random.normal(key, shape)``: a uniform on (nextafter(−1, 0), 1)
+    through erfinv, times √2. The uniforms are JAX's bit for bit; torch's
+    erfinv is not XLA's polynomial, so the values agree to a few ulps."""
+    npt = np.float64 if defs.DOUBLE else np.float32
+    lo = np.nextafter(npt(-1.0), npt(0.0))
+    u = uniform_shape(key, shape, lo, 1.0)
+    return float(npt(np.sqrt(2))) * torch.erfinv(u)
+
+
+def unit_vec3(key: torch.Tensor, shape=()) -> torch.Tensor:
+    """Uniform direction on the unit sphere (JAX :42-51): a normal 3-vector
+    normalised, [..., *shape, 3]."""
+    g = normal(key, tuple(shape) + (3,))
+    return g / torch.clamp(torch.linalg.vector_norm(g, dim=-1, keepdim=True), min=1e-12)
+
+
+def in_unit_sphere(key: torch.Tensor, shape=()) -> torch.Tensor:
+    """Uniform point in the unit ball (JAX :54-61): a direction scaled by
+    U^(1/3), from the two keys of ``split(key)``."""
+    k1, k2 = split(key).unbind(-2)
+    return unit_vec3(k1, shape) * uniform_shape(k2, tuple(shape) + (1,)) ** (1.0 / 3.0)
+
+
+def in_unit_disk(key: torch.Tensor, shape=()) -> torch.Tensor:
+    """Uniform point in the unit disk, z = 0 (JAX :64-70), by the polar map
+    r = √U, θ = 2πU', from the two keys of ``split(key)``."""
+    k1, k2 = split(key).unbind(-2)
+    r = torch.sqrt(uniform_shape(k1, shape))
+    theta = 2.0 * math.pi * uniform_shape(k2, shape)
+    return torch.stack([r * torch.cos(theta), r * torch.sin(theta), torch.zeros_like(r)],
+                       dim=-1)
+
+
+def on_hemisphere(key: torch.Tensor, normal_: torch.Tensor) -> torch.Tensor:
+    """Uniform direction on the hemisphere around ``normal_`` [..., 3] (JAX
+    :156-160, Math.hpp:45-51)."""
+    d = unit_vec3(key, tuple(normal_.shape[:-1]))
+    return torch.where(torch.sum(d * normal_, -1, keepdim=True) > 0.0, d, -d)
 
 
 def bounce_uniforms(keys: torch.Tensor, bounce_idx, n_draws: int) -> torch.Tensor:

@@ -13,11 +13,11 @@ the kernel path, except for an ellipsoid scene, which only the non-kernel
 path renders; ``xla`` takes the non-kernel path with the dense closest hit
 and ``pallas`` with the fused intersect kernel B5.
 
-One documented difference: on ``xla`` (and ``auto`` off the kernel path) the
-JAX package switches its sphere sweep to a BVH at 256 or more active
-spheres; the port sweeps densely there, which is JAX's own ``xla`` route
-below 256 spheres and finds the same closest hits. The BVH (``bvh``) is not
-ported yet.
+On ``xla`` (and ``auto`` off the kernel path) a scene of 256 or more
+active spheres takes its spheres through the BVH walk
+(``ops/bvh_traverse.py``, the kernel ``csrc/bvh_traverse.cu`` on the card),
+as the JAX ``Renderer`` does (render.py:138-155); ``bvh`` forces it at any
+sphere count. The tree is built from the host scene.
 """
 
 from __future__ import annotations
@@ -28,16 +28,12 @@ import math
 import numpy as np
 import torch
 
+from raytrace2_tpu_torch import defs
 from raytrace2_tpu_torch.ops import integrator
 from raytrace2_tpu_torch.ops.kernels import intersect_kernel as pk
-from raytrace2_tpu_torch.scene import schema
+from raytrace2_tpu_torch.scene import bvh, schema
 
-# Backends of the JAX package that the port does not have yet, and the
-# ROADMAP item that brings each.
-_NOT_PORTED = {
-    "bvh": "ROADMAP queue A item 12, the sphere BVH",
-}
-BACKENDS = ("auto", "mega", "wavefront", "xla", "pallas")
+BACKENDS = ("auto", "mega", "wavefront", "xla", "pallas", "bvh")
 # Records whose tables the kernel path takes (JAX megakernel.MAX_SMEM_RECORDS);
 # larger scenes take the non-kernel path.
 MAX_SMEM_RECORDS = 4096
@@ -45,18 +41,20 @@ MAX_SMEM_RECORDS = 4096
 # smaller chunk it takes above 1,024 records.
 CHUNK_SIZE = 65536
 CHUNK_SIZE_LARGE = 16384
+# Active spheres from which ``auto`` and ``xla`` walk the sphere BVH.
+BVH_MIN_SPHERES = 256
 
 
 @dataclasses.dataclass
 class RenderState:
     """Progressive accumulation state."""
 
-    accum: torch.Tensor  # [H, W, 3] f32 linear radiance sum
+    accum: torch.Tensor  # [H, W, 3] linear radiance sum (defs.TORCH_REAL)
     frame_idx: int       # samples accumulated so far
 
 
 def init_state(width: int, height: int, device) -> RenderState:
-    return RenderState(torch.zeros((height, width, 3), dtype=torch.float32,
+    return RenderState(torch.zeros((height, width, 3), dtype=defs.TORCH_REAL,
                                    device=device), 0)
 
 
@@ -108,7 +106,7 @@ class Renderer:
     num_samples: int = 1
     max_depth: int = 50
     seed: int = 0
-    # 'auto' | 'mega' | 'wavefront' | 'xla' | 'pallas' (see the module doc).
+    # 'auto' | 'mega' | 'wavefront' | 'xla' | 'pallas' | 'bvh' (see the module doc).
     backend: str = "auto"
     device: str | torch.device = "cuda"
     # Most sweep records the kernel path takes (default MAX_SMEM_RECORDS).
@@ -121,9 +119,6 @@ class Renderer:
     _packed: torch.Tensor | None = None
 
     def __post_init__(self):
-        if self.backend in _NOT_PORTED:
-            raise NotImplementedError(
-                f"backend {self.backend!r} is not ported yet: {_NOT_PORTED[self.backend]}")
         if self.backend not in BACKENDS:
             raise ValueError(f"unknown backend {self.backend!r}")
         self.device = resolve_device(self.device)
@@ -149,6 +144,17 @@ class Renderer:
             float(t) for t in np.unique(np.asarray(self.scene.materials.mtype)))
         # B5's live extents, for the same reason.
         features["pallas_extents"] = pk.live_extents(self.scene)
+        # The sphere BVH, from the host scene's active spheres (not
+        # mega_sizes, which an ellipsoid scene leaves out).
+        n_sph_active = int(np.asarray(self.scene.spheres.active).sum())
+        use_bvh = self.backend == "bvh" or (
+            not features["use_megakernel"] and self.backend in ("auto", "xla")
+            and n_sph_active >= BVH_MIN_SPHERES)
+        if use_bvh and n_sph_active:
+            tree, depth = bvh.build_sphere_bvh(self.scene.spheres)
+            self.scene = dataclasses.replace(self.scene, sphere_bvh=tree)
+            features["use_bvh_spheres"] = True
+            features["bvh_depth"] = depth
         self._features = features
         self.scene = schema.to_device(self.scene, self.device)
         if features["use_megakernel"]:
@@ -158,19 +164,23 @@ class Renderer:
     @property
     def route(self) -> str:
         """"kernel" (v4 or the wavefront), "pallas" (the non-kernel path with
-        B5) or "xla" (the non-kernel path, dense closest hit)."""
+        B5), "bvh" (the non-kernel path, spheres through the BVH walk) or
+        "xla" (the non-kernel path, dense closest hit)."""
         if self._features["use_megakernel"]:
             return "kernel"
-        return "pallas" if self._features["use_pallas"] else "xla"
+        if self._features["use_pallas"]:
+            return "pallas"
+        return "bvh" if self._features.get("use_bvh_spheres") else "xla"
 
     @property
     def kernel(self) -> str | None:
         """The kernel this renderer's launches run: "megakernel_v4",
-        "wavefront_step", "intersect_kernel", or None on the dense route."""
+        "wavefront_step", "intersect_kernel", "bvh_traverse", or None on the
+        dense route."""
         if self.route == "kernel":
             return "wavefront_step" if integrator.mega_schedule(self._features)[3] \
                 else "megakernel_v4"
-        return "intersect_kernel" if self.route == "pallas" else None
+        return {"pallas": "intersect_kernel", "bvh": "bvh_traverse"}.get(self.route)
 
     @property
     def sqrt_spp(self) -> int:
@@ -220,7 +230,7 @@ class Renderer:
         if tuple(state.accum.shape) != shape:
             raise ValueError(f"checkpoint accumulator {tuple(state.accum.shape)} does not "
                              f"match the render's {shape}")
-        self._state = RenderState(state.accum.to(self.device, torch.float32).contiguous(),
+        self._state = RenderState(state.accum.to(self.device, defs.TORCH_REAL).contiguous(),
                                   int(state.frame_idx))
 
     def linear_pixels(self) -> np.ndarray:

@@ -183,7 +183,8 @@ class FlatScene:
     textures: Textures
     camera: CameraParams
     background: Any  # [3]
-    # Flattened sphere BVH of the JAX package's XLA path; never built here.
+    # Flattened sphere BVH (scene/bvh.py), built by the Renderer where the
+    # non-kernel path walks it.
     sphere_bvh: Any = None
     ellipsoids: Any = None
 
@@ -360,3 +361,13 @@ def to_device(scene: FlatScene, device) -> FlatScene:
     as the host array is)."""
     device = torch.device(device)
     return map_leaves(scene, lambda x: torch.as_tensor(np.asarray(x), device=device))
+
+
+def as_float32(obj):
+    """A scene (or any scene dataclass) with its floating leaves as float32
+    and the others as they are: what the kernels' packers read, so that
+    under ``RAYTRACE2_DOUBLE`` they see the very values a float32 load gives
+    (the loader derives every leaf in float64 and rounds it once to
+    ``defs.REAL``)."""
+    return map_leaves(obj, lambda x: x.to(torch.float32)
+                      if torch.is_tensor(x) and x.is_floating_point() else x)

@@ -56,8 +56,7 @@ they are read once before the timed launches, as the renderer does. Kernel
 times are CUDA events around back-to-back launches queued behind a short
 device-side spin, so that the host's pace does not enter them.
 
-Needs a CUDA device; the scenes come from this checkout's
-``tools/make_scene.py``.
+Needs a CUDA device; the scenes come from the port's ``make_scene``.
 """
 
 from __future__ import annotations
@@ -76,8 +75,7 @@ PIX = 600 * 600
 
 
 def _scenes(work):
-    sys.path.insert(0, os.path.join(REPO, "tools"))
-    import make_scene
+    from raytrace2_tpu_torch.tools import make_scene
 
     paths = {}
     for name, build in (("cornell", make_scene.cornell_box_original),

@@ -26,11 +26,12 @@ reference's forward rate scaled by 50 / depth.
 
 The scene: ``--scene`` (the reference corpus's
 ``cornell_box_original.json``, which the JAX bench reads) where it is
-given, else ``tools/make_scene.py``'s ``cornell_box_original``, built in
-the process; stderr names the scene taken. The two differ: the built
-Cornell's light is larger, its mean linear radiance 0.536 against about
-0.159. The device is explicit: ``cuda`` (the default) fails without a
-card; ``cpu`` runs the kernels' plain versions. The bench writes no file.
+given, else ``make_scene.cornell_box_original`` (the port's copy of
+``tools/make_scene.py``), built in the process; stderr names the scene
+taken. The two differ: the built Cornell's light is larger, its mean
+linear radiance 0.536 against about 0.159. The device is explicit:
+``cuda`` (the default) fails without a card; ``cpu`` runs the kernels'
+plain versions. The bench writes no file.
 """
 
 from __future__ import annotations
@@ -39,10 +40,8 @@ import argparse
 import json
 import os
 import sys
-import tempfile
 import time
 
-REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 # The reference's forward rate on the JAX bench's workload (bench.py:35).
 BASELINE_PATHS_PER_SEC = 1.17e6
 # The JAX bench's workload (bench.py:87-104, :158-177).
@@ -64,20 +63,9 @@ def _sync(device) -> None:
 def load_scene(path: str | None):
     """(host scene, dims, name): the scene file at ``path``, or
     ``make_scene.cornell_box_original`` built in the process."""
-    from raytrace2_tpu_torch.scene import loader
+    from raytrace2_tpu_torch.tools import make_scene
 
-    if path:
-        scene, dims = loader.load_scene(path)
-        return scene, dims, path
-    sys.path.insert(0, os.path.join(REPO, "tools"))
-    import make_scene
-
-    with tempfile.TemporaryDirectory() as work:
-        tmp = os.path.join(work, "cornell_box_original.json")
-        with open(tmp, "w") as f:
-            json.dump(make_scene.cornell_box_original().to_json(), f)
-        scene, dims = loader.load_scene(tmp)
-    return scene, dims, "tools/make_scene.py cornell_box_original (built in-process)"
+    return make_scene.load(path or "cornell_original")
 
 
 def measure_forward(scene, device, *, width, height, max_depth=DEPTH, sqrt_spp=SQRT_SPP,

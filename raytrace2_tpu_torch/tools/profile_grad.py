@@ -5,7 +5,7 @@ pre-pass alone, and B3 whole.
         [--features scene|all]
 
 Port of ``tools/profile_grad.py`` of the JAX package. Without scenes it
-profiles its two main-path shapes: Cornell (``tools/make_scene.py
+profiles its two main-path shapes: Cornell (``make_scene.
 cornell_box_original``) at 600², depth 50, 64 spp, sqrt_spp 2 — the JAX
 bench's fwd+bwd gradient — and book 2 (``book2_final(0)``) at 64², depth 50,
 4 spp, sqrt_spp 2; a scene given on the command line takes ``--res``,
@@ -41,7 +41,6 @@ import os
 import sys
 import tempfile
 
-REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
 def _events(fn, reps):
@@ -60,8 +59,7 @@ def _events(fn, reps):
 
 def main_shapes(work: str) -> list:
     """(label, path, res, spp, sqrt_spp, depth) of the two main-path shapes."""
-    sys.path.insert(0, os.path.join(REPO, "tools"))
-    import make_scene
+    from raytrace2_tpu_torch.tools import make_scene
 
     out = []
     for name, build_scene, res, spp in (

@@ -6,7 +6,7 @@ and a per-phase split of the step.
         [--spp 6] [--depth 50] [--snapshots 1,3,6,7,12,18] [--reps 5]
 
 Port of ``tools/profile_wavefront.py`` of the JAX package. Without a scene
-it renders book 2 (``tools/make_scene.py book2_final(0)``). One batch of
+it renders book 2 (``make_scene.book2_final(0)``). One batch of
 ``--spp`` samples runs through ``wavefront.trace_wavefront_batch`` (the
 production schedule: K=2 launches with a sort before each, then K=16 tail
 launches); the state before the sort of each launch in ``--snapshots`` and
@@ -45,7 +45,6 @@ import subprocess
 import sys
 import tempfile
 
-REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 VARIANTS = {"nosweep": 0, "linear": 1, "profiled": 2}
 PHASES = ("stage", "load", "camera", "slab", "record", "shade", "noise", "store", "wait",
           "total")
@@ -67,8 +66,7 @@ def require_cuda():
 
 
 def book2_scene(work: str) -> str:
-    sys.path.insert(0, os.path.join(REPO, "tools"))
-    import make_scene
+    from raytrace2_tpu_torch.tools import make_scene
 
     path = os.path.join(work, "book2.json")
     with open(path, "w") as f:

@@ -53,7 +53,6 @@ import tempfile
 
 from raytrace2_tpu_torch.tools.profile_wavefront import PHASES, card_line, require_cuda
 
-REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 CHAINS = {"fma": 0, "mul_add": 1, "mix": 2}
 # Operations per chain step: an FMA counts 2; a multiply and an add 2; the
 # murmur mix of h ^ k 9 (1 xor, 3 shift-xor pairs, 2 multiplies).
@@ -145,8 +144,7 @@ def shares(counters) -> dict:
 
 
 def _scene(work, name):
-    sys.path.insert(0, os.path.join(REPO, "tools"))
-    import make_scene
+    from raytrace2_tpu_torch.tools import make_scene
 
     build_scene = {"cornell": make_scene.cornell_box_original,
                    "book2": lambda: make_scene.book2_final(rng_seed=0)}[name]

@@ -581,3 +581,68 @@ def test_bvh_instances_match_plain(tmp_path, cuda, monkeypatch, kernel):
         assert int(counts[0]) == int(counts[1]) > 0
         for a, b in zip(kern, plain):
             assert float((a - b).abs().max()) <= 1e-3 * float(b.abs().max()) + 1e-6
+
+
+def _walk_inputs(tmp_path, name, n, device):
+    """The BVH walk's tables of a scene and ``n`` seeded rays on ``device``,
+    every 7th with dx = 0, every 11th with dz = 0 and every 13th in the plane
+    x = 0 (the slab NaN), with the tree's depth."""
+    from raytrace2_tpu_torch.ops import bvh_traverse
+    from raytrace2_tpu_torch.scene import bvh
+
+    host, _ = loader.load_scene(write_scene(tmp_path, name))
+    tree, depth = bvh.build_sphere_bvh(host.spheres)
+    dev = schema.to_device(host, device)
+    tables = bvh_traverse.pack(schema.to_device(tree, device), dev.spheres)
+    rs = np.random.RandomState(7)
+    o = rs.uniform(-8, 8, (n, 3)).astype(np.float32)
+    o[:, 1] = rs.uniform(0.05, 3.0, n)
+    d = rs.normal(size=(n, 3)).astype(np.float32)
+    d[::7, 0] = 0.0
+    d[::11, 2] = 0.0
+    o[::13, 0] = 0.0
+    cols = [torch.from_numpy(x).to(device) for x in
+            (o, d, rs.uniform(size=n).astype(np.float32), np.full(n, 1e-3, np.float32),
+             np.full(n, 3e38, np.float32))]
+    return tables, cols, depth
+
+
+@pytest.mark.parametrize("name,n", [("book1", 65536), ("book2", 16384), ("grid", 1000)])
+def test_bvh_walk_matches_plain(tmp_path, cuda, name, n):
+    """The walk kernel against its plain version on the card, bitwise, with
+    rays parallel to slabs and in slab planes; one launch counted."""
+    from raytrace2_tpu_torch.ops import bvh_traverse
+
+    tables, cols, depth = _walk_inputs(tmp_path, name, n, cuda)
+    before = bvh_traverse.LAUNCHES
+    t, p = bvh_traverse.closest_sphere(tables, *cols, depth)
+    torch.cuda.synchronize()
+    assert bvh_traverse.LAUNCHES == before + 1
+    pt, pp = bvh_traverse.closest_sphere_plain(tables, *cols, depth)
+    assert bool((p >= 0).any()) and bool((p < 0).any())
+    assert torch.equal(p, pp)
+    assert torch.equal(t.view(torch.int32), pt.view(torch.int32))
+    with pytest.raises(ValueError, match="stack"):
+        bvh_traverse.closest_sphere(tables, *cols, bvh_traverse.MAX_STACK)
+
+
+def test_bvh_route_launches_the_walk(tmp_path, cuda):
+    """``backend="bvh"`` on the card launches the walk; its image against
+    the same route on the CPU (the plain walk), by the card-against-CPU gate
+    of the non-kernel path: the means within 1e-3, at most 0.5 % of pixels
+    apart by more than 1e-4 (a path parted at a transcendental's ulp), at
+    least 60 dB over the others."""
+    from raytrace2_tpu_torch.ops import bvh_traverse
+
+    scene, _ = loader.load_scene(write_scene(tmp_path, "separated"))
+    kw = dict(num_samples=2, max_depth=6, backend="bvh")
+    before = bvh_traverse.LAUNCHES
+    walk = Renderer(scene, 32, 24, device=cuda, **kw)
+    img = walk.render()
+    assert (walk.route, walk.kernel) == ("bvh", "bvh_traverse")
+    assert bvh_traverse.LAUNCHES > before
+    ref = Renderer(scene, 32, 24, device="cpu", **kw).render()
+    assert abs(float(img.mean() - ref.mean())) < 1e-3
+    flipped = np.abs(img - ref).max(-1) > 1e-4
+    assert flipped.mean() <= 0.005
+    assert compare.psnr(img[~flipped], ref[~flipped]) >= 60.0

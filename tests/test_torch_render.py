@@ -127,27 +127,30 @@ def test_cli_errors(tmp_path, monkeypatch, capsys):
                      "cpu", "--quiet", "--live", "--live-cols", "16", "--width", "8",
                      "--samples", "1", "--depth", "2"]) == 0
     assert "\x1b[38;2;" in capsys.readouterr().out
-    # The kernel path forced above its record ceiling, and the sphere BVH.
+    # The kernel path forced above its record ceiling; the sphere BVH,
+    # refused until it was ported, renders.
     huge = _many_spheres(tmp_path, MAX_SMEM_RECORDS + 1)
-    for backend in ("mega", "bvh"):
-        assert app.main([huge, "--device", "cpu", "--quiet", "--width", "4", "--height", "4",
-                         "--backend", backend]) == 1
+    for backend, rc in (("mega", 1), ("bvh", 0)):
+        assert app.main([huge, str(tmp_path / "huge.png"), "--device", "cpu", "--quiet",
+                         "--width", "4", "--height", "4", "--samples", "1", "--depth", "2",
+                         "--backend", backend]) == rc
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert app.main([write_scene(tmp_path, "cornell"), "--quiet"]) == 1
 
 
 def test_renderer_refuses_what_is_not_ported(tmp_path, monkeypatch):
-    """The sphere BVH and the kernel path forced above its record ceiling
-    (its tables live in shared memory) raise; scenes the kernel path cannot
-    take go to the non-kernel path instead. Table noise, refused until B1's
-    table Perlin was ported, renders on the kernel path: v4 (forced onto
-    the block-tiled layout with wave regeneration) and the wavefront give
-    the same image bit for bit."""
+    """The kernel path forced above its record ceiling (its tables live in
+    shared memory) raises; scenes the kernel path cannot take go to the
+    non-kernel path instead, whose spheres walk the BVH from 256 on. The
+    sphere BVH (``bvh``), refused until it was ported, takes any scene.
+    Table noise, refused until B1's table Perlin was ported, renders on the
+    kernel path: v4 (forced onto the block-tiled layout with wave
+    regeneration) and the wavefront give the same image bit for bit."""
+    feature, _ = loader.load_scene(write_scene(tmp_path, "feature"))
+    assert Renderer(feature, 8, 8, backend="bvh", device="cpu").route == "bvh"
     scene, _ = loader.load_scene(write_scene(tmp_path, "cornell"))
-    with pytest.raises(NotImplementedError, match="ROADMAP queue A item 12, the sphere BVH"):
-        Renderer(scene, 8, 8, backend="bvh", device="cpu")
     huge, _ = loader.load_scene(_many_spheres(tmp_path, MAX_SMEM_RECORDS + 1))
-    assert Renderer(huge, 8, 8, device="cpu").route == "xla"
+    assert Renderer(huge, 8, 8, device="cpu").route == "bvh"
     big, _ = loader.load_scene(write_scene(tmp_path, "book2"))
     for backend in ("mega", "wavefront"):
         with pytest.raises(NotImplementedError, match="shared memory"):

@@ -2,7 +2,8 @@
 ``from_jax_scene``, and that the port imports without jax.
 
 Also holds the scenes the other ``test_torch_*`` files share: the canned
-scenes of ``tools/make_scene.py`` and one feature scene that reaches every
+scenes of the port's ``make_scene`` (``tools/make_scene.py``'s, whose JSON
+test_torch_tools.py holds equal) and one feature scene that reaches every
 branch of the v4 kernel (motion blur, metal, dielectric, isotropic media in a
 sphere and a box, an AA box, a depth-2 nested checker, Perlin and marble
 hash noise, a DoF camera). The JAX package is imported inside the tests
@@ -17,12 +18,11 @@ import sys
 import numpy as np
 import pytest
 
-TOOLS = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "tools")
-sys.path.insert(0, TOOLS)
-import make_scene  # noqa: E402
+from raytrace2_tpu_torch import interop
+from raytrace2_tpu_torch.scene import loader, schema
+from raytrace2_tpu_torch.tools import make_scene
 
-from raytrace2_tpu_torch import interop  # noqa: E402
-from raytrace2_tpu_torch.scene import loader, schema  # noqa: E402
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def feature_scene_json() -> dict:
@@ -70,38 +70,10 @@ def feature_scene_json() -> dict:
 
 
 def book1_final_json(rng_seed: int = 0) -> dict:
-    """The final scene of book 1 (Ray Tracing in One Weekend, §14.1) from a
-    seeded random stream: a ground sphere, a 22×22 grid of small random
-    diffuse, metal and glass spheres, and three large spheres, seen through
-    a defocused camera. About 485 spheres, so above the wavefront's
-    256-record threshold."""
-    rnd = np.random.RandomState(rng_seed)
-    scene = make_scene.SceneBuilder()
-    scene.add_sphere([0, -1000, 0], 1000, scene.add_lambertian([0.5, 0.5, 0.5]))
-    for a in range(-11, 11):
-        for b in range(-11, 11):
-            choose = rnd.uniform()
-            center = [a + 0.9 * rnd.uniform(), 0.2, b + 0.9 * rnd.uniform()]
-            if np.linalg.norm(np.subtract(center, [4, 0.2, 0])) <= 0.9:
-                continue
-            if choose < 0.8:
-                mat = scene.add_lambertian((rnd.uniform(size=3) * rnd.uniform(size=3)).tolist())
-            elif choose < 0.95:
-                mat = scene.add_metal(rnd.uniform(0.5, 1.0, size=3).tolist(),
-                                      float(rnd.uniform(0.0, 0.5)))
-            else:
-                mat = scene.add_dielectric(1.5)
-            scene.add_sphere(center, 0.2, mat)
-    scene.add_sphere([0, 1, 0], 1.0, scene.add_dielectric(1.5))
-    scene.add_sphere([-4, 1, 0], 1.0, scene.add_lambertian([0.4, 0.2, 0.1]))
-    scene.add_sphere([4, 1, 0], 1.0, scene.add_metal([0.7, 0.6, 0.5], 0.0))
-    for i in range(len(scene.primitives)):
-        scene.add_node(None, i)
-    scene.background_color = [0.7, 0.8, 1.0]
-    scene.camera = {"fov": 20, "center": [13, 2, 3], "look_at": [0, 0, 0],
-                    "defocus_angle": 0.6, "focus_distance": 10.0,
-                    "width": 600, "aspect_ratio": 1.0}
-    return scene.to_json()
+    """The final scene of book 1 (``raytrace2_tpu_torch.tools.make_scene.
+    book1_final``): about 485 spheres, above the wavefront's 256-record
+    threshold."""
+    return make_scene.book1_final(rng_seed).to_json()
 
 
 # The scenes of the JAX package's gradient tests (tests/test_megakernel_grad.py):
@@ -348,8 +320,35 @@ def ellipsoid_scene_json() -> dict:
     }
 
 
+def separated_spheres_json(n: int = 64) -> dict:
+    """``n`` separated spheres on a grid (every fourth moving) over a ground
+    quad under a light and a sky: the BVH walk's image gate against the
+    dense sweep."""
+    side = int(np.ceil(np.sqrt(n)))
+    prims = []
+    for i in range(n):
+        x, z = -side + 2.0 * (i % side), -side + 2.0 * (i // side)
+        s = {"type": "sphere", "center": [x, 0.6, z], "radius": 0.5, "material": i % 3}
+        if i % 4 == 0:
+            s["displacement"] = [0.0, 0.2, 0.0]
+        prims.append(s)
+    prims += [{"type": "quad", "q": [-40, 0, -40], "u": [80, 0, 0], "v": [0, 0, 80],
+               "material": 0},
+              {"type": "quad", "q": [-4, 10, -4], "u": [8, 0, 0], "v": [0, 0, 8],
+               "material": 3}]
+    return {
+        "background_color": [0.5, 0.6, 0.8],
+        "camera": {"fov": 45, "center": [2, 9, side + 12], "look_at": [0, 0, 0]},
+        "materials": [{"type": "lambertian", "albedo": [0.6, 0.5, 0.4]},
+                      {"type": "metal", "albedo": [0.8, 0.8, 0.9], "fuzz": 0.1},
+                      {"type": "dielectric", "refraction_index": 1.5},
+                      {"type": "diffuse_light", "albedo": [4, 4, 4]}],
+        "primitives": prims}
+
+
 SCENES = {
     "cornell": lambda: make_scene.cornell_box_original().to_json(),
+    "cornell_corpus": lambda: make_scene.cornell_box_corpus().to_json(),
     "cornell_volume": lambda: make_scene.cornell_box_volume().to_json(),
     "book1": book1_final_json,
     "book2": lambda: make_scene.book2_final(rng_seed=0).to_json(),
@@ -361,6 +360,7 @@ SCENES = {
     "ties": tie_scene_json,
     "b5_ties": b5_tie_scene_json,
     "large": large_scene_json,
+    "separated": separated_spheres_json,
     **{f"grad_{k}": (lambda v=v: v) for k, v in GRAD_SCENES.items()},
 }
 
@@ -490,9 +490,23 @@ def test_port_imports_without_jax():
         "assert not any(m == 'raytrace2_tpu' or m.startswith('raytrace2_tpu.') for m in sys.modules)\n"
         "print(len(names))\n"
     )
-    root = os.path.dirname(TOOLS)
+    root = ROOT
     env = dict(os.environ, PYTHONPATH=root)
     r = subprocess.run([sys.executable, "-c", code], cwd=root, env=env,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stderr
     assert int(r.stdout.strip()) >= 14
+
+
+def test_perlin_reference_matches_jax():
+    """``perlin.noise_ref`` and ``turb_ref`` (numpy float64) give the JAX
+    package's values exactly, on a texture's tables at seeded points."""
+    from raytrace2_tpu.scene import perlin as jax_perlin
+    from raytrace2_tpu_torch.scene import perlin
+
+    perm, grad = perlin.make_tables(7, 2)
+    pts = np.random.RandomState(4).uniform(-40, 40, (64, 3))
+    for p in pts:
+        assert perlin.noise_ref(perm, grad, p) == jax_perlin.noise_ref(perm, grad, p)
+        assert perlin.turb_ref(perm, grad, p) == jax_perlin.turb_ref(perm, grad, p)
+        assert perlin.turb_ref(perm, grad, p, 3) == jax_perlin.turb_ref(perm, grad, p, 3)

@@ -87,3 +87,42 @@ def test_generate_rays_matches_jax(tmp_path, branch):
     np.testing.assert_allclose(o, jo, rtol=0, atol=8 * np.spacing(np.float32(8.0)))
     np.testing.assert_allclose(d, jd, rtol=0, atol=8 * np.spacing(np.float32(1.0)))
     np.testing.assert_array_equal(t.view(np.int32), jt.view(np.int32))
+
+
+@pytest.mark.parametrize("seed", SEEDS[:3])
+def test_draws_match_jax(seed):
+    """``split``, the uniforms of any shape (in [0, 1) and on JAX's normal
+    interval (nextafter(-1, 0), 1)) bit for bit; ``normal``, ``unit_vec3``,
+    ``in_unit_sphere``, ``in_unit_disk`` and ``on_hemisphere`` within
+    rtol 1e-5 and atol 2e-6: torch's erfinv, pow, sin and cos are not
+    XLA's, whose erf_inv is a polynomial approximation that strays by up to
+    6e-6 relative in the tails (|x| near 4, measured)."""
+    jkey = jax.random.fold_in(jax.random.key(seed), 11)
+    key = rng.fold_in(rng.threefry_key(seed), 11)
+    np.testing.assert_array_equal(key.numpy(), np.asarray(jax.random.key_data(jkey)))
+    np.testing.assert_array_equal(rng.split(key).numpy(),
+                                  np.asarray(jax.random.key_data(jax.random.split(jkey))))
+    lo = np.nextafter(np.float32(-1), np.float32(0))
+    for shape in ((), (5,), (64, 3)):
+        want = np.asarray(jax.random.uniform(jkey, shape))
+        np.testing.assert_array_equal(rng.uniform_shape(key, shape).numpy().view(np.int32),
+                                      want.view(np.int32))
+        want = np.asarray(jax.random.uniform(jkey, shape, minval=lo, maxval=1.0))
+        got = rng.uniform_shape(key, shape, lo, 1.0).numpy()
+        np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+    normal = np.asarray(jax.random.normal(jkey, (4096,)))
+    np.testing.assert_allclose(rng.normal(key, (4096,)).numpy(), normal, rtol=1e-5, atol=2e-6)
+    shape = (512,)
+    nrm = np.random.RandomState(seed).normal(size=shape + (3,)).astype(np.float32)
+    for jf, tf, arg in ((jax_rng.unit_vec3, rng.unit_vec3, shape),
+                        (jax_rng.in_unit_sphere, rng.in_unit_sphere, shape),
+                        (jax_rng.in_unit_disk, rng.in_unit_disk, shape),
+                        (jax_rng.on_hemisphere, rng.on_hemisphere, nrm)):
+        want = np.asarray(jf(jkey, jnp.asarray(arg) if arg is nrm else arg))
+        got = tf(key, torch.from_numpy(arg) if arg is nrm else arg).numpy()
+        assert got.shape == want.shape == shape + (3,) and got.dtype == np.float32
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=2e-6)
+    disk = rng.in_unit_disk(key, shape).numpy()
+    assert (np.linalg.norm(disk, axis=-1) <= 1.0).all() and (disk[:, 2] == 0).all()
+    hemi = rng.on_hemisphere(key, torch.from_numpy(nrm)).numpy()
+    assert ((hemi * nrm).sum(-1) >= 0).all()

@@ -56,6 +56,7 @@ KNOBS = [
     dict(mega_sort_key="pos8"),
     dict(mega_sort_key="depth"),
     dict(mega_sort_impl="gather_unstable"),
+    dict(mega_sort_impl="multi"),
     dict(mega_tail_compact=True),
     dict(),
 ]

@@ -148,8 +148,9 @@ def test_pallas_route_matches_xla_route(tmp_path):
 
 def test_renderer_routes_to_non_kernel_path(tmp_path):
     """auto sends an ellipsoid scene and a scene above max_records to the
-    non-kernel path (book 2 with its smaller chunk); mega does the same for
-    the ellipsoid scene, which only that path renders."""
+    non-kernel path (book 2 with its smaller chunk, its 1,005 spheres through
+    the BVH walk); mega does the same for the ellipsoid scene, which only
+    that path renders."""
     ell, _ = loader.load_scene(write_scene(tmp_path, "ellipsoid"))
     for backend in ("auto", "mega"):
         r = Renderer(ell, 8, 6, num_samples=1, max_depth=4, backend=backend, device="cpu")
@@ -157,18 +158,28 @@ def test_renderer_routes_to_non_kernel_path(tmp_path):
         assert np.isfinite(r.render()).all() and r.render().mean() > 0
     book2, _ = loader.load_scene(write_scene(tmp_path, "book2"))
     r = Renderer(book2, 8, 8, device="cpu", max_records=1000)
-    assert r.route == "xla" and r.chunk_size == CHUNK_SIZE_LARGE
+    assert (r.route, r.kernel) == ("bvh", "bvh_traverse") and r.chunk_size == CHUNK_SIZE_LARGE
     assert Renderer(book2, 8, 8, device="cpu").kernel == "wavefront_step"
 
 
 def test_bvh_and_differentiable_scan_raise(tmp_path):
+    """The sphere BVH, refused until it was ported: ``bvh`` builds the tree
+    over the feature scene's spheres (Cornell has none: it stays dense),
+    and ``closest_hit`` asked for the BVH of a scene without one sweeps
+    densely, as the JAX package's does."""
+    feature, _ = loader.load_scene(write_scene(tmp_path, "feature"))
+    r = Renderer(feature, 8, 8, backend="bvh", device="cpu")
+    n_active = int(np.asarray(feature.spheres.active).sum())
+    assert (r.route, r.scene.sphere_bvh.num_nodes) == ("bvh", 2 * n_active - 1)
     host, _ = loader.load_scene(write_scene(tmp_path, "cornell"))
-    with pytest.raises(NotImplementedError, match="queue A item 12, the sphere BVH"):
-        Renderer(host, 8, 8, backend="bvh", device="cpu")
+    assert Renderer(host, 8, 8, backend="bvh", device="cpu").route == "xla"
+    fscene = schema.to_device(feature, "cpu")
+    o, d = torch.zeros((2, 3)), torch.tensor([[0.0, 0.3, -1.0], [0.3, 0.1, 1.0]])
+    feats = dict(feature.features(), use_bvh_spheres=True, bvh_depth=1)
+    for a, b in zip(intersect.closest_hit(fscene, o, d, torch.zeros(2), features=feats),
+                    intersect.closest_hit(fscene, o, d, torch.zeros(2), features={})):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
     scene = schema.to_device(host, "cpu")
-    with pytest.raises(NotImplementedError, match="queue A item 12, the sphere BVH"):
-        intersect.closest_hit(scene, torch.zeros(2, 3), torch.ones(2, 3), torch.zeros(2),
-                              features={"use_bvh_spheres": True})
     # The differentiable scan, refused until it was ported, runs exactly
     # max_depth steps over every ray: its radiance equals the compacting
     # loop's, and it is differentiable in the scene's leaves.
