@@ -1,0 +1,10 @@
+"""Launches of ``wavefront_step`` (``wavefront.LAUNCHES``) per sample of
+every pixel over the traced sub-window."""
+
+from rtbench.metrics._common import per_spp
+
+COUNTERS = ("raytrace2_tpu_torch.ops.kernels.wavefront.LAUNCHES",)
+
+
+def read(run):
+    return per_spp(run, COUNTERS[0])
