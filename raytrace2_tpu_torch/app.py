@@ -171,6 +171,7 @@ def main(argv=None) -> int:
 
     import torch
 
+    from raytrace2_tpu_torch import tracing
     from raytrace2_tpu_torch.io import checkpoint as ckpt_io
     from raytrace2_tpu_torch.io import image as image_io
     from raytrace2_tpu_torch.io import term
@@ -264,10 +265,10 @@ def main(argv=None) -> int:
                 "intersect_kernel": intersect_kernel, "bvh_traverse": bvh_traverse}
 
     def start():
-        """(kernel module, its launches, wavefront sorts, t0, first sample)
-        at the start of the current renderer's timed run."""
+        """(kernel module, its launches, wavefront sorts, host syncs, t0, first
+        sample) at the start of the current renderer's timed run."""
         module = counters.get(renderer.kernel)
-        return (module, module.LAUNCHES if module else 0, wavefront.SORTS,
+        return (module, module.LAUNCHES if module else 0, wavefront.SORTS, tracing.HOST_SYNCS,
                 time.perf_counter(), renderer.frame_idx)
 
     watch = args.watch or args.live
@@ -282,7 +283,7 @@ def main(argv=None) -> int:
             activities.append(torch.profiler.ProfilerActivity.CUDA)
         profiler = torch.profiler.profile(activities=activities)
         profiler.__enter__()
-    module, launches0, sorts0, t0, done0 = start()
+    module, launches0, sorts0, syncs0, t0, done0 = start()
     first_frame = True
     while renderer.frame_idx < total:
         if watch:
@@ -306,7 +307,7 @@ def main(argv=None) -> int:
                 else:
                     watch_mtime = mtime
                     renderer, width, height = new_renderer, new_w, new_h
-                    module, launches0, sorts0, t0, done0 = start()
+                    module, launches0, sorts0, syncs0, t0, done0 = start()
                     log(f"Scene reloaded: {scene_path} (accumulation reset)")
         renderer.update(min(batch, total - renderer.frame_idx))
         sync()  # the launch is asynchronous; time what the card did
@@ -325,7 +326,7 @@ def main(argv=None) -> int:
         pressed = keys.poll()
         if "r" in pressed:
             renderer.reset()
-            module, launches0, sorts0, t0, done0 = start()
+            module, launches0, sorts0, syncs0, t0, done0 = start()
             log("Accumulation reset")
         if "w" in pressed:
             image_io.write_image(renderer.linear_pixels(), out_path)
@@ -361,8 +362,10 @@ def main(argv=None) -> int:
     if args.metrics:
         dt = time.perf_counter() - t0
         # The route and its kernel's launches on the card (0 where the plain
-        # version ran, on the CPU); the dense route has no kernel.
-        kernel = {"route": renderer.route, "kernel": renderer.kernel}
+        # version ran, on the CPU); the dense route has no kernel. Host syncs
+        # (tracing.sync) count on either device.
+        kernel = {"route": renderer.route, "kernel": renderer.kernel,
+                  "host_syncs": tracing.HOST_SYNCS - syncs0}
         if module:
             kernel["launches"] = module.LAUNCHES - launches0
         if renderer.kernel == "wavefront_step":

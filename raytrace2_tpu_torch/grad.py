@@ -32,7 +32,7 @@ from __future__ import annotations
 
 import torch
 
-from raytrace2_tpu_torch import defs
+from raytrace2_tpu_torch import defs, tracing
 from raytrace2_tpu_torch.ops import integrator
 from raytrace2_tpu_torch.ops.kernels import megakernel_grad as mkg
 from raytrace2_tpu_torch.scene import schema
@@ -109,7 +109,12 @@ def value_and_grad_scene(loss_fn, scene, features, seed, **render_kw):
     (``schema.to_device``). The gradient is a FlatScene of the same shape:
     a tensor for every float leaf (zeros where the loss does not reach it)
     and None for the integer and bool leaves."""
-    params, leaves = scene_params(scene)
-    loss = loss_fn(render_image(params, features, seed, **render_kw))
-    return loss.detach(), grad_tree(params, torch.autograd.grad(loss, leaves,
-                                                                allow_unused=True))
+    with tracing.span("grad.value_and_grad", {"seed": seed}):
+        with tracing.span("grad.params"):
+            params, leaves = scene_params(scene)
+        with tracing.span("grad.forward"):
+            loss = loss_fn(render_image(params, features, seed, **render_kw))
+        with tracing.span("grad.backward"):
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        with tracing.span("grad.tree"):
+            return loss.detach(), grad_tree(params, grads)

@@ -15,7 +15,7 @@ import math
 
 import torch
 
-from raytrace2_tpu_torch import defs
+from raytrace2_tpu_torch import defs, tracing
 from raytrace2_tpu_torch.ops import rng
 
 CAMV_LEN = 28
@@ -45,11 +45,14 @@ def camera_frame(cam, width: int, height: int, dtype=None) -> dict:
     """Derived camera quantities (Camera::Update, Camera.hpp:16-48) on the
     CPU, in ``dtype`` (``defs.TORCH_REAL`` by default; the kernels' camv is
     float32): pixel00, pixel_delta_u/v, center, defocus_disk_u/v,
-    defocus_angle."""
+    defocus_angle. Each camera leaf that is a tensor is read through
+    ``tracing.sync`` (six host syncs where the camera lives on the card)."""
     dtype = dtype or defs.TORCH_REAL
 
     def real(x):
-        return torch.as_tensor(x, dtype=dtype).cpu()
+        if torch.is_tensor(x):
+            return tracing.sync(x.to(dtype), "camera")
+        return torch.as_tensor(x, dtype=dtype)
 
     center, look_at, vup = real(cam.center), real(cam.look_at), real(cam.vup)
     vfov, focus = real(cam.vfov), real(cam.focus_dist)
@@ -114,7 +117,8 @@ def generate_rays(cam, width: int, height: int, sample_idx: int, sqrt_spp: int, 
     [N, 5] from the caller's generator (the murmur camera draws)."""
     u = rng.uniform(rng.fold_in(keys, 0x7FFFFFFF), 5) if uniforms is None else uniforms
     device = u.device
-    frame = {k: v.to(device) for k, v in camera_frame(cam, width, height).items()}
+    frame = {k: tracing.sync(v, "frame", device=device)
+             for k, v in camera_frame(cam, width, height).items()}
     if pixel_ids is None:
         pixel_ids = torch.arange(width * height, dtype=torch.int32, device=device)
     xs = (pixel_ids % width).to(defs.TORCH_REAL)

@@ -41,7 +41,7 @@ from __future__ import annotations
 
 import torch
 
-from raytrace2_tpu_torch import defs
+from raytrace2_tpu_torch import defs, tracing
 from raytrace2_tpu_torch.ops import camera, intersect, materials, rng
 from raytrace2_tpu_torch.ops.kernels import megakernel as mk
 from raytrace2_tpu_torch.ops.kernels import megakernel_grad as mkg
@@ -102,7 +102,8 @@ def noise_tables(scene, features):
     "table", else None (hash noise). The tables are constants of the
     estimator: they carry no gradient."""
     if features.get("has_noise", False) and features.get("noise_impl", "hash") == "table":
-        return mk.pack_noise_tables(scene, tuple(features["noise_rows"])).detach()
+        with tracing.span("integrator.pack"):
+            return mk.pack_noise_tables(scene, tuple(features["noise_rows"])).detach()
     return None
 
 
@@ -151,9 +152,11 @@ def _render_batch_megakernel(scene, packed, features, width, height, sample0,
         raise ValueError("a differentiable shard needs the linear slot layout "
                          "(features mega_linear=True)")
     n_pix = width * height
-    camv = camera.make_camv(scene.camera, width, height, sample0, n_samples, sqrt_spp, seed,
-                            **({"block": mk.BLOCK} if block else {}),
-                            slot0=pix0).to(packed.device)
+    with tracing.span("integrator.camv"):
+        camv = tracing.sync(
+            camera.make_camv(scene.camera, width, height, sample0, n_samples, sqrt_spp, seed,
+                             **({"block": mk.BLOCK} if block else {}), slot0=pix0),
+            "camv", device=packed.device)
     ntab = noise_tables(scene, features)
     kw = dict(max_depth=max_depth, sizes=tuple(features["mega_sizes"]),
               has_checker=int(features.get("has_checker", 1)),
@@ -163,7 +166,7 @@ def _render_batch_megakernel(scene, packed, features, width, height, sample0,
     n_slots = n_pix
     if block:
         n_slots, slot_of_pixel = mk.pixel_slots(width, height, block=True)
-        slot_of_pixel = slot_of_pixel.reshape(-1).to(packed.device)
+        slot_of_pixel = tracing.sync(slot_of_pixel.reshape(-1), "slots", device=packed.device)
     if n_local is not None:
         n_slots = n_local
     n_out = n_pix if n_local is None else n_local
@@ -190,12 +193,13 @@ def _render_batch_megakernel(scene, packed, features, width, height, sample0,
             sort_impl=str(features.get("mega_sort_impl", wf.SORT_IMPL)),
             **kw)[:n_out]
 
-    if differentiable:
-        radiance = mkg.DiffRender.apply(
-            camv, packed, background, int(seed), forward,
-            dict(n_pix=n_out, mat_types=mat_types, **kw))
-    else:
-        radiance = forward(camv, int(seed), packed, background)
+    with tracing.span("integrator.launch"):
+        if differentiable:
+            radiance = mkg.DiffRender.apply(
+                camv, packed, background, int(seed), forward,
+                dict(n_pix=n_out, mat_types=mat_types, **kw))
+        else:
+            radiance = forward(camv, int(seed), packed, background)
     if n_local is not None:
         return radiance  # the sharded caller keeps the flat slot tile
     return radiance.reshape(height, width, 3)
@@ -338,7 +342,8 @@ def trace_rays(scene, features, o, d, time, keys, max_depth: int,
     for phase in range(num_phases):
         last = phase == num_phases - 1 or width // ratio < 256
         cap_next = 0 if last else width // ratio
-        while state["bounce"] < max_depth and int(state["alive"].sum()) > cap_next:
+        while state["bounce"] < max_depth \
+                and tracing.sync(state["alive"].sum(), "alive", int) > cap_next:
             state = step(state)
         radiance_full.index_add_(0, idx_map, state["radiance"])
         if last:
@@ -423,7 +428,8 @@ def render_progressive(scene, features, width: int, height: int, sample0: int,
     if features.get("use_megakernel", True) and features.get("mega_sizes") is not None:
         _check_kernel_features(features)
         if packed is None or differentiable:
-            packed = pack_scene(scene, features)
+            with tracing.span("integrator.pack"):
+                packed = pack_scene(scene, features)
         return _render_batch_megakernel(scene, packed, features, width, height,
                                         sample0, n_samples, seed, max_depth, sqrt_spp,
                                         differentiable=differentiable)

@@ -42,7 +42,7 @@ import weakref
 
 import torch
 
-from raytrace2_tpu_torch import defs
+from raytrace2_tpu_torch import defs, tracing
 from raytrace2_tpu_torch.ops import camera, rng
 from raytrace2_tpu_torch.ops.kernels.build import MAX_SMEM_BYTES
 from raytrace2_tpu_torch.scene import schema
@@ -140,7 +140,8 @@ def feature_mask(sizes, has_checker, has_noise, ntab=None, mat_types=None) -> in
 
 def material_types(packed, sizes) -> set:
     """The material type ids of the packed tables (one host read)."""
-    return set(unpack_buffer(packed, sizes)["mat"]["mtype"].unique().tolist())
+    return set(tracing.sync(unpack_buffer(packed, sizes)["mat"]["mtype"].unique(), "mat_types",
+                            torch.Tensor.tolist))
 
 
 # Material type ids per scene mtype tensor, by id while the tensor lives.
@@ -153,7 +154,8 @@ def scene_material_types(mtype) -> frozenset:
     batches and gradient steps, so later launches need no host read."""
     key = id(mtype)
     if key not in _MAT_TYPES:
-        _MAT_TYPES[key] = frozenset(float(t) for t in mtype.unique().tolist())
+        _MAT_TYPES[key] = frozenset(
+            float(t) for t in tracing.sync(mtype.unique(), "mat_types", torch.Tensor.tolist))
         weakref.finalize(mtype, _MAT_TYPES.pop, key, None)
     return _MAT_TYPES[key]
 
@@ -492,8 +494,9 @@ def pack_clusters(sph, box, sizes) -> list:
             act = torch.arange(n + pad, device=lo.device) < n
             t = cluster_tables(lo, hi, act)
             if SWEEP_MODE == "bvh":
-                t.update({k: v.to(lo.device) for k, v in
-                          threaded_bvh(*(x.cpu() for x in t["raw"])).items()})
+                raw = (tracing.sync(x, "bvh") for x in t["raw"])
+                t.update({k: tracing.sync(v, "bvh", device=lo.device)
+                          for k, v in threaded_bvh(*raw).items()})
         else:
             empty = torch.zeros(0, dtype=torch.float32, device=cols["act"].device)
             t = {"cb": empty.view(6, 0), "sb": empty.view(6, 0), "ord": empty, "lord": empty,

@@ -40,6 +40,7 @@ from __future__ import annotations
 
 import torch
 
+from raytrace2_tpu_torch import tracing
 from raytrace2_tpu_torch.ops import camera, rng
 from raytrace2_tpu_torch.ops.kernels import megakernel as mk
 
@@ -301,6 +302,7 @@ class DiffRender(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         camv, packed, background = ctx.saved_tensors
-        d_camv, d_bg, d_packed = grad_call(camv, ctx.seed, packed, background,
-                                           g.contiguous(), **ctx.grad_kw)
+        with tracing.span("grad.replay"):
+            d_camv, d_bg, d_packed = grad_call(camv, ctx.seed, packed, background,
+                                               g.contiguous(), **ctx.grad_kw)
         return d_camv, d_packed, d_bg, None, None, None

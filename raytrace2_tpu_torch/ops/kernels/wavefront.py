@@ -32,6 +32,7 @@ from __future__ import annotations
 
 import torch
 
+from raytrace2_tpu_torch import tracing
 from raytrace2_tpu_torch.ops import camera, rng
 from raytrace2_tpu_torch.ops.kernels import megakernel as mk
 
@@ -168,7 +169,7 @@ def runnable(state, n_samples) -> torch.Tensor:
 
 def runnable_count(state, n_samples) -> int:
     """Runnable slots, read on the host (one device sync)."""
-    return int(runnable(state, n_samples).sum())
+    return tracing.sync(runnable(state, n_samples).sum(), "runnable", int)
 
 
 def sort_state(state, n_samples, bb_lo, bb_hi, key_mode="pos", sort_impl="gather"):
@@ -286,22 +287,31 @@ def trace_wavefront_batch(camv, seed, packed, background, *, n_rays, max_depth,
     if n_rays % SLOT_TILE:
         raise ValueError(f"n_rays={n_rays} must be a multiple of {SLOT_TILE}")
     device = packed.device
-    cv = [float(x) for x in camv.tolist()]
-    n_samples = cv[22]
-    bb_lo, bb_hi = scene_bounds(packed, sizes)
+    with tracing.span("wavefront.setup"):
+        cv = [float(x) for x in tracing.sync(camv, "camv_values", torch.Tensor.tolist)]
+        n_samples = cv[22]
+        bb_lo, bb_hi = scene_bounds(packed, sizes)
+        state = init_wavefront_state(n_rays, cv, device)
     kw = dict(max_depth=max_depth, sizes=sizes, has_checker=has_checker,
               has_noise=has_noise, ntab=ntab)
 
+    def sort(state):
+        with tracing.span("wavefront.sort"):
+            return sort_state(state, n_samples, bb_lo, bb_hi, key_mode, sort_impl)
+
     def launches(state, k, go_on):
         i = 0
-        while go_on(runnable_count(state, n_samples)):
+        while True:
+            with tracing.span("wavefront.runnable"):
+                n = runnable_count(state, n_samples)
+            if not go_on(n):
+                return state
             if i % sort_every == 0:
-                state = sort_state(state, n_samples, bb_lo, bb_hi, key_mode, sort_impl)
-            state = step(state, camv, seed, packed, background, k_bounces=k, **kw)
+                state = sort(state)
+            with tracing.span("wavefront.launch"):
+                state = step(state, camv, seed, packed, background, k_bounces=k, **kw)
             i += 1
-        return state
 
-    state = init_wavefront_state(n_rays, cv, device)
     if tail_k and tail_frac > 0.0:
         pop_switch = int(tail_frac * n_rays)
         state = launches(state, k_bounces, lambda n: n > pop_switch)
@@ -310,7 +320,7 @@ def trace_wavefront_batch(camv, seed, packed, background, *, n_rays, max_depth,
         # can run on that prefix alone, the rest riding along untouched.
         n_tail = -(-max(pop_switch, 1) // SLOT_TILE) * SLOT_TILE
         if tail_compact and n_tail < n_rays:
-            state = sort_state(state, n_samples, bb_lo, bb_hi, key_mode, sort_impl)
+            state = sort(state)
             head = launches(state[:, :n_tail].contiguous(), tail_k, lambda n: n > 0)
             state = torch.cat([head, state[:, n_tail:]], dim=1)
         else:
@@ -320,8 +330,9 @@ def trace_wavefront_batch(camv, seed, packed, background, *, n_rays, max_depth,
 
     # Un-permute by pixel id: each pixel owns exactly one slot, so the map
     # is a bijection (padding slots go to a spare row that is dropped).
-    pid = state[COL["pid"]]
-    tgt = torch.where(pid >= 0.0, pid - cv[25], float(n_rays)).to(torch.int64)
-    out = torch.zeros((n_rays + 1, 3), dtype=torch.float32, device=device)
-    out.index_copy_(0, tgt, state[COL["rr"]:COL["rb"] + 1].t())
-    return out[:n_rays]
+    with tracing.span("wavefront.unpermute"):
+        pid = state[COL["pid"]]
+        tgt = torch.where(pid >= 0.0, pid - cv[25], float(n_rays)).to(torch.int64)
+        out = torch.zeros((n_rays + 1, 3), dtype=torch.float32, device=device)
+        out.index_copy_(0, tgt, state[COL["rr"]:COL["rb"] + 1].t())
+        return out[:n_rays]

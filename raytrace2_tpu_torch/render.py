@@ -28,7 +28,7 @@ import math
 import numpy as np
 import torch
 
-from raytrace2_tpu_torch import defs
+from raytrace2_tpu_torch import defs, tracing
 from raytrace2_tpu_torch.ops import integrator
 from raytrace2_tpu_torch.ops.kernels import intersect_kernel as pk
 from raytrace2_tpu_torch.scene import bvh, schema
@@ -68,7 +68,8 @@ def render_step(scene, features, state: RenderState, seed: int, n_samples: int =
     radiance = integrator.render_progressive(
         scene, features, width, height, state.frame_idx, n_samples, seed,
         max_depth, sqrt_spp, packed=packed, chunk_size=chunk_size)
-    state.accum += radiance
+    with tracing.span("render.accumulate"):
+        state.accum += radiance
     state.frame_idx += int(n_samples)
     return state
 
@@ -198,13 +199,14 @@ class Renderer:
         self.reset()
 
     def update(self, n_samples: int = 1) -> None:
-        chunk = self.chunk_size
-        if chunk is not None and chunk >= self.width * self.height:
-            chunk = None
-        self._state = render_step(
-            self.scene, self._features, self._state, self.seed, n_samples,
-            width=self.width, height=self.height, max_depth=self.max_depth,
-            sqrt_spp=self.sqrt_spp, packed=self._packed, chunk_size=chunk)
+        with tracing.span("render.update", {"seed": self.seed, "s0": self._state.frame_idx}):
+            chunk = self.chunk_size
+            if chunk is not None and chunk >= self.width * self.height:
+                chunk = None
+            self._state = render_step(
+                self.scene, self._features, self._state, self.seed, n_samples,
+                width=self.width, height=self.height, max_depth=self.max_depth,
+                sqrt_spp=self.sqrt_spp, packed=self._packed, chunk_size=chunk)
 
     def render(self, num_samples: int | None = None, batch: int = 1) -> np.ndarray:
         remaining = num_samples or self.num_samples
@@ -234,8 +236,9 @@ class Renderer:
                                   int(state.frame_idx))
 
     def linear_pixels(self) -> np.ndarray:
-        return linear_image(self._state).cpu().numpy()
+        return tracing.sync(linear_image(self._state), "linear").numpy()
 
     def display_pixels(self) -> np.ndarray:
         """u8 display pixels [H, W, 3] (``display_image``)."""
-        return display_image(self._state).cpu().numpy()
+        with tracing.span("render.display"):
+            return tracing.sync(display_image(self._state), "display").numpy()
