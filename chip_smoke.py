@@ -628,9 +628,9 @@ def main() -> None:
             captured[tag] = state.clone()
         return wf.wavefront_step(state, *a, k_bounces=k_bounces, **k)
 
-    orig_sort, orig_count = wf.sort_state, wf.runnable_count
+    orig_sort, orig_count = wf.sort_state, wf.count_and_keys
     wf.sort_state = timed(orig_sort, "sort")
-    wf.runnable_count = timed(orig_count, "count")
+    wf.count_and_keys = timed(orig_count, "count")
     try:
         wf.trace_wavefront_batch(*args, n_rays=n_rays, **kw)  # warm-up
         for v in ev.values():
@@ -644,19 +644,45 @@ def main() -> None:
         torch.cuda.synchronize()
         batch_ms = (time.perf_counter() - t0) * 1e3
     finally:
-        wf.sort_state, wf.runnable_count = orig_sort, orig_count
+        wf.sort_state, wf.count_and_keys = orig_sort, orig_count
     dev_ms = {b: sum(s_.elapsed_time(e_) for s_, e_ in v) for b, v in ev.items()}
     n2, n16 = len(ev["step2"]), len(ev["step16"])
     busy = sum(dev_ms.values())
     say(f"phase 4 where a book-2 batch goes (600x600, 6 spp, depth 50, {n2} K=2 + {n16} "
-        f"K=16 launches, {len(ev['sort'])} sorts, {len(ev['count'])} runnable counts "
-        f"read on the host): wall {batch_ms:.2f} ms; kernel {dev_ms['step2']:.2f} ms "
-        f"(K=2) + {dev_ms['step16']:.2f} ms (K=16); keys+argsort+gather "
-        f"{dev_ms['sort']:.2f} ms; runnable counts {dev_ms['count']:.2f} ms (device time "
+        f"K=16 launches, {len(ev['sort'])} sorts, {len(ev['count'])} keys launches, each "
+        f"count read on the host): wall {batch_ms:.2f} ms; kernel {dev_ms['step2']:.2f} ms "
+        f"(K=2) + {dev_ms['step16']:.2f} ms (K=16); argsort+gather "
+        f"{dev_ms['sort']:.2f} ms; keys and counts {dev_ms['count']:.2f} ms (device time "
         f"to each read); host gaps {batch_ms - busy:.2f} ms; per launch K=2 "
         f"{dev_ms['step2'] / max(n2, 1):.4f} ms, K=16 {dev_ms['step16'] / max(n16, 1):.4f} ms "
         f"({card})")
     check("k2" in captured and "k16" in captured, "no K=2 or K=16 launch to capture")
+
+    # The keys kernel on those states: each mode's keys and the runnable
+    # count bit for bit those of the plain sort_keys and runnable.
+    def check_keys_kernel(tag, st):
+        bb = wf.scene_bounds(args[2], kw["sizes"])
+        keys = torch.empty(n_rays, dtype=torch.int32, device=dev)
+        count = torch.empty(1, dtype=torch.int32, device=dev)
+        want_n = int(wf.runnable(st, 6.0).sum())
+        for mode in ("pos", "pos8", "depth"):
+            n = wf.count_and_keys(st, 6.0, *bb, mode, keys, count)
+            n_diff = int((keys != wf.sort_keys(st, 6.0, *bb, mode)).sum())
+            check(n == want_n and n_diff == 0,
+                  f"keys kernel on the {tag} state, {mode}: count {n} (plain {want_n}), "
+                  f"{n_diff} keys differ")
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(10):
+            build.launch_wavefront_keys(st, *bb, keys, count, regen_below=5.0, key_mode=0)
+        end.record()
+        torch.cuda.synchronize()
+        say(f"phase 4 keys kernel on the {tag} state (book2 600x600, {n_rays} slots): keys "
+            f"and count bitwise the plain versions in every mode; "
+            f"{start.elapsed_time(end) / 10:.4f} ms a launch ({card})")
+
+    for tag, st in captured.items():
+        check_keys_kernel(tag, st)
 
     # The same launches over the skip-free (flat) tables, timed in turns with
     # the cluster skip's (skip, flat, flat, skip), on the same captured states.

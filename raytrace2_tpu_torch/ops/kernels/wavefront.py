@@ -8,7 +8,10 @@ of one ``[17, n_rays]`` tensor (``STATE_KEYS``). Before a launch the driver
 sorts the slots by a coherence key (Morton code of the ray origin for live
 rays, pixel id for rays about to regenerate, a constant for finished slots)
 and gathers the state; the launch then advances every slot by up to K steps
-of "regenerate if dead and samples remain, then one bounce". Per-slot
+of "regenerate if dead and samples remain, then one bounce". On the card
+the keys and the runnable count the host reads before each launch come
+from one launch of ``csrc/wavefront_keys.cu`` a pass; the CPU computes
+them with ``sort_keys`` and ``runnable_count``. Per-slot
 arithmetic is v4's (the plain step reuses ``megakernel.regenerate`` and
 ``megakernel.make_bounce``; the kernel shares ``path_common.cuh`` with
 ``megakernel_v4.cu``) and each pixel owns one slot, so the image is bitwise
@@ -58,10 +61,14 @@ SLOT_TILE = 128
 _REGEN_KEY = 1 << 28
 _DONE_KEY = 1 << 30
 
-# Launches of the CUDA kernel (the plain version does not count), and sorts
-# of the slot state (on either device).
+# Key modes as the keys kernel takes them (csrc/wavefront_keys.cu).
+KEY_MODES = {"pos": 0, "pos8": 1, "depth": 2}
+
+# Launches of the CUDA step kernel (the plain version does not count), sorts
+# of the slot state (on either device), and launches of the keys kernel.
 LAUNCHES = 0
 SORTS = 0
+KEY_LAUNCHES = 0
 
 
 # ---------------------------------------------------------------------------
@@ -172,7 +179,25 @@ def runnable_count(state, n_samples) -> int:
     return tracing.sync(runnable(state, n_samples).sum(), "runnable", int)
 
 
-def sort_state(state, n_samples, bb_lo, bb_hi, key_mode="pos", sort_impl="gather"):
+def count_and_keys(state, n_samples, bb_lo, bb_hi, key_mode, keys, count) -> int:
+    """Runnable slots of ``state`` [17, n], read on the host (one device
+    sync), with ``sort_keys(state, n_samples, bb_lo, bb_hi, key_mode)``
+    written to ``keys`` [n] int32 on the way: one launch of the keys kernel
+    (``csrc/wavefront_keys.cu``, built at first use), which writes the count
+    to ``count`` [1] int32. CUDA tensors only: any other raises."""
+    global KEY_LAUNCHES
+    if key_mode not in KEY_MODES:
+        raise ValueError(f"unknown sort key mode {key_mode!r}")
+    from raytrace2_tpu_torch.ops.kernels import build
+
+    build.launch_wavefront_keys(state, bb_lo, bb_hi, keys, count,
+                                regen_below=n_samples - 1.0, key_mode=KEY_MODES[key_mode])
+    KEY_LAUNCHES += 1
+    return tracing.sync(count, "runnable", int)
+
+
+def sort_state(state, n_samples, bb_lo, bb_hi, key_mode="pos", sort_impl="gather",
+               keys=None):
     """The state permuted by ascending key: an argsort of the int32 keys
     (stable, or unstable for "gather_unstable": any order of equal keys
     gives the same image, since per-slot math is keyed by pixel id) and one
@@ -180,11 +205,13 @@ def sort_state(state, n_samples, bb_lo, bb_hi, key_mode="pos", sort_impl="gather
     one multi-operand ``lax.sort`` of the keys and the 17 columns (stable):
     one stable sort of the keys, whose permutation is applied column by
     column, with no gather of the packed state; its image is the "gather"
-    one bit for bit."""
+    one bit for bit. ``keys`` (int32 [n], optional) are the state's keys
+    where the caller has them, ``sort_keys``' otherwise."""
     global SORTS
     if sort_impl not in ("gather", "gather_unstable", "multi"):
         raise ValueError(f"unknown sort_impl {sort_impl!r}")
-    keys = sort_keys(state, n_samples, bb_lo, bb_hi, key_mode)
+    if keys is None:
+        keys = sort_keys(state, n_samples, bb_lo, bb_hi, key_mode)
     SORTS += 1
     if sort_impl == "multi":
         perm = torch.sort(keys, stable=True).indices
@@ -278,7 +305,10 @@ def trace_wavefront_batch(camv, seed, packed, background, *, n_rays, max_depth,
     ``sort_every``-th launch; then ``tail_k`` steps per launch until none
     can run. With ``tail_compact`` the tail runs on the sorted runnable
     prefix only. The host reads the runnable count before every launch.
-    Scheduling only: any setting gives the same image.
+    Scheduling only: any setting gives the same image. On a CUDA state the
+    count and the sort keys come from one launch of the keys kernel a pass
+    (``count_and_keys``); on the CPU from ``runnable_count`` and
+    ``sort_keys``.
 
     ``step`` is the K-bounce step to run, ``wavefront_step`` (the kernel's
     wrapper) by default; passing ``step_plain`` drives the plain version
@@ -292,18 +322,28 @@ def trace_wavefront_batch(camv, seed, packed, background, *, n_rays, max_depth,
         n_samples = cv[22]
         bb_lo, bb_hi = scene_bounds(packed, sizes)
         state = init_wavefront_state(n_rays, cv, device)
+        # The keys kernel's outputs, for the state the last count read.
+        on_card = device.type == "cuda"
+        if on_card:
+            keys = torch.empty(n_rays, dtype=torch.int32, device=device)
+            count = torch.empty(1, dtype=torch.int32, device=device)
     kw = dict(max_depth=max_depth, sizes=sizes, has_checker=has_checker,
               has_noise=has_noise, ntab=ntab)
 
     def sort(state):
         with tracing.span("wavefront.sort"):
-            return sort_state(state, n_samples, bb_lo, bb_hi, key_mode, sort_impl)
+            return sort_state(state, n_samples, bb_lo, bb_hi, key_mode, sort_impl,
+                              keys=keys[:state.shape[1]] if on_card else None)
 
     def launches(state, k, go_on):
         i = 0
         while True:
             with tracing.span("wavefront.runnable"):
-                n = runnable_count(state, n_samples)
+                if on_card:
+                    n = count_and_keys(state, n_samples, bb_lo, bb_hi, key_mode,
+                                       keys[:state.shape[1]], count)
+                else:
+                    n = runnable_count(state, n_samples)
             if not go_on(n):
                 return state
             if i % sort_every == 0:

@@ -35,7 +35,8 @@ Spans (``SPANS``), each at one layer's boundary:
   driver);
 * wavefront driver (``ops/kernels/wavefront.py``): ``wavefront.setup``
   (``camv``'s values, the scene bounds, the slot state), ``wavefront.runnable``
-  (the runnable count read before each launch), ``wavefront.sort``,
+  (the runnable count read before each launch, with the keys kernel that
+  counts on the card), ``wavefront.sort``,
   ``wavefront.launch``, ``wavefront.unpermute``;
 * gradient (``grad.py``, ``ops/kernels/megakernel_grad.py``):
   ``grad.value_and_grad`` (a step: its seed), ``grad.params``,
