@@ -517,7 +517,8 @@ def pack_buffer(scene, sizes) -> torch.Tensor:
     ``table_layout``, on the scene's device; float64 leaves (under
     ``RAYTRACE2_DOUBLE``) are read as float32."""
     tables = pack_tables(schema.as_float32(scene), sizes)
-    tables = (*tables, *pack_clusters(tables[0], tables[2], sizes))
+    with tracing.span("integrator.cluster"):
+        tables = (*tables, *pack_clusters(tables[0], tables[2], sizes))
     return torch.cat([tbl[k] for (_, keys), tbl in zip(ALL_FAMILIES, tables)
                       for k in keys]).contiguous()
 

@@ -64,6 +64,11 @@ LANE_CHUNK = 1 << 17
 
 # Launches of the CUDA kernel (the plain version does not count).
 LAUNCHES = 0
+# The backward's replayed bounces while a profiler records, an int64 [1]
+# tensor per device that the replay adds to on the device (``grad_call``'s
+# ``bounces``), so that counting adds no host sync to a step. The module
+# attribute ``REPLAY_BOUNCES`` reads their sum, waiting for the devices.
+_BOUNCES: dict = {}
 
 # The scene feature mask that picks the kernel's instance (shared with v4
 # and B4: megakernel.scene_features); re-exported under the names the
@@ -302,7 +307,19 @@ class DiffRender(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         camv, packed, background = ctx.saved_tensors
+        bounces = None
+        if tracing.recording():
+            bounces = _BOUNCES.get(packed.device)
+            if bounces is None:
+                bounces = _BOUNCES[packed.device] = torch.zeros(1, dtype=torch.int64,
+                                                                device=packed.device)
         with tracing.span("grad.replay"):
             d_camv, d_bg, d_packed = grad_call(camv, ctx.seed, packed, background,
-                                               g.contiguous(), **ctx.grad_kw)
+                                               g.contiguous(), bounces=bounces, **ctx.grad_kw)
         return d_camv, d_packed, d_bg, None, None, None
+
+
+def __getattr__(attr: str) -> int:
+    if attr == "REPLAY_BOUNCES":
+        return sum(int(t) for t in _BOUNCES.values())
+    raise AttributeError(f"module {__name__!r} has no attribute {attr!r}")

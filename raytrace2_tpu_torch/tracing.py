@@ -31,6 +31,9 @@ Spans (``SPANS``), each at one layer's boundary:
 * integrator, kernel path (``ops/integrator.py``): ``integrator.camv`` (the
   camera frame and ``camv``, with their reads), ``integrator.pack`` (the
   tables packed for a batch or a gradient step, the noise tables),
+  ``integrator.cluster`` (the cluster tables rebuilt from the current
+  geometry inside ``megakernel.pack_buffer``: in a pack, and wherever else
+  the tables are packed),
   ``integrator.launch`` (the route's launch: v4's wrapper, or the wavefront
   driver);
 * wavefront driver (``ops/kernels/wavefront.py``): ``wavefront.setup``
@@ -64,7 +67,7 @@ import time
 import torch
 
 SPANS = ("render.update", "render.accumulate", "render.display",
-         "integrator.camv", "integrator.pack", "integrator.launch",
+         "integrator.camv", "integrator.pack", "integrator.launch", "integrator.cluster",
          "wavefront.setup", "wavefront.runnable", "wavefront.sort", "wavefront.launch",
          "wavefront.unpermute",
          "grad.value_and_grad", "grad.params", "grad.forward", "grad.backward", "grad.replay",
@@ -75,7 +78,9 @@ SITES = ("camera", "frame", "camv", "camv_values", "runnable", "display", "linea
 # Host syncs made through ``sync``, on any device, profiler or not.
 HOST_SYNCS = 0
 
-_recording = torch._C._autograd._profiler_enabled
+# Whether a torch.profiler records: spans, and counters that cost the device
+# work, count only then.
+recording = torch._C._autograd._profiler_enabled
 _NULL = contextlib.nullcontext()
 # Read-modify-writes of the totals: autograd's backward runs on a thread of
 # its own per device.
@@ -126,7 +131,7 @@ class _Span:
 def span(name: str, unit: dict | None = None):
     """A context manager marking ``name``'s work (see the module doc);
     ``unit`` identifies the unit of work a top span opens."""
-    if not _recording():
+    if not recording():
         return _NULL
     return _Span(name, unit)
 
@@ -164,7 +169,7 @@ def sync(t: torch.Tensor, site: str, read=None, *, device="cpu"):
     global HOST_SYNCS
     with _LOCK:
         HOST_SYNCS += 1
-    if not _recording():
+    if not recording():
         return _do(t, read, device, site)
     with _Span("sync." + site, None, is_sync=True):
         return _do(t, read, device, site)
