@@ -650,10 +650,10 @@ def main() -> None:
     busy = sum(dev_ms.values())
     say(f"phase 4 where a book-2 batch goes (600x600, 6 spp, depth 50, {n2} K=2 + {n16} "
         f"K=16 launches, {len(ev['sort'])} sorts, {len(ev['count'])} keys launches, each "
-        f"count read on the host): wall {batch_ms:.2f} ms; kernel {dev_ms['step2']:.2f} ms "
-        f"(K=2) + {dev_ms['step16']:.2f} ms (K=16); argsort+gather "
-        f"{dev_ms['sort']:.2f} ms; keys and counts {dev_ms['count']:.2f} ms (device time "
-        f"to each read); host gaps {batch_ms - busy:.2f} ms; per launch K=2 "
+        f"count read on the host after its pass's step is queued): wall {batch_ms:.2f} ms; "
+        f"kernel {dev_ms['step2']:.2f} ms (K=2) + {dev_ms['step16']:.2f} ms (K=16); "
+        f"argsort+gather {dev_ms['sort']:.2f} ms; keys and counts {dev_ms['count']:.2f} ms; "
+        f"host gaps {batch_ms - busy:.2f} ms; per launch K=2 "
         f"{dev_ms['step2'] / max(n2, 1):.4f} ms, K=16 {dev_ms['step16'] / max(n16, 1):.4f} ms "
         f"({card})")
     check("k2" in captured and "k16" in captured, "no K=2 or K=16 launch to capture")
@@ -666,7 +666,8 @@ def main() -> None:
         count = torch.empty(1, dtype=torch.int32, device=dev)
         want_n = int(wf.runnable(st, 6.0).sum())
         for mode in ("pos", "pos8", "depth"):
-            n = wf.count_and_keys(st, 6.0, *bb, mode, keys, count)
+            wf.count_and_keys(st, 6.0, *bb, mode, keys, count)
+            n = int(count)
             n_diff = int((keys != wf.sort_keys(st, 6.0, *bb, mode)).sum())
             check(n == want_n and n_diff == 0,
                   f"keys kernel on the {tag} state, {mode}: count {n} (plain {want_n}), "

@@ -9,9 +9,10 @@ sorts the slots by a coherence key (Morton code of the ray origin for live
 rays, pixel id for rays about to regenerate, a constant for finished slots)
 and gathers the state; the launch then advances every slot by up to K steps
 of "regenerate if dead and samples remain, then one bounce". On the card
-the keys and the runnable count the host reads before each launch come
-from one launch of ``csrc/wavefront_keys.cu`` a pass; the CPU computes
-them with ``sort_keys`` and ``runnable_count``. Per-slot
+the keys and the runnable count come from one launch of
+``csrc/wavefront_keys.cu`` a pass, and the host reads the count only once
+the pass's sort and step are queued; the CPU computes them with
+``sort_keys`` and ``runnable_count``. Per-slot
 arithmetic is v4's (the plain step reuses ``megakernel.regenerate`` and
 ``megakernel.make_bounce``; the kernel shares ``path_common.cuh`` with
 ``megakernel_v4.cu``) and each pixel owns one slot, so the image is bitwise
@@ -65,10 +66,13 @@ _DONE_KEY = 1 << 30
 KEY_MODES = {"pos": 0, "pos8": 1, "depth": 2}
 
 # Launches of the CUDA step kernel (the plain version does not count), sorts
-# of the slot state (on either device), and launches of the keys kernel.
+# of the slot state (on either device), launches of the keys kernel, and
+# steps (on either device) queued on a pass whose own count, read after
+# them, ended its phase.
 LAUNCHES = 0
 SORTS = 0
 KEY_LAUNCHES = 0
+OVERRUN_LAUNCHES = 0
 
 
 # ---------------------------------------------------------------------------
@@ -179,12 +183,12 @@ def runnable_count(state, n_samples) -> int:
     return tracing.sync(runnable(state, n_samples).sum(), "runnable", int)
 
 
-def count_and_keys(state, n_samples, bb_lo, bb_hi, key_mode, keys, count) -> int:
-    """Runnable slots of ``state`` [17, n], read on the host (one device
-    sync), with ``sort_keys(state, n_samples, bb_lo, bb_hi, key_mode)``
-    written to ``keys`` [n] int32 on the way: one launch of the keys kernel
-    (``csrc/wavefront_keys.cu``, built at first use), which writes the count
-    to ``count`` [1] int32. CUDA tensors only: any other raises."""
+def count_and_keys(state, n_samples, bb_lo, bb_hi, key_mode, keys, count) -> None:
+    """``sort_keys(state, n_samples, bb_lo, bb_hi, key_mode)`` written to
+    ``keys`` [n] int32 and the runnable slots of ``state`` [17, n] to
+    ``count`` [1] int32 on the card: one launch of the keys kernel
+    (``csrc/wavefront_keys.cu``, built at first use) on the current stream,
+    with no host read. CUDA tensors only: any other raises."""
     global KEY_LAUNCHES
     if key_mode not in KEY_MODES:
         raise ValueError(f"unknown sort key mode {key_mode!r}")
@@ -193,7 +197,6 @@ def count_and_keys(state, n_samples, bb_lo, bb_hi, key_mode, keys, count) -> int
     build.launch_wavefront_keys(state, bb_lo, bb_hi, keys, count,
                                 regen_below=n_samples - 1.0, key_mode=KEY_MODES[key_mode])
     KEY_LAUNCHES += 1
-    return tracing.sync(count, "runnable", int)
 
 
 def sort_state(state, n_samples, bb_lo, bb_hi, key_mode="pos", sort_impl="gather",
@@ -304,11 +307,18 @@ def trace_wavefront_batch(camv, seed, packed, background, *, n_rays, max_depth,
     run, each launch runs ``k_bounces`` steps, with a sort before every
     ``sort_every``-th launch; then ``tail_k`` steps per launch until none
     can run. With ``tail_compact`` the tail runs on the sorted runnable
-    prefix only. The host reads the runnable count before every launch.
-    Scheduling only: any setting gives the same image. On a CUDA state the
-    count and the sort keys come from one launch of the keys kernel a pass
-    (``count_and_keys``); on the CPU from ``runnable_count`` and
-    ``sort_keys``.
+    prefix only. Scheduling only: any setting gives the same image.
+
+    Each pass counts the runnable slots of its state (with the sort keys),
+    queues its sort and step, and only then reads that count on the host,
+    which waits while the step it just queued runs. A count decides the
+    next pass, so each phase ends one pass late: its last pass steps a
+    state whose count ended the phase (``OVERRUN_LAUNCHES``), which changes
+    nothing at a count of 0 and otherwise runs ``k_bounces`` steps more
+    before the tail. On a CUDA state the keys and the count come from one
+    launch of the keys kernel a pass (``count_and_keys``), and the count is
+    read through a side stream that waits for that launch alone; on the CPU
+    from ``runnable_count`` and ``sort_keys``.
 
     ``step`` is the K-bounce step to run, ``wavefront_step`` (the kernel's
     wrapper) by default; passing ``step_plain`` drives the plain version
@@ -322,13 +332,21 @@ def trace_wavefront_batch(camv, seed, packed, background, *, n_rays, max_depth,
         n_samples = cv[22]
         bb_lo, bb_hi = scene_bounds(packed, sizes)
         state = init_wavefront_state(n_rays, cv, device)
-        # The keys kernel's outputs, for the state the last count read.
+        # The keys kernel's outputs, for the state the last keys launch read;
+        # the stream that reads the count, and the event it waits on. torch's
+        # pool streams are non-blocking: not even the legacy default stream
+        # orders the read behind the step.
         on_card = device.type == "cuda"
         if on_card:
             keys = torch.empty(n_rays, dtype=torch.int32, device=device)
             count = torch.empty(1, dtype=torch.int32, device=device)
+            side = torch.cuda.Stream(device)
+            counted = torch.cuda.Event()
     kw = dict(max_depth=max_depth, sizes=sizes, has_checker=has_checker,
               has_noise=has_noise, ntab=ntab)
+
+    def launch_keys(state):
+        count_and_keys(state, n_samples, bb_lo, bb_hi, key_mode, keys[:state.shape[1]], count)
 
     def sort(state):
         with tracing.span("wavefront.sort"):
@@ -336,37 +354,51 @@ def trace_wavefront_batch(camv, seed, packed, background, *, n_rays, max_depth,
                               keys=keys[:state.shape[1]] if on_card else None)
 
     def launches(state, k, go_on):
+        """Passes of ``k`` steps until a count fails ``go_on``: the state
+        after the last pass, and the count of the state it started from."""
+        global OVERRUN_LAUNCHES
         i = 0
         while True:
             with tracing.span("wavefront.runnable"):
                 if on_card:
-                    n = count_and_keys(state, n_samples, bb_lo, bb_hi, key_mode,
-                                       keys[:state.shape[1]], count)
+                    launch_keys(state)
+                    counted.record(torch.cuda.current_stream(device))
+                    side.wait_event(counted)
                 else:
                     n = runnable_count(state, n_samples)
-            if not go_on(n):
-                return state
             if i % sort_every == 0:
                 state = sort(state)
             with tracing.span("wavefront.launch"):
                 state = step(state, camv, seed, packed, background, k_bounces=k, **kw)
+            if on_card:
+                # The host waits here until the copy is done, so the next
+                # keys launch, which rewrites ``count``, is queued after it.
+                with tracing.span("wavefront.runnable"), torch.cuda.stream(side):
+                    n = tracing.sync(count, "runnable", int)
             i += 1
+            if not go_on(n):
+                OVERRUN_LAUNCHES += 1
+                return state, n
 
     if tail_k and tail_frac > 0.0:
         pop_switch = int(tail_frac * n_rays)
-        state = launches(state, k_bounces, lambda n: n > pop_switch)
+        state, n = launches(state, k_bounces, lambda n: n > pop_switch)
         # After a sort the runnable slots are a prefix (finished and padding
-        # slots key 2^30) and at most pop_switch of them remain: the tail
-        # can run on that prefix alone, the rest riding along untouched.
+        # slots key 2^30) and at most pop_switch of them remain (n, which the
+        # last pass's step can only have lowered): the tail can run on that
+        # prefix alone, the rest riding along untouched.
         n_tail = -(-max(pop_switch, 1) // SLOT_TILE) * SLOT_TILE
-        if tail_compact and n_tail < n_rays:
+        if n and tail_compact and n_tail < n_rays:
+            if on_card:  # the keys of the state the last pass left
+                with tracing.span("wavefront.runnable"):
+                    launch_keys(state)
             state = sort(state)
-            head = launches(state[:, :n_tail].contiguous(), tail_k, lambda n: n > 0)
+            head, _ = launches(state[:, :n_tail].contiguous(), tail_k, lambda n: n > 0)
             state = torch.cat([head, state[:, n_tail:]], dim=1)
-        else:
-            state = launches(state, tail_k, lambda n: n > 0)
+        elif n:
+            state, _ = launches(state, tail_k, lambda n: n > 0)
     else:
-        state = launches(state, k_bounces, lambda n: n > 0)
+        state, _ = launches(state, k_bounces, lambda n: n > 0)
 
     # Un-permute by pixel id: each pixel owns exactly one slot, so the map
     # is a bijection (padding slots go to a spare row that is dropped).

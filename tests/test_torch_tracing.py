@@ -151,9 +151,8 @@ def test_host_syncs_per_batch(batches):
         assert got == V4_SYNCS
         assert calls["sync.camera"] == 6 and calls["sync.camv"] == 1
     else:
-        # camv's values, and one runnable read before each launch and at
-        # the end of each of the two phases.
-        assert calls["sync.runnable"] == calls["wavefront.launch"] + 2
+        # camv's values, and one runnable read a pass, after its launch.
+        assert calls["sync.runnable"] == calls["wavefront.launch"]
         assert got == V4_SYNCS + 1 + calls["sync.runnable"]
         assert calls["wavefront.sort"] == calls["wavefront.launch"]
     assert calls["render.update"] == 1

@@ -5,6 +5,8 @@ wavefront_sorted.py (bitwise), and whole renders against the JAX package's
 XLA path and its interpret-mode wavefront kernel (the repo's matched-RNG
 flip gate)."""
 
+import json
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -58,6 +60,8 @@ KNOBS = [
     dict(mega_sort_impl="gather_unstable"),
     dict(mega_sort_impl="multi"),
     dict(mega_tail_compact=True),
+    dict(mega_sort_every=2),
+    dict(mega_sort_every=2, mega_tail_compact=True),
     dict(),
 ]
 
@@ -86,6 +90,58 @@ def test_plain_wavefront_bitwise_equals_plain_v4_book2(tmp_path):
     ours = _render(scene, 8, 8, 2, 4)
     assert np.isfinite(ours).all() and ours.max() > 0
     np.testing.assert_array_equal(ours, v4)
+
+
+# A mirror (metal, fuzz 0) on the ground under the left half of a camera
+# that looks down at 59 degrees: every ray of the left half takes exactly two
+# bounces (the mirror, then the sky), every ray of the right half one.
+MIRROR_HALF = {
+    "background_color": [0.5, 0.7, 1.0],
+    "camera": {"fov": 40, "center": [0, 5, 3], "look_at": [0, 0, 0]},
+    "textures": [],
+    "materials": [{"type": "metal", "albedo": [0.9, 0.8, 0.7], "fuzz": 0.0}],
+    "primitives": [{"type": "quad", "q": [-100, 0, -100], "u": [100, 0, 0],
+                    "v": [0, 0, 200], "material": 0}],
+}
+
+
+@pytest.mark.parametrize("tail_frac,old,new", [
+    (wf.TAIL_FRAC, [2, 2, 16], [2, 2, 2, 16, 16]),
+    (0.0, [2] * 4, [2] * 5),
+], ids=["two_phases", "one_phase"])
+def test_lagged_passes_counted_by_hand(tmp_path, tail_frac, old, new):
+    """MIRROR_HALF at 16x8, 4 spp, in 128 slots: after m single steps the
+    runnable count is 64 [m < 4] + 64 [m < 8]. A schedule that read the
+    count before each launch would run ``old``'s steps a launch: K=2 at
+    m = 0, 2 (128 > 83 = int(0.65 * 128)), then K=16 at m = 4 (64 > 0); with
+    one phase, K=2 at m = 0, 2, 4, 6. Reading the count after each pass's
+    step is queued adds one launch and one sort a phase that ran (the
+    overrun: K=2 at m = 4, K=16 at m = 22), and gives v4's image bit for
+    bit."""
+    path = tmp_path / "mirror_half.json"
+    path.write_text(json.dumps(MIRROR_HALF))
+    scene, _ = loader.load_scene(str(path))
+    feats = scene.features()
+    sizes = tuple(feats["mega_sizes"])
+    dev = schema.to_device(scene, "cpu")
+    args = (camera.make_camv(scene.camera, 16, 8, 0, 4, 2, 0), 0, mk.pack_buffer(dev, sizes),
+            dev.background)
+    kw = dict(max_depth=4, sizes=sizes, has_checker=feats["has_checker"],
+              has_noise=feats["has_noise"])
+    steps = []
+
+    def step(state, *a, k_bounces, **k):
+        steps.append(k_bounces)
+        return wf.wavefront_step(state, *a, k_bounces=k_bounces, **k)
+
+    sorts, overruns = wf.SORTS, wf.OVERRUN_LAUNCHES
+    image = wf.trace_wavefront_batch(*args, n_rays=128, tail_frac=tail_frac, step=step, **kw)
+    phases = 1 + (tail_frac > 0)
+    assert steps == new and len(new) == len(old) + phases
+    assert wf.SORTS - sorts == len(old) + phases
+    assert wf.OVERRUN_LAUNCHES - overruns == phases
+    np.testing.assert_array_equal(
+        image.numpy(), mk.trace_megakernel_batch(*args, n_pix=128, **kw).numpy())
 
 
 # ---- parts vs the JAX package, bitwise ------------------------------------

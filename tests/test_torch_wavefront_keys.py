@@ -1,15 +1,16 @@
 """The wavefront driver's keys kernel (csrc/wavefront_keys.cu): every slot's
 sort key and the runnable count in one launch a pass, held bit for bit
-against the plain ``sort_keys`` and ``runnable`` on the card, and the CPU
-route, which keeps the plain versions. The card tests skip where
-torch.cuda.is_available() is false. Run on a machine with the card:
+against the plain ``sort_keys`` and ``runnable`` on the card, the driver's
+batch, which reads each pass's count after queueing its step, against v4's
+image, and the CPU route, which keeps the plain versions. The card tests
+skip where torch.cuda.is_available() is false. Run on a machine with the card:
 python -m pytest tests/test_torch_wavefront_keys.py -q --noconftest"""
 
 import numpy as np
 import pytest
 import torch
 
-from raytrace2_tpu_torch.ops import camera
+from raytrace2_tpu_torch.ops import camera, integrator
 from raytrace2_tpu_torch.ops.kernels import build
 from raytrace2_tpu_torch.ops.kernels import megakernel as mk
 from raytrace2_tpu_torch.ops.kernels import wavefront as wf
@@ -65,8 +66,8 @@ def _random_state(seed, n, n_samples, lo, hi):
 def _kernel(state, n_samples, lo, hi, mode):
     keys = torch.full((state.shape[1],), -7, dtype=torch.int32, device=state.device)
     count = torch.full((1,), -7, dtype=torch.int32, device=state.device)
-    n = wf.count_and_keys(state, n_samples, lo, hi, mode, keys, count)
-    return keys, n
+    wf.count_and_keys(state, n_samples, lo, hi, mode, keys, count)
+    return keys, int(count)
 
 
 def _assert_matches_plain(state, n_samples, lo, hi):
@@ -82,8 +83,9 @@ def _assert_matches_plain(state, n_samples, lo, hi):
 
 
 def test_cpu_batch_takes_the_plain_keys(tmp_path, monkeypatch):
-    """A CPU batch keys and counts with the plain versions, launches no keys
-    kernel, and its image is bitwise the v4 plain version's."""
+    """A CPU batch keys and counts with the plain versions, once each a pass,
+    launches no keys kernel, and its image is bitwise the v4 plain
+    version's."""
     args, kw = _args(write_scene(tmp_path, "cornell"), 8, 8, 1, 3, "cpu")
     calls = {"sort_keys": 0, "runnable_count": 0}
     for name in calls:
@@ -95,7 +97,7 @@ def test_cpu_batch_takes_the_plain_keys(tmp_path, monkeypatch):
     image = wf.trace_wavefront_batch(*args, n_rays=128, **kw)[:64]
     assert wf.KEY_LAUNCHES == key_launches
     assert calls["sort_keys"] == wf.SORTS - sorts > 0
-    assert calls["runnable_count"] > calls["sort_keys"]
+    assert calls["runnable_count"] == calls["sort_keys"]
     np.testing.assert_array_equal(image.numpy(),
                                   mk.trace_megakernel_batch(*args, n_pix=64, **kw).numpy())
 
@@ -149,11 +151,10 @@ def test_keys_kernel_matches_sort_keys_mid_batch(tmp_path, cuda):
 
 
 def _plain_count_and_keys(state, n_samples, bb_lo, bb_hi, key_mode, keys, count):
-    """The parent's pass: ``sort_keys`` and ``runnable(...).sum()`` in torch
-    ops, into the kernel's outputs."""
+    """``sort_keys`` and ``runnable(...).sum()`` in torch ops, into the
+    kernel's outputs."""
     keys.copy_(wf.sort_keys(state, n_samples, bb_lo, bb_hi, key_mode))
     count.copy_(wf.runnable(state, n_samples).sum())
-    return int(count)
 
 
 @pytest.mark.cuda
@@ -163,7 +164,8 @@ def _plain_count_and_keys(state, n_samples, bb_lo, bb_hi, key_mode, keys, count)
 def test_batch_is_the_plain_keys_batch(tmp_path, cuda, monkeypatch, knobs):
     """Book 2 at 128x128, 6 spp, depth 50: the same states before every
     launch, the same image bit for bit and the same sorts and launches as
-    the batch keyed by torch ops; one keys launch a count read."""
+    the batch keyed by torch ops; one keys launch a launch, and one more for
+    ``tail_compact``'s sort of the state the first phase left."""
     args, kw = _args(write_scene(tmp_path, "book2"), 128, 128, 6, 50, cuda)
     kw.update(knobs)
     runs = []
@@ -185,7 +187,25 @@ def test_batch_is_the_plain_keys_batch(tmp_path, cuda, monkeypatch, knobs):
     assert len(states) == len(p_states) == launches
     assert all(torch.equal(a, b) for a, b in zip(states, p_states))
     assert [launches, sorts] == p_counts[:2] and p_counts[2] == 0
-    assert key_launches == launches + 2
+    assert key_launches == launches + int(knobs.get("tail_compact", False))
+
+
+@pytest.mark.cuda
+def test_book2_batch_is_v4s_image(tmp_path, cuda):
+    """Book 2 at 96x96, 4 spp, depth 50: the wavefront's image, each count
+    read after its pass's step is queued, a step more in each of the two
+    phases, is bitwise v4's on the block layout."""
+    scene, _ = loader.load_scene(write_scene(tmp_path, "book2"))
+    dev, feats = schema.to_device(scene, cuda), scene.features()
+    assert integrator.mega_schedule(feats)[3]
+
+    def render(**knobs):
+        return integrator.render_progressive(dev, dict(feats, **knobs), 96, 96, 0, 4, 0, 50, 2)
+
+    overruns = wf.OVERRUN_LAUNCHES
+    image = render()
+    assert wf.OVERRUN_LAUNCHES - overruns == 2
+    assert image.max() > 0 and torch.equal(image, render(mega_wavefront=False))
 
 
 @pytest.mark.cuda
