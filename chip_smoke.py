@@ -169,7 +169,8 @@ Phases, each printed on its own line:
  27. the tools: tools.validate (the golden gate on renders/
      cornell32k_mega.npy and the throughput ladder at 2 spp),
      check_table_grad, bench_big_grad (book 2 600x600, 4 spp) and
-     sweep_wavefront (book 2 600x600, sort_impl multi against gather).
+     sweep_wavefront (book 2 600x600, the production schedule at K=2 and
+     K=4: the same image).
 Phases 21-27 run after phase 19 and before the kernels line of phase 20,
 whose JSON also carries their numbers (the walk's entry, bvh_traverse,
 beside the kernels).
@@ -590,7 +591,7 @@ def main() -> None:
     n_pix = kw.pop("n_pix")
     state = wf.init_wavefront_state(n_rays_of(n_pix), args[0].tolist(), dev)
     v4_bounces = 0
-    while (c := wf.runnable_count(state, 6.0)) > 0:
+    while (c := int(wf.runnable(state, 6.0).sum())) > 0:
         v4_bounces += c
         state = wf.step_plain(state, *args, k_bounces=1, **kw)
     v4_ops = v4_bounces * ops_per_bounce(kw["sizes"])
@@ -658,28 +659,27 @@ def main() -> None:
         f"({card})")
     check("k2" in captured and "k16" in captured, "no K=2 or K=16 launch to capture")
 
-    # The keys kernel on those states: each mode's keys and the runnable
-    # count bit for bit those of the plain sort_keys and runnable.
+    # The keys kernel on those states: the keys and the runnable count bit
+    # for bit those of the plain sort_keys and runnable.
     def check_keys_kernel(tag, st):
         bb = wf.scene_bounds(args[2], kw["sizes"])
         keys = torch.empty(n_rays, dtype=torch.int32, device=dev)
         count = torch.empty(1, dtype=torch.int32, device=dev)
         want_n = int(wf.runnable(st, 6.0).sum())
-        for mode in ("pos", "pos8", "depth"):
-            wf.count_and_keys(st, 6.0, *bb, mode, keys, count)
-            n = int(count)
-            n_diff = int((keys != wf.sort_keys(st, 6.0, *bb, mode)).sum())
-            check(n == want_n and n_diff == 0,
-                  f"keys kernel on the {tag} state, {mode}: count {n} (plain {want_n}), "
-                  f"{n_diff} keys differ")
+        wf.count_and_keys(st, 6.0, *bb, keys, count)
+        n = int(count)
+        n_diff = int((keys != wf.sort_keys(st, 6.0, *bb)).sum())
+        check(n == want_n and n_diff == 0,
+              f"keys kernel on the {tag} state: count {n} (plain {want_n}), "
+              f"{n_diff} keys differ")
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
         for _ in range(10):
-            build.launch_wavefront_keys(st, *bb, keys, count, regen_below=5.0, key_mode=0)
+            build.launch_wavefront_keys(st, *bb, keys, count, regen_below=5.0)
         end.record()
         torch.cuda.synchronize()
         say(f"phase 4 keys kernel on the {tag} state (book2 600x600, {n_rays} slots): keys "
-            f"and count bitwise the plain versions in every mode; "
+            f"and count bitwise the plain versions; "
             f"{start.elapsed_time(end) / 10:.4f} ms a launch ({card})")
 
     for tag, st in captured.items():
@@ -3015,7 +3015,7 @@ def tools_phase(card, work) -> dict:
     3: AD against FD of three leaves through B3 with table noise);
     bench_big_grad (book 2 600x600, 4 spp, depth 50, one timed step beyond
     the first, AD against FD at 64x64); sweep_wavefront (book 2 600x600, 8
-    spp, the production schedule with sort_impl multi and gather: the same
+    spp, the production schedule at K=2 and K=4 before the tail: the same
     image). Each exits 0, its JSON lines parsed."""
     from raytrace2_tpu_torch.tools import (bench_big_grad, check_table_grad, sweep_wavefront,
                                            validate)
@@ -3058,13 +3058,12 @@ def tools_phase(card, work) -> dict:
         f"({step['fwdbwd_mpaths_s']:.3f} Mpaths/s fwd+bwd), grad finite; AD {fd['ad']:.5g} "
         f"against FD {fd['fd']:.5g} at 64x64 ({card})")
     lines, wall = run(sweep_wavefront.main, [
-        "book2_final", "--res", "600", "--spp", "8", "--keys", "pos", "--kb", "2",
-        "--sort-every", "1", "--tail-k", "16", "--tail-frac", "0.65",
-        "--sort-impl", "multi,gather"])
+        "book2_final", "--res", "600", "--spp", "8", "--kb", "2,4", "--tail-k", "16",
+        "--tail-frac", "0.65"])
     out["sweep_wavefront"] = dict(configs=lines, wall_s=wall)
     check(all(r["same_image"] for r in lines), "sweep_wavefront: images differ")
-    say("phase 27 sweep_wavefront book2 600x600 8 spp depth 50, K=2 then K=16 below 65 %: "
-        + ", ".join(f"{r['sort_impl']} {r['mpaths_s']:.2f} Mpaths/s" for r in lines)
+    say("phase 27 sweep_wavefront book2 600x600 8 spp depth 50, K then K=16 below 65 %: "
+        + ", ".join(f"K={r['k_bounces']} {r['mpaths_s']:.2f} Mpaths/s" for r in lines)
         + f", the same image bit for bit ({card})")
     return out
 

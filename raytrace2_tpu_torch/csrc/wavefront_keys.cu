@@ -6,14 +6,13 @@
 // function, not a pallas_call) with the driver's runnable count. The JAX
 // package fuses both into its device loop; written as eager PyTorch they cost
 // 98 op dispatches (the keys) and 9 more (the count) on the host each pass.
-// ops/kernels/wavefront.py holds the plain versions (sort_keys, runnable and
-// runnable_count), which the CPU runs, and the wrapper (count_and_keys).
+// ops/kernels/wavefront.py holds the wrapper (count_and_keys), which runs the
+// plain versions (sort_keys, runnable) on a CPU state.
 //
 // The key, bit for bit that of sort_keys:
-//   * a live slot (al > 0), by key_mode: 0 "pos" Morton-7 of the origin in the
-//     scene box, then the direction octant; 1 "pos8" Morton-8; 2 "depth" the
-//     bounce index << 21, then Morton-7. Each axis is quantised as
-//     clamp((o - lo) * (top / clamp(hi - lo, 1e-20)), 0, top), truncated: a
+//   * a live slot (al > 0): Morton-7 of the origin in the scene box, then the
+//     direction octant (the JAX package's "pos"). Each axis is quantised as
+//     clamp((o - lo) * (127 / clamp(hi - lo, 1e-20)), 0, 127), truncated: a
 //     true division, with NaN carried through the clamps as torch's clamp
 //     carries it, and the float-to-integer conversion torch makes;
 //   * a dead slot with samples left (s_lane < regen_below, pid >= 0):
@@ -22,8 +21,8 @@
 // Runnable is alive or samples left; each block counts its slots with
 // __syncthreads_count and adds them to `count` with one atomicAdd.
 //
-// What bounds it on this card: bytes. It reads 10 of the 17 columns (40 B a
-// slot) and writes 4 B: at book 2's 360,064 slots 15.8 MB, 4.7 us at
+// What bounds it on this card: bytes. It reads 9 of the 17 columns (36 B a
+// slot) and writes 4 B: at book 2's 360,064 slots 14.4 MB, 4.3 us at
 // 3.35 TB/s. Its f32 work (three divisions a slot, the quantisation) is small
 // beside that.
 //
@@ -36,8 +35,7 @@
 namespace {
 
 // Columns of the slot state (ops/kernels/wavefront.py STATE_KEYS).
-constexpr int kStateCols = 17;
-constexpr int kSLane = 0, kPid = 1, kBn = 2, kAl = 3, kOx = 4, kDx = 7;
+constexpr int kSLane = 0, kPid = 1, kAl = 3, kOx = 4, kDx = 7;
 constexpr int kThreads = 256;
 constexpr uint64_t kRegenKey = 1ull << 28;
 constexpr int kDoneKey = 1 << 30;
@@ -62,8 +60,8 @@ __device__ __forceinline__ uint64_t interleave3(uint64_t x) {
 
 __device__ __forceinline__ int live_key(const float* __restrict__ col, size_t n,
                                         const float* __restrict__ bb_lo,
-                                        const float* __restrict__ bb_hi, int key_mode) {
-  const float top = key_mode == 1 ? 255.0f : 127.0f;
+                                        const float* __restrict__ bb_hi) {
+  const float top = 127.0f;
   uint64_t morton = 0;
 #pragma unroll
   for (int a = 0; a < 3; ++a) {
@@ -73,24 +71,16 @@ __device__ __forceinline__ int live_key(const float* __restrict__ col, size_t n,
     const float q = clamp((__ldg(col + (kOx + a) * n) - lo) * inv, 0.0f, top);
     morton |= interleave3((uint64_t)(long long)q) << a;
   }
-  uint64_t key;
-  if (key_mode == 1) {
-    key = morton;
-  } else if (key_mode == 2) {
-    key = ((uint64_t)(long long)(int)__ldg(col + kBn * n) << 21) | morton;
-  } else {
-    const uint64_t octant = (__ldg(col + kDx * n) < 0.0f ? 4u : 0u) |
-                            (__ldg(col + (kDx + 1) * n) < 0.0f ? 2u : 0u) |
-                            (__ldg(col + (kDx + 2) * n) < 0.0f ? 1u : 0u);
-    key = (morton << 3) | octant;
-  }
-  return (int)(uint32_t)key;
+  const uint64_t octant = (__ldg(col + kDx * n) < 0.0f ? 4u : 0u) |
+                          (__ldg(col + (kDx + 1) * n) < 0.0f ? 2u : 0u) |
+                          (__ldg(col + (kDx + 2) * n) < 0.0f ? 1u : 0u);
+  return (int)(uint32_t)((morton << 3) | octant);
 }
 
 __global__ void __launch_bounds__(kThreads)
     wavefront_keys_kernel(const float* __restrict__ state, int n,
                           const float* __restrict__ bb_lo, const float* __restrict__ bb_hi,
-                          float regen_below, int key_mode, int* __restrict__ keys,
+                          float regen_below, int* __restrict__ keys,
                           int* __restrict__ count) {
   const int i = blockIdx.x * kThreads + threadIdx.x;
   bool run = false;
@@ -103,7 +93,7 @@ __global__ void __launch_bounds__(kThreads)
     run = alive | regen;
     int key = kDoneKey;
     if (alive)
-      key = live_key(col, stride, bb_lo, bb_hi, key_mode);
+      key = live_key(col, stride, bb_lo, bb_hi);
     else if (regen)
       key = (int)(uint32_t)(kRegenKey + (uint64_t)(long long)(int)pid);
     keys[i] = key;
@@ -116,23 +106,20 @@ __global__ void __launch_bounds__(kThreads)
 
 extern "C" {
 
-int wavefront_keys_state_cols() { return kStateCols; }
-
 // Launch on `stream` over the n slots of `state` [17, n]: keys [n] written,
 // `count` (one int) zeroed on the stream, then the runnable slots added.
-// `regen_below` is n_samples - 1; key_mode 0 "pos", 1 "pos8", 2 "depth".
-// Returns the cudaError_t of the launch.
+// `regen_below` is n_samples - 1. Returns the cudaError_t of the launch.
 int wavefront_keys_launch(int device, const float* state, int n, const float* bb_lo,
-                          const float* bb_hi, float regen_below, int key_mode, int* keys,
+                          const float* bb_hi, float regen_below, int* keys,
                           int* count, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (n < 0 || key_mode < 0 || key_mode > 2) return (int)cudaErrorInvalidValue;
+  if (n < 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   err = cudaMemsetAsync(count, 0, sizeof(int), s);
   if (err != cudaSuccess || n == 0) return (int)err;
   wavefront_keys_kernel<<<(n + kThreads - 1) / kThreads, kThreads, 0, s>>>(
-      state, n, bb_lo, bb_hi, regen_below, key_mode, keys, count);
+      state, n, bb_lo, bb_hi, regen_below, keys, count);
   return (int)cudaGetLastError();
 }
 

@@ -26,8 +26,7 @@ otherwise.
 
 Feature knobs read on the kernel path, named as in the JAX package:
 ``mega_wavefront`` forces the route either way; ``mega_k_bounces``,
-``mega_sort_every``, ``mega_sort_key``, ``mega_tail_k``, ``mega_tail_frac``,
-``mega_tail_compact`` and ``mega_sort_impl`` set the wavefront's schedule,
+``mega_tail_k`` and ``mega_tail_frac`` set the wavefront's schedule,
 ``mega_wave_frac`` and ``mega_linear`` v4's (none changes the image).
 ``mega_sublanes`` and ``mega_state_packed`` are TPU tile and layout knobs
 that choose nothing here: the port's tiles are its CUDA blocks. On the
@@ -184,13 +183,9 @@ def _render_batch_megakernel(scene, packed, features, width, height, sample0,
         return wf.trace_wavefront_batch(
             camv, seed, packed, background,
             n_rays=-(-n_slots // wf.SLOT_TILE) * wf.SLOT_TILE,
-            sort_every=int(features.get("mega_sort_every", wf.SORT_EVERY)),
             k_bounces=int(features.get("mega_k_bounces", wf.K_BOUNCES)),
-            key_mode=str(features.get("mega_sort_key", "pos")),
             tail_k=int(features.get("mega_tail_k", wf.TAIL_K)),
             tail_frac=float(features.get("mega_tail_frac", wf.TAIL_FRAC)),
-            tail_compact=bool(features.get("mega_tail_compact", False)),
-            sort_impl=str(features.get("mega_sort_impl", wf.SORT_IMPL)),
             **kw)[:n_out]
 
     with tracing.span("integrator.launch"):

@@ -211,10 +211,8 @@ def _bind_wavefront_step(lib: ctypes.CDLL) -> None:
 
 def _bind_wavefront_keys(lib: ctypes.CDLL) -> None:
     i, p = ctypes.c_int, ctypes.c_void_p
-    lib.wavefront_keys_launch.argtypes = [i, p, i, p, p, ctypes.c_float, i, p, p, p]
+    lib.wavefront_keys_launch.argtypes = [i, p, i, p, p, ctypes.c_float, p, p, p]
     lib.wavefront_keys_launch.restype = i
-    lib.wavefront_keys_state_cols.argtypes = []
-    lib.wavefront_keys_state_cols.restype = i
     lib.wavefront_keys_error_string.argtypes = [i]
     lib.wavefront_keys_error_string.restype = ctypes.c_char_p
 
@@ -437,31 +435,18 @@ def launch_wavefront_step(camv, seed: int, background, packed, ntab, state, *, n
         raise RuntimeError(f"wavefront_step launch failed: {msg} (cudaError {err})")
 
 
-def launch_wavefront_keys(state, bb_lo, bb_hi, keys, count, *, regen_below,
-                          key_mode) -> None:
+def launch_wavefront_keys(state, bb_lo, bb_hi, keys, count, *, regen_below) -> None:
     """Launch ``wavefront_keys`` over the slots of ``state`` [17, n]: each
     slot's coherence key written to ``keys`` [n] int32 and the runnable
     slots to ``count`` [1] int32, which the launch zeroes on the stream;
-    ``regen_below`` is n_samples - 1, ``key_mode`` 0 "pos", 1 "pos8",
-    2 "depth". Raises on a refused launch."""
+    ``regen_below`` is n_samples - 1. Shapes and dtypes are checked by the
+    caller (``wavefront.count_and_keys``). Raises on a refused launch."""
     device = _require_cuda(state=state, bb_lo=bb_lo, bb_hi=bb_hi)
     lib = load("wavefront_keys")
-    if state.dim() != 2 or state.shape[0] != lib.wavefront_keys_state_cols():
-        raise ValueError(f"state must be [{lib.wavefront_keys_state_cols()}, n], "
-                         f"got {tuple(state.shape)}")
-    n = state.shape[1]
-    if bb_lo.numel() != 3 or bb_hi.numel() != 3:
-        raise ValueError("bb_lo and bb_hi must hold 3 floats")
-    for name, t, size in (("keys", keys, n), ("count", count, 1)):
-        if (t.dtype != torch.int32 or t.device != device or not t.is_contiguous()
-                or t.numel() != size):
-            raise ValueError(f"{name} must be a contiguous int32 tensor of {size} on {device}")
-    if key_mode not in (0, 1, 2):
-        raise ValueError(f"unknown key mode {key_mode}")
     stream = torch.cuda.current_stream(device).cuda_stream
     err = lib.wavefront_keys_launch(
-        device.index, state.data_ptr(), int(n), bb_lo.data_ptr(), bb_hi.data_ptr(),
-        float(regen_below), int(key_mode), keys.data_ptr(), count.data_ptr(), stream)
+        device.index, state.data_ptr(), int(state.shape[1]), bb_lo.data_ptr(),
+        bb_hi.data_ptr(), float(regen_below), keys.data_ptr(), count.data_ptr(), stream)
     if err:
         msg = lib.wavefront_keys_error_string(err).decode()
         raise RuntimeError(f"wavefront_keys launch failed: {msg} (cudaError {err})")

@@ -8,21 +8,20 @@ of one ``[17, n_rays]`` tensor (``STATE_KEYS``). Before a launch the driver
 sorts the slots by a coherence key (Morton code of the ray origin for live
 rays, pixel id for rays about to regenerate, a constant for finished slots)
 and gathers the state; the launch then advances every slot by up to K steps
-of "regenerate if dead and samples remain, then one bounce". On the card
-the keys and the runnable count come from one launch of
-``csrc/wavefront_keys.cu`` a pass, and the host reads the count only once
-the pass's sort and step are queued; the CPU computes them with
-``sort_keys`` and ``runnable_count``. Per-slot
+of "regenerate if dead and samples remain, then one bounce". A pass runs
+the same four things on either device: ``count_and_keys`` (on the card one
+launch of ``csrc/wavefront_keys.cu``, on the CPU ``sort_keys`` and
+``runnable``), the sort by those keys, the step, and the host's read of the
+count, made only once the pass's sort and step are queued. Per-slot
 arithmetic is v4's (the plain step reuses ``megakernel.regenerate`` and
 ``megakernel.make_bounce``; the kernel shares ``path_common.cuh`` with
 ``megakernel_v4.cu``) and each pixel owns one slot, so the image is bitwise
-equal to the v4 kernel's whatever the schedule, sort or key.
+equal to the v4 kernel's whatever the schedule.
 
 The JAX package's TPU layout knobs choose nothing here: ``mega_sublanes``
 (tile height) and ``mega_state_packed`` (17 state blocks or one) change no
 image, and the port's state is always one ``[17, n]`` tensor advanced by one
-thread per slot. Slots are padded to a multiple of ``SLOT_TILE``, which
-also sets the grain of the tail compaction.
+thread per slot. Slots are padded to a multiple of ``SLOT_TILE``.
 
 The kernel's sweep finds v4's winners: the cluster skip for spheres and AA
 boxes of 32 or more records, each slot's winner that of its own visit order
@@ -33,6 +32,8 @@ reference's Perlin tables (``noise_impl="table"``).
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import torch
 
@@ -49,26 +50,21 @@ COL = {k: i for i, k in enumerate(STATE_KEYS)}
 _CARRY_KEYS = ("bn", "al", "ox", "oy", "oz", "dx", "dy", "dz",
                "tpr", "tpg", "tpb", "rr", "rg", "rb")
 # Two-phase schedule defaults, as the JAX package tuned them on its chip:
-# K=2 bounces per launch with a sort before each, until the runnable
-# population drops below TAIL_FRAC of the slots; then TAIL_K per launch.
+# K=2 bounces per launch until the runnable population drops below
+# TAIL_FRAC of the slots; then TAIL_K per launch; a sort before each launch.
 K_BOUNCES = 2
 TAIL_K = 16
 TAIL_FRAC = 0.65
-SORT_EVERY = 1
-SORT_IMPL = "gather"
 # Slot padding grain (the kernel's blocks of 256 threads take a ragged end).
 SLOT_TILE = 128
 # Keys of the three slot classes (JAX sort_keys).
 _REGEN_KEY = 1 << 28
 _DONE_KEY = 1 << 30
 
-# Key modes as the keys kernel takes them (csrc/wavefront_keys.cu).
-KEY_MODES = {"pos": 0, "pos8": 1, "depth": 2}
-
 # Launches of the CUDA step kernel (the plain version does not count), sorts
-# of the slot state (on either device), launches of the keys kernel, and
-# steps (on either device) queued on a pass whose own count, read after
-# them, ended its phase.
+# of the slot state (on either device), launches of the keys kernel (the
+# plain keys and count do not count), and steps (on either device) queued on
+# a pass whose own count, read after them, ended its phase.
 LAUNCHES = 0
 SORTS = 0
 KEY_LAUNCHES = 0
@@ -92,13 +88,12 @@ def interleave3(x: torch.Tensor) -> torch.Tensor:
     return x
 
 
-def sort_keys(state, n_samples, bb_lo, bb_hi, key_mode="pos") -> torch.Tensor:
-    """int32 coherence key per slot (JAX ``sort_keys``): small runs first,
-    similar keys share a block.
+def sort_keys(state, n_samples, bb_lo, bb_hi) -> torch.Tensor:
+    """int32 coherence key per slot (JAX ``sort_keys``, mode "pos"): small
+    runs first, similar keys share a block.
 
-    * live rays, by ``key_mode``: "pos" Morton-7 of the origin in the scene
-      box, then the direction octant (24 bits); "pos8" Morton-8 (24 bits);
-      "depth" the bounce index, then Morton-7 (27 bits);
+    * live rays: Morton-7 of the origin in the scene box, then the direction
+      octant (24 bits);
     * dead, samples left: 2^28 + pixel id, so fresh camera rays group by
       pixel;
     * finished or padding: 2^30.
@@ -106,8 +101,7 @@ def sort_keys(state, n_samples, bb_lo, bb_hi, key_mode="pos") -> torch.Tensor:
     st = state
     alive = st[COL["al"]] > 0.0
     can_regen = (st[COL["s_lane"]] < n_samples - 1.0) & (st[COL["pid"]] >= 0.0)
-    bits = 8 if key_mode == "pos8" else 7
-    top = float((1 << bits) - 1)
+    top = 127.0
     extent = torch.clamp(bb_hi - bb_lo, min=1e-20)
     inv = torch.full_like(extent, top) / extent  # a true division, as JAX's
     qs = []
@@ -115,17 +109,10 @@ def sort_keys(state, n_samples, bb_lo, bb_hi, key_mode="pos") -> torch.Tensor:
         q = torch.clamp((st[COL[name]] - bb_lo[axis]) * inv[axis], 0.0, top)
         qs.append(interleave3(q.to(torch.int64)))
     morton = qs[0] | (qs[1] << 1) | (qs[2] << 2)
-    if key_mode == "pos8":
-        akey = morton
-    elif key_mode == "depth":
-        akey = (st[COL["bn"]].to(torch.int32).to(torch.int64) << 21) | morton
-    elif key_mode == "pos":
-        octant = ((st[COL["dx"]] < 0).to(torch.int64) * 4
-                  | (st[COL["dy"]] < 0).to(torch.int64) * 2
-                  | (st[COL["dz"]] < 0).to(torch.int64))
-        akey = (morton << 3) | octant
-    else:
-        raise ValueError(f"unknown sort key mode {key_mode!r}")
+    octant = ((st[COL["dx"]] < 0).to(torch.int64) * 4
+              | (st[COL["dy"]] < 0).to(torch.int64) * 2
+              | (st[COL["dz"]] < 0).to(torch.int64))
+    akey = (morton << 3) | octant
     # pid < 0 wraps as uint32 in JAX; those slots never take this key.
     rkey = (_REGEN_KEY + st[COL["pid"]].to(torch.int32).to(torch.int64)) & rng.MASK32
     key = torch.where(alive, akey, torch.where(can_regen, rkey, _DONE_KEY))
@@ -178,51 +165,49 @@ def runnable(state, n_samples) -> torch.Tensor:
                                     & (st[COL["pid"]] >= 0.0))
 
 
-def runnable_count(state, n_samples) -> int:
-    """Runnable slots, read on the host (one device sync)."""
-    return tracing.sync(runnable(state, n_samples).sum(), "runnable", int)
-
-
-def count_and_keys(state, n_samples, bb_lo, bb_hi, key_mode, keys, count) -> None:
-    """``sort_keys(state, n_samples, bb_lo, bb_hi, key_mode)`` written to
-    ``keys`` [n] int32 and the runnable slots of ``state`` [17, n] to
-    ``count`` [1] int32 on the card: one launch of the keys kernel
-    (``csrc/wavefront_keys.cu``, built at first use) on the current stream,
-    with no host read. CUDA tensors only: any other raises."""
+def count_and_keys(state, n_samples, bb_lo, bb_hi, keys, count) -> None:
+    """``sort_keys(state, n_samples, bb_lo, bb_hi)`` written to ``keys`` [n]
+    int32 and the runnable slots of ``state`` [17, n] to ``count`` [1]
+    int32, with no host read. On a CPU state this runs the plain versions;
+    on a CUDA state it launches the keys kernel (``csrc/wavefront_keys.cu``,
+    built at first use) on the current stream. Any other device, or
+    tensors of another shape, dtype, layout or device than the state's,
+    raise."""
     global KEY_LAUNCHES
-    if key_mode not in KEY_MODES:
-        raise ValueError(f"unknown sort key mode {key_mode!r}")
+    device = state.device
+    if state.dtype != torch.float32 or not state.is_contiguous() or state.dim() != 2 \
+            or state.shape[0] != len(STATE_KEYS):
+        raise ValueError(f"state must be a contiguous [{len(STATE_KEYS)}, n] float32 tensor, "
+                         f"got {tuple(state.shape)} {state.dtype}")
+    n = state.shape[1]
+    for name, t, dtype, size in (("bb_lo", bb_lo, torch.float32, 3),
+                                 ("bb_hi", bb_hi, torch.float32, 3),
+                                 ("keys", keys, torch.int32, n), ("count", count, torch.int32, 1)):
+        if (t.dtype != dtype or t.device != device or not t.is_contiguous()
+                or t.numel() != size):
+            raise ValueError(f"{name} must be a contiguous {dtype} tensor of {size} on {device}")
+    if device.type == "cpu":
+        keys.copy_(sort_keys(state, n_samples, bb_lo, bb_hi))
+        count.copy_(runnable(state, n_samples).sum())
+        return
+    if device.type != "cuda":
+        raise ValueError(f"unsupported device {device}")
     from raytrace2_tpu_torch.ops.kernels import build
 
-    build.launch_wavefront_keys(state, bb_lo, bb_hi, keys, count,
-                                regen_below=n_samples - 1.0, key_mode=KEY_MODES[key_mode])
+    build.launch_wavefront_keys(state, bb_lo, bb_hi, keys, count, regen_below=n_samples - 1.0)
     KEY_LAUNCHES += 1
 
 
-def sort_state(state, n_samples, bb_lo, bb_hi, key_mode="pos", sort_impl="gather",
-               keys=None):
-    """The state permuted by ascending key: an argsort of the int32 keys
-    (stable, or unstable for "gather_unstable": any order of equal keys
-    gives the same image, since per-slot math is keyed by pixel id) and one
-    gather of the [17, n] state. "multi" stands in for the JAX package's
-    one multi-operand ``lax.sort`` of the keys and the 17 columns (stable):
-    one stable sort of the keys, whose permutation is applied column by
-    column, with no gather of the packed state; its image is the "gather"
-    one bit for bit. ``keys`` (int32 [n], optional) are the state's keys
-    where the caller has them, ``sort_keys``' otherwise."""
+def sort_state(state, n_samples, bb_lo, bb_hi, keys=None):
+    """The state permuted by ascending key: a stable argsort of the int32
+    keys and one gather of the [17, n] state. ``keys`` (int32 [n],
+    optional) are the state's keys where the caller has them
+    (``count_and_keys``), ``sort_keys``' otherwise."""
     global SORTS
-    if sort_impl not in ("gather", "gather_unstable", "multi"):
-        raise ValueError(f"unknown sort_impl {sort_impl!r}")
     if keys is None:
-        keys = sort_keys(state, n_samples, bb_lo, bb_hi, key_mode)
+        keys = sort_keys(state, n_samples, bb_lo, bb_hi)
     SORTS += 1
-    if sort_impl == "multi":
-        perm = torch.sort(keys, stable=True).indices
-        out = torch.empty_like(state)
-        for i in range(state.shape[0]):
-            torch.index_select(state[i], 0, perm, out=out[i])
-        return out
-    perm = torch.argsort(keys, stable=sort_impl == "gather")
+    perm = torch.argsort(keys, stable=True)
     return state.index_select(1, perm)
 
 
@@ -296,29 +281,24 @@ def wavefront_step(state, camv, seed, packed, background, *, k_bounces, max_dept
 
 def trace_wavefront_batch(camv, seed, packed, background, *, n_rays, max_depth,
                           sizes, has_checker, has_noise=False, ntab=None,
-                          sort_every=SORT_EVERY, k_bounces=K_BOUNCES, key_mode="pos",
-                          tail_k=TAIL_K, tail_frac=TAIL_FRAC, tail_compact=False,
-                          sort_impl=SORT_IMPL, step=None):
+                          k_bounces=K_BOUNCES, tail_k=TAIL_K, tail_frac=TAIL_FRAC, step=None):
     """Radiance summed over the batch's samples for the linear slots
     0..n_rays-1 (slot i is pixel camv[25] + i), [n_rays, 3] f32 (JAX
     ``trace_wavefront_batch``). ``n_rays`` is a multiple of ``SLOT_TILE``.
 
     Two-phase schedule: while more than ``tail_frac * n_rays`` slots can
-    run, each launch runs ``k_bounces`` steps, with a sort before every
-    ``sort_every``-th launch; then ``tail_k`` steps per launch until none
-    can run. With ``tail_compact`` the tail runs on the sorted runnable
-    prefix only. Scheduling only: any setting gives the same image.
+    run, each launch runs ``k_bounces`` steps; then ``tail_k`` steps per
+    launch until none can run (``tail_k`` 0 or ``tail_frac`` 0: one phase
+    of ``k_bounces``). Scheduling only: any setting gives the same image.
 
-    Each pass counts the runnable slots of its state (with the sort keys),
-    queues its sort and step, and only then reads that count on the host,
-    which waits while the step it just queued runs. A count decides the
-    next pass, so each phase ends one pass late: its last pass steps a
-    state whose count ended the phase (``OVERRUN_LAUNCHES``), which changes
-    nothing at a count of 0 and otherwise runs ``k_bounces`` steps more
-    before the tail. On a CUDA state the keys and the count come from one
-    launch of the keys kernel a pass (``count_and_keys``), and the count is
-    read through a side stream that waits for that launch alone; on the CPU
-    from ``runnable_count`` and ``sort_keys``.
+    Every pass, on either device, runs ``count_and_keys`` on its state,
+    sorts the state by those keys, queues its step, and only then reads the
+    count on the host, which waits while the step it just queued runs. A
+    count decides the next pass, so each phase ends one pass late: its last
+    pass steps a state whose count ended the phase (``OVERRUN_LAUNCHES``),
+    which changes nothing at a count of 0 and otherwise runs ``k_bounces``
+    steps more before the tail. On the card the count is read through a
+    side stream that waits for the keys launch alone.
 
     ``step`` is the K-bounce step to run, ``wavefront_step`` (the kernel's
     wrapper) by default; passing ``step_plain`` drives the plain version
@@ -332,50 +312,38 @@ def trace_wavefront_batch(camv, seed, packed, background, *, n_rays, max_depth,
         n_samples = cv[22]
         bb_lo, bb_hi = scene_bounds(packed, sizes)
         state = init_wavefront_state(n_rays, cv, device)
-        # The keys kernel's outputs, for the state the last keys launch read;
-        # the stream that reads the count, and the event it waits on. torch's
-        # pool streams are non-blocking: not even the legacy default stream
-        # orders the read behind the step.
+        # The outputs of the last count_and_keys, for the state it read.
+        keys = torch.empty(n_rays, dtype=torch.int32, device=device)
+        count = torch.empty(1, dtype=torch.int32, device=device)
+        # On the card, the stream that reads the count, and the event it
+        # waits on. torch's pool streams are non-blocking: not even the
+        # legacy default stream orders the read behind the step.
         on_card = device.type == "cuda"
         if on_card:
-            keys = torch.empty(n_rays, dtype=torch.int32, device=device)
-            count = torch.empty(1, dtype=torch.int32, device=device)
             side = torch.cuda.Stream(device)
             counted = torch.cuda.Event()
     kw = dict(max_depth=max_depth, sizes=sizes, has_checker=has_checker,
               has_noise=has_noise, ntab=ntab)
 
-    def launch_keys(state):
-        count_and_keys(state, n_samples, bb_lo, bb_hi, key_mode, keys[:state.shape[1]], count)
-
-    def sort(state):
-        with tracing.span("wavefront.sort"):
-            return sort_state(state, n_samples, bb_lo, bb_hi, key_mode, sort_impl,
-                              keys=keys[:state.shape[1]] if on_card else None)
-
     def launches(state, k, go_on):
         """Passes of ``k`` steps until a count fails ``go_on``: the state
         after the last pass, and the count of the state it started from."""
         global OVERRUN_LAUNCHES
-        i = 0
         while True:
             with tracing.span("wavefront.runnable"):
+                count_and_keys(state, n_samples, bb_lo, bb_hi, keys, count)
                 if on_card:
-                    launch_keys(state)
                     counted.record(torch.cuda.current_stream(device))
                     side.wait_event(counted)
-                else:
-                    n = runnable_count(state, n_samples)
-            if i % sort_every == 0:
-                state = sort(state)
+            with tracing.span("wavefront.sort"):
+                state = sort_state(state, n_samples, bb_lo, bb_hi, keys=keys)
             with tracing.span("wavefront.launch"):
                 state = step(state, camv, seed, packed, background, k_bounces=k, **kw)
-            if on_card:
-                # The host waits here until the copy is done, so the next
-                # keys launch, which rewrites ``count``, is queued after it.
-                with tracing.span("wavefront.runnable"), torch.cuda.stream(side):
-                    n = tracing.sync(count, "runnable", int)
-            i += 1
+            # The host waits here until the copy is done, so the next
+            # count_and_keys, which rewrites ``count``, is queued after it.
+            with tracing.span("wavefront.runnable"), (
+                    torch.cuda.stream(side) if on_card else contextlib.nullcontext()):
+                n = tracing.sync(count, "runnable", int)
             if not go_on(n):
                 OVERRUN_LAUNCHES += 1
                 return state, n
@@ -383,19 +351,7 @@ def trace_wavefront_batch(camv, seed, packed, background, *, n_rays, max_depth,
     if tail_k and tail_frac > 0.0:
         pop_switch = int(tail_frac * n_rays)
         state, n = launches(state, k_bounces, lambda n: n > pop_switch)
-        # After a sort the runnable slots are a prefix (finished and padding
-        # slots key 2^30) and at most pop_switch of them remain (n, which the
-        # last pass's step can only have lowered): the tail can run on that
-        # prefix alone, the rest riding along untouched.
-        n_tail = -(-max(pop_switch, 1) // SLOT_TILE) * SLOT_TILE
-        if n and tail_compact and n_tail < n_rays:
-            if on_card:  # the keys of the state the last pass left
-                with tracing.span("wavefront.runnable"):
-                    launch_keys(state)
-            state = sort(state)
-            head, _ = launches(state[:, :n_tail].contiguous(), tail_k, lambda n: n > 0)
-            state = torch.cat([head, state[:, n_tail:]], dim=1)
-        elif n:
+        if n:
             state, _ = launches(state, tail_k, lambda n: n > 0)
     else:
         state, _ = launches(state, k_bounces, lambda n: n > 0)

@@ -60,10 +60,10 @@ class Inputs:
         return wf.init_wavefront_state(self.n_rays, [float(x) for x in self.camv.tolist()],
                                        self.packed.device)
 
-    def sort(self, state, sort_impl="gather"):
+    def sort(self, state):
         from raytrace2_tpu_torch.ops.kernels import wavefront as wf
 
-        return wf.sort_state(state, self.n_samples, *self.bounds, "pos", sort_impl)
+        return wf.sort_state(state, self.n_samples, *self.bounds)
 
     def step(self, state, k=1):
         from raytrace2_tpu_torch.ops.kernels import wavefront as wf

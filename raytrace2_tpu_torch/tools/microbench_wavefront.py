@@ -11,10 +11,9 @@ mid-render state (port of ``tools/microbench_wavefront.py``).
 the sorted state before the fourth launch of a K = 1 run made here. Times,
 in ms, with CUDA events on the card (a host clock after a synchronise on
 the CPU): ``keys`` (the sort keys), ``argsort``, ``gather`` (the [17, n]
-state by a fixed permutation), ``sort_full`` (``sort_state``, "gather"),
-``sort_multi`` (``sort_state``, "multi": one sort of the keys and 17
-column gathers) and ``step_k1`` (one launch of the K = 1 step on a copy of the
-state, the copy included). The JAX
+state by a fixed permutation), ``sort_full`` (``sort_state``) and
+``step_k1`` (one launch of the K = 1 step on a copy of the state, the copy
+included). The JAX
 tool's other step variants (no sweep, other sublane counts, the material
 table operand) choose a TPU tiling or a Pallas operand, which the port's
 step does not have. One JSON line.
@@ -89,18 +88,14 @@ def main(argv=None) -> int:
             state = inp.step(inp.sort(state))
         state = inp.sort(state)
     timed = timer(device)
-    keys = wf.sort_keys(state, inp.n_samples, *inp.bounds, "pos")
+    keys = wf.sort_keys(state, inp.n_samples, *inp.bounds)
     perm = torch.argsort(keys, stable=True)
     res = {"scene": inp.label, "n_rays": inp.n_rays,
            "alive": int((state[wf.COL["al"]] > 0).sum()), "device": str(device),
-           "keys_ms": timed(lambda: wf.sort_keys(state, inp.n_samples, *inp.bounds, "pos"),
-                            args.reps),
+           "keys_ms": timed(lambda: wf.sort_keys(state, inp.n_samples, *inp.bounds), args.reps),
            "argsort_ms": timed(lambda: torch.argsort(keys, stable=True), args.reps),
            "gather_ms": timed(lambda: state.index_select(1, perm), args.reps),
-           "sort_full_ms": timed(lambda: inp.sort(state), args.reps),
-           "sort_multi_ms": timed(lambda: inp.sort(state, "multi"), args.reps)}
-    if not torch.equal(inp.sort(state, "multi"), inp.sort(state)):
-        raise SystemExit("error: the multi sort's state differs from the gather's")
+           "sort_full_ms": timed(lambda: inp.sort(state), args.reps)}
     res["step_k1_ms"] = timed(lambda: inp.step(state.clone()), args.reps)
     print(json.dumps(res), flush=True)
     return 0

@@ -219,7 +219,7 @@ class Profiler:
         from raytrace2_tpu_torch.ops.kernels import wavefront as wf
 
         row = {"k": k, "alive": int((srt[wf.COL["al"]] > 0).sum()),
-               "runnable": wf.runnable_count(srt, float(self.spp))}
+               "runnable": int(wf.runnable(srt, float(self.spp)).sum())}
         bb = wf.scene_bounds(self.packed, self.sizes)
         row["sort_ms"] = _events(lambda: wf.sort_state(pre, float(self.spp), *bb), reps)
 

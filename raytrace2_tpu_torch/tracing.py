@@ -38,8 +38,9 @@ Spans (``SPANS``), each at one layer's boundary:
   driver);
 * wavefront driver (``ops/kernels/wavefront.py``): ``wavefront.setup``
   (``camv``'s values, the scene bounds, the slot state), ``wavefront.runnable``
-  (the keys kernel that counts on the card, and the count's read once the
-  pass's sort and step are queued), ``wavefront.sort``,
+  (``count_and_keys``: the keys kernel on the card, the plain keys and count
+  on the CPU; and the count's read once the pass's sort and step are
+  queued), ``wavefront.sort``,
   ``wavefront.launch``, ``wavefront.unpermute``;
 * gradient (``grad.py``, ``ops/kernels/megakernel_grad.py``):
   ``grad.value_and_grad`` (a step: its seed), ``grad.params``,

@@ -1,5 +1,5 @@
 """The port's wavefront tools on the CPU at small sizes: ``sweep_wavefront``
-(gather and multi give one image), ``dump_wavefront_states`` then
+(two bounce counts give one image), ``dump_wavefront_states`` then
 ``microbench_wavefront`` and ``analyze_sweep`` on the dump, and the JAX
 options with no meaning on the card refused."""
 
@@ -13,14 +13,14 @@ from raytrace2_tpu_torch.tools import (analyze_sweep, dump_wavefront_states,
                                        microbench_wavefront, sweep_wavefront)
 
 
-def test_sweep_gather_and_multi(tmp_path, capsys):
+def test_sweep_two_k_values_give_one_image(tmp_path, capsys):
     out = tmp_path / "sweep.jsonl"
     assert sweep_wavefront.main(["cornell_original", "--device", "cpu", "--res", "8", "--spp",
-                                 "2", "--keys", "pos,depth", "--kb", "2", "--sort-every", "1",
-                                 "--sort-impl", "gather,multi", "--out", str(out)]) == 0
+                                 "2", "--kb", "1,4", "--tail-k", "16", "--tail-frac", "0.65",
+                                 "--out", str(out)]) == 0
     recs = [json.loads(x) for x in out.read_text().splitlines()]
-    assert [(r["key"], r["sort_impl"]) for r in recs] == [
-        ("pos", "gather"), ("pos", "multi"), ("depth", "gather"), ("depth", "multi")]
+    assert [(r["k_bounces"], r["tail_k"], r["tail_frac"]) for r in recs] == [
+        (1, 16, 0.65), (4, 16, 0.65)]
     assert all(r["same_image"] and r["mean"] > 0 for r in recs)
     assert "BEST:" in capsys.readouterr().out
 
@@ -36,8 +36,8 @@ def test_tpu_options_refused(tool, argv, capsys):
 
 def test_dump_microbench_and_analyze(tmp_path, capsys):
     """Book 2 at 16², 2 spp: three sorted states dumped; the microbench on
-    the last (its multi sort checked against the gather); the analysis of
-    the dumps counts both sweeps of both clustered families."""
+    the last; the analysis of the dumps counts both sweeps of both
+    clustered families."""
     d = tmp_path / "states"
     assert dump_wavefront_states.main(["--device", "cpu", "--res", "16", "--spp", "2",
                                        "--bounces", "3", "--out", str(d)]) == 0
@@ -47,7 +47,7 @@ def test_dump_microbench_and_analyze(tmp_path, capsys):
                                       "--state", str(d / "state_02.npz"), "--reps", "1"]) == 0
     rec = json.loads(capsys.readouterr().out.splitlines()[-1])
     assert rec["n_rays"] == 256 and rec["alive"] > 0
-    assert all(rec[k] > 0 for k in ("keys_ms", "sort_multi_ms", "step_k1_ms"))
+    assert all(rec[k] > 0 for k in ("keys_ms", "sort_full_ms", "step_k1_ms"))
     recs = analyze_sweep.analyze(str(d), "book2_final", max_groups=3)
     assert [r["file"] for r in recs] == ["state_00.npz", "state_01.npz", "state_02.npz"]
     live = recs[2]

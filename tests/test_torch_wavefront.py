@@ -47,21 +47,18 @@ def _flip_gate(ours, ref, max_flipped=0.005):
     assert compare.psnr(ours[~flipped], ref[~flipped]) >= 60.0
 
 
-# The knob sets of tests/test_wavefront.py, and the defaults.
+# The schedules of tests/test_wavefront.py's knob sets (the port has one
+# sort, so their sort knobs are gone), one phase (tail_k 0), the switch to
+# the tail after the first pass (tail_frac 1), and the defaults.
 KNOBS = [
-    dict(mega_k_bounces=1, mega_sort_every=1),
-    dict(mega_k_bounces=4, mega_sort_every=1),
-    dict(mega_k_bounces=16, mega_sort_every=2),
-    dict(mega_k_bounces=1, mega_tail_k=4, mega_tail_frac=0.5, mega_tail_compact=False),
-    dict(mega_k_bounces=1, mega_tail_k=16, mega_tail_frac=0.9, mega_tail_compact=False),
-    dict(mega_k_bounces=1, mega_tail_k=16, mega_tail_frac=0.5, mega_tail_compact=True),
-    dict(mega_sort_key="pos8"),
-    dict(mega_sort_key="depth"),
-    dict(mega_sort_impl="gather_unstable"),
-    dict(mega_sort_impl="multi"),
-    dict(mega_tail_compact=True),
-    dict(mega_sort_every=2),
-    dict(mega_sort_every=2, mega_tail_compact=True),
+    dict(mega_k_bounces=1),
+    dict(mega_k_bounces=4),
+    dict(mega_k_bounces=16),
+    dict(mega_k_bounces=1, mega_tail_k=4, mega_tail_frac=0.5),
+    dict(mega_k_bounces=1, mega_tail_k=16, mega_tail_frac=0.9),
+    dict(mega_k_bounces=1, mega_tail_k=16, mega_tail_frac=0.5),
+    dict(mega_tail_k=0),
+    dict(mega_tail_frac=1.0),
     dict(),
 ]
 
@@ -182,13 +179,12 @@ def test_scene_bounds_and_sort_keys_bitwise(tmp_path, name):
     n_samples = 6.0
     st = _random_state(rs, 4096, int(n_samples), lo.numpy(), hi.numpy())
     state = torch.from_numpy(np.stack([st[k] for k in wf.STATE_KEYS]))
-    for mode in ("pos", "pos8", "depth"):
-        ref = jax.jit(jwf.sort_keys, static_argnums=4)(
-            {k: jnp.asarray(v) for k, v in st.items()}, jnp.float32(n_samples),
-            ref_lo, ref_hi, mode)
-        ours = wf.sort_keys(state, n_samples, lo, hi, mode)
-        assert ours.dtype == torch.int32
-        np.testing.assert_array_equal(ours.numpy(), np.asarray(ref), err_msg=mode)
+    ref = jax.jit(jwf.sort_keys, static_argnums=4)(
+        {k: jnp.asarray(v) for k, v in st.items()}, jnp.float32(n_samples),
+        ref_lo, ref_hi, "pos")
+    ours = wf.sort_keys(state, n_samples, lo, hi)
+    assert ours.dtype == torch.int32
+    np.testing.assert_array_equal(ours.numpy(), np.asarray(ref))
 
 
 def test_interleave3_bitwise():
