@@ -34,7 +34,10 @@ Phases, each printed on its own line:
      image against the flat sweep's (at most 0.01 % of pixels: exact ties);
   5. the v4 main path through the CLI entry (app.main): Cornell 600x600,
      depth 50, 64 spp, PNG written, launch counts reset before and read
-     after, mean linear radiance checked, Mpaths/s reported;
+     after, mean linear radiance checked, Mpaths/s reported; then three
+     warm Renderer.update(64) batches under torch's sync debug mode
+     "error" (none may synchronise), bitwise the image of batches that
+     each read the camera;
   6. the wavefront main path through app.main with the default backend:
      book 2 600x600, depth 50, 64 spp; wavefront launches and sorts > 0 and
      no v4 launch, PNG written, mean linear radiance checked against the
@@ -845,6 +848,14 @@ def main() -> None:
     say(f"phase 5 main path: app.main Cornell 600x600 64 spp depth 50, {launches} kernel "
         f"launches, mean linear radiance {mean:.4f} in [{lo}, {hi}], "
         f"{done['mpaths_per_s']:.2f} Mpaths/s over {done['elapsed_s']:.3f} s on {card}")
+    from test_torch_cuda import warm_and_cold_batches
+
+    warm, cold, hits = warm_and_cold_batches(loader.load_scene(cornell)[0], 600, 50, dev)
+    check(hits == 3, f"{hits} camera frame cache hits in 3 warm batches")
+    check(torch.equal(warm, cold), "warm v4 batches differ from batches that read the camera")
+    say(f"phase 5 warm v4 batches: Cornell 600x600 depth 50, 3 Renderer.update(64) under "
+        f"sync debug mode 'error' raise nothing, {hits} frame cache hits, image bitwise a "
+        f"renderer's whose cache is cleared before each batch ({card})")
 
     # ---- phase 6: the wavefront main path through the CLI ------------------
     out_png = os.path.join(work, "book2.png")

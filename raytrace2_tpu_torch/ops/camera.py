@@ -41,14 +41,21 @@ def _cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     ], dim=-1)
 
 
-def camera_frame(cam, width: int, height: int, dtype=None) -> dict:
-    """Derived camera quantities (Camera::Update, Camera.hpp:16-48) on the
-    CPU, in ``dtype`` (``defs.TORCH_REAL`` by default; the kernels' camv is
-    float32): pixel00, pixel_delta_u/v, center, defocus_disk_u/v,
-    defocus_angle. Each camera leaf that is a tensor is read through
-    ``tracing.sync`` (six host syncs where the camera lives on the card)."""
-    dtype = dtype or defs.TORCH_REAL
+# The host frame cache of ``camera_frame``: hits and misses (plain ints, as
+# the kernels' LAUNCHES), and the last frame computed with what it was
+# computed from.
+FRAME_HITS = 0
+FRAME_MISSES = 0
+_LAST = None  # (leaves, (their versions, width, height, dtype), frame)
 
+
+def clear_frame_cache() -> None:
+    """Forget the last frame, so the next ``camera_frame`` computes anew."""
+    global _LAST
+    _LAST = None
+
+
+def _compute_frame(cam, width: int, height: int, dtype) -> dict:
     def real(x):
         if torch.is_tensor(x):
             return tracing.sync(x.to(dtype), "camera")
@@ -79,6 +86,41 @@ def camera_frame(cam, width: int, height: int, dtype=None) -> dict:
         "defocus_disk_v": v * defocus_radius,
         "defocus_angle": defocus_angle,
     }
+
+
+def camera_frame(cam, width: int, height: int, dtype=None) -> dict:
+    """Derived camera quantities (Camera::Update, Camera.hpp:16-48) on the
+    CPU, in ``dtype`` (``defs.TORCH_REAL`` by default; the kernels' camv is
+    float32): pixel00, pixel_delta_u/v, center, defocus_disk_u/v,
+    defocus_angle. Each camera leaf that is a tensor is read through
+    ``tracing.sync`` (six host syncs where the camera lives on the card).
+
+    A camera of tensors, none of which requires grad, hits the host frame
+    cache when its leaves are the very tensors of the last frame computed,
+    each at the same ``_version`` (an in-place edit through torch bumps
+    it), at the same ``width``, ``height`` and ``dtype``: the call then
+    reads nothing from the card and returns that frame's CPU tensors
+    (``FRAME_HITS``); otherwise it computes the frame and keeps it
+    (``FRAME_MISSES``). The cache holds the leaves, so a freed tensor's
+    address cannot pass for a new one. A camera with a leaf that requires
+    grad computes the frame in autograd's graph, and one with a leaf that
+    is not a tensor or is an inference tensor (no version) computes it
+    too; neither counts."""
+    global _LAST, FRAME_HITS, FRAME_MISSES
+    dtype = dtype or defs.TORCH_REAL
+    leaves = (cam.center, cam.look_at, cam.vup, cam.vfov, cam.focus_dist, cam.defocus_angle)
+    if not all(torch.is_tensor(x) for x in leaves) or any(
+            x.requires_grad or x.is_inference() for x in leaves):
+        return _compute_frame(cam, width, height, dtype)
+    key = (tuple(x._version for x in leaves), width, height, dtype)
+    last = _LAST
+    if last is not None and last[1] == key and all(a is b for a, b in zip(last[0], leaves)):
+        FRAME_HITS += 1
+        return dict(last[2])
+    frame = _compute_frame(cam, width, height, dtype)
+    _LAST = (leaves, key, frame)
+    FRAME_MISSES += 1
+    return dict(frame)
 
 
 def make_camv(cam, width: int, height: int, sample0: int, n_samples: int,

@@ -126,6 +126,20 @@ def slot_layout(features, width: int, height: int):
     return mk.pixel_slots(width, height, block=not (linear or wavefront))
 
 
+def _camv_to(camv: torch.Tensor, device: torch.device) -> torch.Tensor:
+    """The CPU ``camv`` on the render device. One that requires grad (a
+    camera leaf does) goes through ``tracing.sync``, a counted copy in
+    autograd's graph; otherwise the CPU keeps it as it is, and the card gets
+    it by a non-blocking copy from pinned memory, which the host does not
+    wait on (the caching host allocator keeps the pinned block until the
+    copy has run)."""
+    if camv.requires_grad:
+        return tracing.sync(camv, "camv", device=device)
+    if device.type == "cpu":
+        return camv
+    return camv.pin_memory().to(device, non_blocking=True)
+
+
 def _render_batch_megakernel(scene, packed, features, width, height, sample0,
                              n_samples, seed, max_depth, sqrt_spp, differentiable=False,
                              pix0=0, n_local=None):
@@ -152,10 +166,10 @@ def _render_batch_megakernel(scene, packed, features, width, height, sample0,
                          "(features mega_linear=True)")
     n_pix = width * height
     with tracing.span("integrator.camv"):
-        camv = tracing.sync(
+        camv = _camv_to(
             camera.make_camv(scene.camera, width, height, sample0, n_samples, sqrt_spp, seed,
                              **({"block": mk.BLOCK} if block else {}), slot0=pix0),
-            "camv", device=packed.device)
+            packed.device)
     ntab = noise_tables(scene, features)
     kw = dict(max_depth=max_depth, sizes=tuple(features["mega_sizes"]),
               has_checker=int(features.get("has_checker", 1)),

@@ -29,7 +29,8 @@ Spans (``SPANS``), each at one layer's boundary:
   sample), ``render.accumulate``, ``render.display`` (the u8 image and its
   readback);
 * integrator, kernel path (``ops/integrator.py``): ``integrator.camv`` (the
-  camera frame and ``camv``, with their reads), ``integrator.pack`` (the
+  camera frame, read from the card only where ``camera.camera_frame``'s
+  host cache misses, and ``camv``), ``integrator.pack`` (the
   tables packed for a batch or a gradient step, the noise tables),
   ``integrator.cluster`` (the cluster tables rebuilt from the current
   geometry inside ``megakernel.pack_buffer``: in a pack, and wherever else
@@ -50,13 +51,15 @@ Spans (``SPANS``), each at one layer's boundary:
 
 Sites of ``sync`` (``SITES``): ``camera`` (a camera leaf read for the
 frame), ``frame`` (the frame copied to the device for the non-kernel
-path's rays), ``camv`` (``camv`` copied to the device), ``camv_values`` (the
-wavefront driver's read of ``camv``), ``runnable``, ``display``, ``linear``
-(the linear image read back), ``mat_types`` (the material types, once per
-scene tensor), ``slots`` (the block-tiled layout's slot map copied to the
-device), ``bvh`` (the threaded BVH built on the host), ``alive`` (the
-non-kernel path's live-ray count), and ``camera_grad``, ``frame_grad``,
-``camv_grad``: the copies back of their gradients in autograd's backward.
+path's rays), ``camv`` (``camv`` copied to the device where it requires
+grad; otherwise the card gets it from pinned memory, no sync),
+``camv_values`` (the wavefront driver's read of ``camv``), ``runnable``,
+``display``, ``linear`` (the linear image read back), ``mat_types`` (the
+material types, once per scene tensor), ``slots`` (the block-tiled
+layout's slot map copied to the device), ``bvh`` (the threaded BVH built on
+the host), ``alive`` (the non-kernel path's live-ray count), and
+``camera_grad``, ``frame_grad``, ``camv_grad``: the copies back of their
+gradients in autograd's backward.
 """
 
 from __future__ import annotations

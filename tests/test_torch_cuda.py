@@ -57,6 +57,44 @@ def test_kernel_matches_plain(tmp_path, cuda, name, size):
     assert compare.psnr(kern, plain) >= 45.0
 
 
+def warm_and_cold_batches(scene, size, depth, device, batches=3):
+    """(warm, cold, hits): the accumulators of ``batches`` 64-spp batches
+    after a first one, on a renderer whose warm batches run under torch's
+    sync debug mode "error" (a synchronising call raises) and on one whose
+    camera frame cache is cleared before each batch; and the warm batches'
+    frame cache hits."""
+    accums, hits = [], 0
+    for cold in (False, True):
+        r = Renderer(scene, size, size, num_samples=10_000, max_depth=depth, device=device)
+        r.update(64)  # builds, and the camera's reads
+        torch.cuda.synchronize()
+        before = camera.FRAME_HITS
+        for _ in range(batches):
+            if cold:
+                camera.clear_frame_cache()
+                r.update(64)
+                continue
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                r.update(64)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        if not cold:
+            hits = camera.FRAME_HITS - before
+        accums.append(r.state.accum.cpu())
+    return accums[0], accums[1], hits
+
+
+def test_warm_v4_batches_make_no_sync(tmp_path, cuda):
+    """A warm v4 batch reads nothing from the card: the camera frame comes
+    from the host cache, camv from pinned memory; the image is bitwise that
+    of batches that each read the camera."""
+    scene, _ = loader.load_scene(write_scene(tmp_path, "cornell"))
+    warm, cold, hits = warm_and_cold_batches(scene, 96, 16, cuda)
+    assert hits == 3
+    assert torch.equal(warm, cold)
+
+
 def test_closed_form_on_card(tmp_path, cuda):
     p = tmp_path / "enclosure.json"
     p.write_text(json.dumps({

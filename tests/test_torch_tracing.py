@@ -22,11 +22,15 @@ from rtbench import harness
 from rtbench.metrics import _spans
 from test_torch_scenes import write_scene
 
-# Host syncs of one batch on the v4 route: six camera leaves read for the
-# frame, and camv copied to the device.
-V4_SYNCS = 7
-# The gradient step: the forward's seven, and the copies back of camv's and
-# the six leaves' gradients in the backward.
+# Host syncs of a v4 batch. The first batch of a camera reads its six leaves
+# for the frame; a warm batch takes the frame from camera_frame's host cache.
+# Neither counts camv's copy: none on the CPU, a pinned non-blocking one on
+# the card.
+COLD_V4_SYNCS = 6
+V4_SYNCS = 0
+# The gradient step, whose camera leaves require grad and so bypass the
+# cache: the forward's six leaf reads and camv's counted copy, and the
+# copies back of camv's and the six leaves' gradients in the backward.
 GRAD_SYNCS = 14
 NEW_READERS = ("render.syncs_per_batch", "render.host_busy_ms_per_batch",
                "render.syncs_per_frame", "render.host_busy_ms_per_frame",
@@ -38,7 +42,7 @@ NEW_READERS = ("render.syncs_per_batch", "render.host_busy_ms_per_batch",
 # driver's spans as book 2 does, at a fraction of the plain step's cost.
 ROUTES = {
     "v4": ("cornell", "auto", 16, 2, {"render.update": None, "integrator.camv": "render.update",
-                              "sync.camera": "integrator.camv", "sync.camv": "integrator.camv",
+                              "sync.camera": "integrator.camv",
                               "integrator.launch": "render.update",
                               "render.accumulate": "render.update"}),
     "wavefront": ("cornell", "wavefront", 16, 2, {
@@ -104,20 +108,28 @@ def test_spans_record_nothing_without_a_profiler(tmp_path):
     r.update(spp)
     r.display_pixels()
     assert _totals() == before
-    assert tracing.HOST_SYNCS - syncs == V4_SYNCS + 1
+    assert tracing.HOST_SYNCS - syncs == COLD_V4_SYNCS + 1
     assert tracing.span("render.update") is tracing.span("grad.forward")
 
 
 @pytest.fixture(scope="module", params=sorted(ROUTES))
 def batches(request, tmp_path_factory):
-    """Two batches of a route, the second untraced on one renderer and
-    traced on another: the trace's annotations, the syncs of each second
-    batch, the spans its trace holds, and both images."""
+    """Two batches of a route, untraced on one renderer and traced on
+    another: the first (cold: the camera's reads) and the second (warm)
+    batch's syncs, each trace's annotations and the spans it holds, and
+    both images."""
     route, tmp = request.param, tmp_path_factory.mktemp("tracing")
     out = {"route": route}
     for traced in (False, True):
         r, spp = _renderer(tmp, route)
-        r.update(spp)  # the shapes and the scene's reads
+        syncs = tracing.HOST_SYNCS
+        if traced:
+            prof, _ = _profile(lambda: r.update(spp))
+            out["cold_events"] = _annotations(prof, tmp)
+            out["cold_calls"] = collections.Counter(_span(e) for e in out["cold_events"])
+        else:
+            r.update(spp)
+        cold_syncs = tracing.HOST_SYNCS - syncs
         before, syncs = _totals(), tracing.HOST_SYNCS
         if traced:
             prof, _ = _profile(lambda: r.update(spp))
@@ -126,20 +138,22 @@ def batches(request, tmp_path_factory):
         else:
             r.update(spp)
             assert _totals() == before
-        out[traced] = {"syncs": tracing.HOST_SYNCS - syncs, "accum": r.state.accum.clone(),
-                       "display": r.display_pixels()}
+        out[traced] = {"syncs": tracing.HOST_SYNCS - syncs, "cold_syncs": cold_syncs,
+                       "accum": r.state.accum.clone(), "display": r.display_pixels()}
     out["spp"] = spp
     return out
 
 
 def test_trace_holds_the_spans_with_their_nesting(batches):
-    events, spp = batches["events"], batches["spp"]
+    events, cold, spp = batches["events"], batches["cold_events"], batches["spp"]
     names = {_span(e) for e in events}
     parents = ROUTES[batches["route"]][4]
-    assert set(parents) <= names
-    for ev in events:
-        if _span(ev) in parents:
-            assert _parent(ev, events) == parents[_span(ev)], ev["name"]
+    # The camera's reads are the cold batch's alone.
+    assert set(parents) - {"sync.camera"} <= names and "sync.camera" in {_span(e) for e in cold}
+    for trace in (events, cold):
+        for ev in trace:
+            if _span(ev) in parents:
+                assert _parent(ev, trace) == parents[_span(ev)], ev["name"]
     # The top span of the batch carries its identifier in its name.
     assert [e["name"] for e in events if _span(e) == "render.update"] \
         == [f"render.update#seed=0,s0={spp}"]
@@ -148,16 +162,23 @@ def test_trace_holds_the_spans_with_their_nesting(batches):
 
 def test_host_syncs_per_batch(batches):
     got, calls = batches[True]["syncs"], batches["calls"]
-    assert batches[False]["syncs"] == got  # the same reads with tracing off
+    cold, cold_calls = batches[True]["cold_syncs"], batches["cold_calls"]
+    # The same reads with tracing off.
+    assert (batches[False]["syncs"], batches[False]["cold_syncs"]) == (got, cold)
+    # The cold batch reads the six camera leaves, the warm one none; camv's
+    # copy is no sync in either.
+    assert (cold_calls["sync.camera"], calls["sync.camera"]) == (6, 0)
+    assert cold_calls["sync.camv"] == calls["sync.camv"] == 0
     if batches["route"] == "v4":
-        assert got == V4_SYNCS
-        assert calls["sync.camera"] == 6 and calls["sync.camv"] == 1
+        assert (cold, got) == (COLD_V4_SYNCS, V4_SYNCS)
     else:
         # camv's values, and one runnable read a pass, after its launch.
-        assert calls["sync.runnable"] == calls["wavefront.launch"]
+        for c in (cold_calls, calls):
+            assert c["sync.runnable"] == c["wavefront.launch"] == c["wavefront.sort"]
+            assert c["sync.camv_values"] == 1
+        assert cold == COLD_V4_SYNCS + 1 + cold_calls["sync.runnable"]
         assert got == V4_SYNCS + 1 + calls["sync.runnable"]
-        assert calls["wavefront.sort"] == calls["wavefront.launch"]
-    assert calls["render.update"] == 1
+    assert calls["render.update"] == cold_calls["render.update"] == 1
 
 
 def test_images_are_bitwise_with_tracing_on_and_off(batches):
@@ -257,8 +278,9 @@ def test_cli_done_line_reports_host_syncs(tmp_path):
                    "--height", "12", "--quiet", "--metrics", str(metrics)])
     assert rc == 0
     done = [json.loads(line) for line in metrics.read_text().splitlines()][-1]
-    # Two batches, then the linear image read back for the PNG.
-    assert done["event"] == "done" and done["host_syncs"] == 2 * V4_SYNCS + 1
+    # Two batches, the first cold and the second warm, then the linear image
+    # read back for the PNG.
+    assert done["event"] == "done" and done["host_syncs"] == COLD_V4_SYNCS + V4_SYNCS + 1
 
 
 @pytest.mark.cuda
