@@ -33,15 +33,17 @@ int wavefront_profile_launch(int variant, int device, const float* camv, int see
     case 0:
       return launch_step<Cfg<false, Sweep::kNone>>(device, camv, seed, bg, tables, c, ntab,
                                                    state, n_slots, k_bounces, max_depth,
-                                                   checker_depth, has_noise, nullptr, stream);
+                                                   checker_depth, has_noise, nullptr, nullptr,
+                                                   stream);
     case 1:
       return launch_step<Cfg<false, Sweep::kFlat>>(device, camv, seed, bg, tables, c, ntab,
                                                    state, n_slots, k_bounces, max_depth,
-                                                   checker_depth, has_noise, nullptr, stream);
+                                                   checker_depth, has_noise, nullptr, nullptr,
+                                                   stream);
     case 2:
       return launch_step<Cfg<false, StepCfg::kSweep, kFAll, PhaseClock>>(
           device, camv, seed, bg, tables, c, ntab, state, n_slots, k_bounces, max_depth,
-          checker_depth, has_noise, prof, stream);
+          checker_depth, has_noise, nullptr, prof, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }

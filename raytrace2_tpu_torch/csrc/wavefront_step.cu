@@ -38,6 +38,12 @@
 // per-lane walk at these blocks was 8 % (K=2) and 12 % (K=16) slower
 // (PERF.md).
 //
+// Counter. Given a non-null `segments`, a launch adds the rays it cast (one
+// closest-hit query per step of a slot) to that int64: a warp's sum, one
+// atomic a warp. The driver passes it only while a profiler records
+// (wavefront.SEGMENTS); a null pointer skips the sum, and the state is the
+// same either way.
+//
 // Build: as megakernel_v4.cu (ops/kernels/build.py, -fmad=false), bound
 //        through ctypes.
 
@@ -60,9 +66,10 @@ __host__ __device__ inline int step_smem_bytes(const Counts& c) {
   return block_smem_bytes(c) + inverse_floats(c) * (int)sizeof(float);
 }
 
-// Up to k_bounces steps of slot `lane`.
+// Up to k_bounces steps of slot `lane`; returns the steps taken, each one
+// closest-hit query.
 template <class K>
-__device__ __forceinline__ void step_slot(const Tables& T, const Counts& c, const float* cv,
+__device__ __forceinline__ int step_slot(const Tables& T, const Counts& c, const float* cv,
                                           const float* bg, int seed, float* state, int lane,
                                           int n_slots, int k_bounces, int max_depth,
                                           int checker_depth, int has_noise,
@@ -108,7 +115,7 @@ __device__ __forceinline__ void step_slot(const Tables& T, const Counts& c, cons
     bounce<K>(s, T, c, bg, key, tm, max_depth, checker_depth, has_noise != 0, nullptr, clk);
     ++steps;
   }
-  if (steps == 0) return;
+  if (steps == 0) return 0;
   t0 = tick<Clock>();
   col[S_LANE * n] = s_lane;
   col[BN * n] = s.bn;
@@ -127,16 +134,19 @@ __device__ __forceinline__ void step_slot(const Tables& T, const Counts& c, cons
   col[RG * n] = s.rg;
   col[RB * n] = s.rb;
   tock(clk, kPhStore, t0);
+  return steps;
 }
 
-// `prof` takes the phase clock's sums in an instrumented instance (the
-// profiling build's PhaseClock); production instances get null.
+// `segments` (optional) gets the launch's closest-hit queries added. `prof`
+// takes the phase clock's sums in an instrumented instance (the profiling
+// build's PhaseClock); production instances get null.
 template <class K>
 __global__ void __launch_bounds__(kStepThreads)
 wavefront_step(const float* __restrict__ camv_g, int seed, const float* __restrict__ bg_g,
                const float* __restrict__ tables_g, const float* __restrict__ ntab_g, Counts c,
                float* __restrict__ state, int n_slots, int k_bounces, int max_depth,
-               int checker_depth, int has_noise, unsigned long long* __restrict__ prof) {
+               int checker_depth, int has_noise, unsigned long long* __restrict__ segments,
+               unsigned long long* __restrict__ prof) {
   using Clock = typename K::Clock;
   Clock clk;
   const long long t_all = tick<Clock>();
@@ -146,11 +156,19 @@ wavefront_step(const float* __restrict__ camv_g, int seed, const float* __restri
   const float* bg = cv + kCamvLen;
 
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
+  int steps = 0;
   if (lane < n_slots) {
     Tables T = make_tables(smem, c);
     set_inverse_orders(T, smem + stage_floats(c));
-    step_slot<K>(T, c, cv, bg, seed, state, lane, n_slots, k_bounces, max_depth, checker_depth,
-                 has_noise, &clk);
+    steps = step_slot<K>(T, c, cv, bg, seed, state, lane, n_slots, k_bounces, max_depth,
+                         checker_depth, has_noise, &clk);
+  }
+  if (segments) {
+    // Every thread of the block gets here: a warp's sum, one atomic a warp.
+    const unsigned warp_steps = __reduce_add_sync(0xffffffffu, (unsigned)steps);
+    if ((threadIdx.x & 31) == 0 && warp_steps) {
+      atomicAdd(segments, (unsigned long long)warp_steps);
+    }
   }
   if constexpr (Clock::kOn) {
     tock(&clk, kPhTotal, t_all);
@@ -162,8 +180,8 @@ wavefront_step(const float* __restrict__ camv_g, int seed, const float* __restri
 template <class K>
 int launch_step(int device, const float* camv, int seed, const float* bg, const float* tables,
                 const Counts& c, const float* ntab, float* state, int n_slots, int k_bounces,
-                int max_depth, int checker_depth, int has_noise, unsigned long long* prof,
-                void* stream) {
+                int max_depth, int checker_depth, int has_noise, unsigned long long* segments,
+                unsigned long long* prof, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (n_slots <= 0 || k_bounces <= 0) return (int)cudaSuccess;
@@ -176,7 +194,7 @@ int launch_step(int device, const float* camv, int seed, const float* bg, const 
   int blocks = (n_slots + kStepThreads - 1) / kStepThreads;
   wavefront_step<K><<<blocks, kStepThreads, smem, (cudaStream_t)stream>>>(
       camv, seed, bg, tables, ntab, c, state, n_slots, k_bounces, max_depth, checker_depth,
-      has_noise, prof);
+      has_noise, segments, prof);
   return (int)cudaGetLastError();
 }
 
@@ -208,16 +226,19 @@ int wavefront_step_threads_per_sm(int smem) {
 }
 
 // Advance `state` [17, n_slots] in place on `stream`; returns the cudaError_t
-// of the launch. `ntab` holds n_noise Perlin tables (null for hash noise).
+// of the launch. `ntab` holds n_noise Perlin tables (null for hash noise);
+// `segments` (null for none) gets the launch's closest-hit queries added.
 int wavefront_step_launch(int device, const float* camv, int seed, const float* bg,
                           const float* tables, int n_sph, int n_quad, int n_mat, int n_tex,
                           int n_med, int n_box, int hier_sph, int hier_box, const float* ntab,
                           int n_noise, float* state, int n_slots, int k_bounces, int max_depth,
-                          int checker_depth, int has_noise, void* stream) {
+                          int checker_depth, int has_noise, unsigned long long* segments,
+                          void* stream) {
   return launch_step<StepCfg>(
       device, camv, seed, bg, tables,
       Counts{n_sph, n_quad, n_mat, n_tex, n_med, n_box, hier_sph, hier_box, n_noise}, ntab,
-      state, n_slots, k_bounces, max_depth, checker_depth, has_noise, nullptr, stream);
+      state, n_slots, k_bounces, max_depth, checker_depth, has_noise, segments, nullptr,
+      stream);
 }
 
 const char* wavefront_step_error_string(int err) {

@@ -197,7 +197,7 @@ def _bind_megakernel_v4(lib: ctypes.CDLL) -> None:
 def _bind_wavefront_step(lib: ctypes.CDLL) -> None:
     i, p = ctypes.c_int, ctypes.c_void_p
     lib.wavefront_step_launch.argtypes = [i, p, i, p, p, *_COUNTS[:8], p, i, p, i, i, i, i, i,
-                                          p]
+                                          p, p]
     lib.wavefront_step_launch.restype = i
     lib.wavefront_step_smem_bytes.argtypes = _COUNTS
     lib.wavefront_step_smem_bytes.restype = i
@@ -242,7 +242,8 @@ def _bind_grad_profile(lib: ctypes.CDLL) -> None:
 def _bind_wavefront_profile(lib: ctypes.CDLL) -> None:
     _bind_wavefront_step(lib)
     i, p = ctypes.c_int, ctypes.c_void_p
-    lib.wavefront_profile_launch.argtypes = [i, *lib.wavefront_step_launch.argtypes[:-1], p, p]
+    # The production launch's arguments without its counter and stream.
+    lib.wavefront_profile_launch.argtypes = [i, *lib.wavefront_step_launch.argtypes[:-2], p, p]
     lib.wavefront_profile_launch.restype = i
     lib.wavefront_profile_counters.argtypes = []
     lib.wavefront_profile_counters.restype = i
@@ -413,10 +414,16 @@ def launch_megakernel_v4(camv, seed: int, background, packed, ntab, out, *, n_pi
 
 
 def launch_wavefront_step(camv, seed: int, background, packed, ntab, state, *, n_slots,
-                          k_bounces, max_depth, counts, checker_depth, has_noise) -> None:
+                          k_bounces, max_depth, counts, checker_depth, has_noise,
+                          segments=None) -> None:
     """Launch ``wavefront_step``, advancing ``state`` [17, n_slots] in place
-    by up to ``k_bounces`` steps per slot; raises on a refused launch."""
+    by up to ``k_bounces`` steps per slot; raises on a refused launch.
+    ``segments`` (an int64 [1] CUDA tensor, optional) gets the launch's
+    closest-hit queries added."""
     device = _require_cuda(camv=camv, background=background, packed=packed, state=state)
+    if segments is not None and (segments.dtype != torch.int64 or segments.device != device
+                                 or segments.numel() != 1):
+        raise ValueError("segments must be an int64 [1] tensor on the tables' device")
     lib = load(step_target())
     if state.dim() != 2 or tuple(state.shape) != (lib.wavefront_step_state_cols(), n_slots):
         raise ValueError(f"state must be [{lib.wavefront_step_state_cols()}, n_slots], "
@@ -429,7 +436,8 @@ def launch_wavefront_step(camv, seed: int, background, packed, ntab, state, *, n
     err = lib.wavefront_step_launch(
         device.index, camv.data_ptr(), int(seed), background.data_ptr(),
         packed.data_ptr(), *counts[:8], nt, n_noise, state.data_ptr(), int(n_slots),
-        int(k_bounces), int(max_depth), int(checker_depth), int(bool(has_noise)), stream)
+        int(k_bounces), int(max_depth), int(checker_depth), int(bool(has_noise)),
+        None if segments is None else segments.data_ptr(), stream)
     if err:
         msg = lib.wavefront_step_error_string(err).decode()
         raise RuntimeError(f"wavefront_step launch failed: {msg} (cudaError {err})")

@@ -307,12 +307,7 @@ class DiffRender(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         camv, packed, background = ctx.saved_tensors
-        bounces = None
-        if tracing.recording():
-            bounces = _BOUNCES.get(packed.device)
-            if bounces is None:
-                bounces = _BOUNCES[packed.device] = torch.zeros(1, dtype=torch.int64,
-                                                                device=packed.device)
+        bounces = tracing.device_counter(_BOUNCES, packed.device)
         with tracing.span("grad.replay"):
             d_camv, d_bg, d_packed = grad_call(camv, ctx.seed, packed, background,
                                                g.contiguous(), bounces=bounces, **ctx.grad_kw)
@@ -321,5 +316,5 @@ class DiffRender(torch.autograd.Function):
 
 def __getattr__(attr: str) -> int:
     if attr == "REPLAY_BOUNCES":
-        return sum(int(t) for t in _BOUNCES.values())
+        return tracing.device_count(_BOUNCES)
     raise AttributeError(f"module {__name__!r} has no attribute {attr!r}")

@@ -69,6 +69,17 @@ LAUNCHES = 0
 SORTS = 0
 KEY_LAUNCHES = 0
 OVERRUN_LAUNCHES = 0
+# The steps' closest-hit queries (path segments) while a profiler records,
+# an int64 [1] tensor per device that each step adds to on the device
+# (``tracing.device_counter``), so that counting adds no host sync to a pass.
+# The module attribute ``SEGMENTS`` reads their sum, waiting for the devices.
+_SEGMENTS: dict = {}
+
+
+def __getattr__(attr: str) -> int:
+    if attr == "SEGMENTS":
+        return tracing.device_count(_SEGMENTS)
+    raise AttributeError(f"module {__name__!r} has no attribute {attr!r}")
 
 
 # ---------------------------------------------------------------------------
@@ -217,12 +228,14 @@ def sort_state(state, n_samples, bb_lo, bb_hi, keys=None):
 
 
 def step_plain(state, camv, seed, packed, background, *, k_bounces, max_depth,
-               sizes, has_checker, has_noise, ntab=None, stats=None):
+               sizes, has_checker, has_noise, ntab=None, stats=None, segments=None):
     """Plain PyTorch version of the kernel: up to ``k_bounces`` steps of
     regeneration plus one bounce over all slots, stopping early once no slot
     can run (a step changes nothing on a slot that cannot run). Advances
     ``state`` in place and returns it. ``stats`` (a dict, optional) gets the
-    sweep tests of every live bounce added (``megakernel.make_bounce``)."""
+    sweep tests of every live bounce added (``megakernel.make_bounce``);
+    ``segments`` (an int64 [1] tensor, optional) gets the live bounces
+    added, each one closest-hit query, with no host read of its own."""
     cv = [float(x) for x in camv.tolist()]
     bounce = mk.make_bounce(packed, background, max_depth=max_depth, sizes=sizes,
                             has_checker=has_checker, has_noise=has_noise, ntab=ntab,
@@ -237,6 +250,8 @@ def step_plain(state, camv, seed, packed, background, *, k_bounces, max_depth,
         if not bool(((carry[1] > 0.0) | ((s_lane < cv[22] - 1.0) & in_grid)).any()):
             break
         s_lane, key, tm, carry = mk.regenerate(cv, seed, pix, s_lane, tm, carry, in_grid)
+        if segments is not None:
+            segments += (carry[1] > 0.0).sum()
         carry = bounce(key, tm, carry)
     state[COL["s_lane"]] = s_lane
     state[COL["tm"]] = tm
@@ -246,11 +261,13 @@ def step_plain(state, camv, seed, packed, background, *, k_bounces, max_depth,
 
 
 def wavefront_step(state, camv, seed, packed, background, *, k_bounces, max_depth,
-                   sizes, has_checker, has_noise, ntab=None):
+                   sizes, has_checker, has_noise, ntab=None, segments=None):
     """Advance the slot state [17, n] by up to ``k_bounces`` steps per slot.
     On a CPU tensor this runs the plain version; on a CUDA tensor it
     launches the Hopper kernel (built at first use), which updates ``state``
-    in place, or raises. Returns the advanced state."""
+    in place, or raises. Returns the advanced state. ``segments`` (an int64
+    [1] tensor on the state's device, optional) gets the step's closest-hit
+    queries added on the device."""
     global LAUNCHES
     mk.check_inputs(camv, packed, background, state.shape[-1], sizes)
     mk.check_ntab(ntab, packed)
@@ -261,7 +278,7 @@ def wavefront_step(state, camv, seed, packed, background, *, k_bounces, max_dept
     if packed.device.type == "cpu":
         return step_plain(state, camv, seed, packed, background, k_bounces=k_bounces,
                           max_depth=max_depth, sizes=sizes, has_checker=has_checker,
-                          has_noise=has_noise, ntab=ntab)
+                          has_noise=has_noise, ntab=ntab, segments=segments)
     if packed.device.type != "cuda":
         raise ValueError(f"unsupported device {packed.device}")
     from raytrace2_tpu_torch.ops.kernels import build
@@ -269,7 +286,7 @@ def wavefront_step(state, camv, seed, packed, background, *, k_bounces, max_dept
     build.launch_wavefront_step(
         camv, int(seed), background, packed, ntab, state, n_slots=state.shape[1],
         k_bounces=k_bounces, max_depth=max_depth, counts=mk.counts(sizes, mk.n_noise_of(ntab)),
-        checker_depth=int(has_checker), has_noise=bool(has_noise))
+        checker_depth=int(has_checker), has_noise=bool(has_noise), segments=segments)
     LAUNCHES += 1
     return state
 
@@ -302,7 +319,9 @@ def trace_wavefront_batch(camv, seed, packed, background, *, n_rays, max_depth,
 
     ``step`` is the K-bounce step to run, ``wavefront_step`` (the kernel's
     wrapper) by default; passing ``step_plain`` drives the plain version
-    with a CUDA tensor, to hold the kernel against it on the card."""
+    with a CUDA tensor, to hold the kernel against it on the card. Where a
+    profiler records as the batch starts, every step also gets the device's
+    ``SEGMENTS`` tensor (``segments=``) to add its closest-hit queries to."""
     step = wavefront_step if step is None else step
     if n_rays % SLOT_TILE:
         raise ValueError(f"n_rays={n_rays} must be a multiple of {SLOT_TILE}")
@@ -324,6 +343,9 @@ def trace_wavefront_batch(camv, seed, packed, background, *, n_rays, max_depth,
             counted = torch.cuda.Event()
     kw = dict(max_depth=max_depth, sizes=sizes, has_checker=has_checker,
               has_noise=has_noise, ntab=ntab)
+    segments = tracing.device_counter(_SEGMENTS, device)
+    if segments is not None:
+        kw["segments"] = segments
 
     def launches(state, k, go_on):
         """Passes of ``k`` steps until a count fails ``go_on``: the state

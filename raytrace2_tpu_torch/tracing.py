@@ -179,6 +179,24 @@ def sync(t: torch.Tensor, site: str, read=None, *, device="cpu"):
         return _do(t, read, device, site)
 
 
+def device_counter(counts: dict, device) -> torch.Tensor | None:
+    """Where a profiler records, the int64 [1] tensor of ``counts`` for
+    ``device`` (made at first use) that a kernel adds a count to on the
+    device, so that counting adds no host sync; else None: nothing counts."""
+    if not recording():
+        return None
+    t = counts.get(device)
+    if t is None:
+        t = counts[device] = torch.zeros(1, dtype=torch.int64, device=device)
+    return t
+
+
+def device_count(counts: dict) -> int:
+    """The sum of ``device_counter``'s tensors in ``counts``: waits for
+    their devices."""
+    return sum(int(t) for t in counts.values())
+
+
 def __getattr__(attr: str) -> int:
     for prefix, i in (("SYNC_NS_", 1), ("NS_", 0)):
         if attr.startswith(prefix):

@@ -10,7 +10,7 @@ import numpy as np
 import pytest
 import torch
 
-from raytrace2_tpu_torch import grad
+from raytrace2_tpu_torch import grad, tracing
 from raytrace2_tpu_torch.io import compare
 from raytrace2_tpu_torch.ops import camera, integrator, rng
 from raytrace2_tpu_torch.ops.kernels import intersect_kernel as pk
@@ -160,6 +160,51 @@ def test_wavefront_step_rejects_bad_state(tmp_path, cuda):
         wf.wavefront_step(state[:16].contiguous(), *args, k_bounces=2, **kw)
     with pytest.raises(ValueError):
         wf.wavefront_step(state.cpu(), *args, k_bounces=2, **kw)
+
+
+def test_wavefront_segments_match_plain_on_book1(tmp_path, cuda):
+    """The step kernel's segment count (a closest-hit query for each step of
+    a slot) equals the plain step's on a book-1 state (486 spheres, the
+    clustered sweep) at K=2 and K=16, and a launch leaves the same state bit
+    for bit with the counter, without it, and in the plain step. Through the
+    Renderer, a traced batch gives the untraced batch's image, makes the
+    same host syncs, and moves ``SEGMENTS``."""
+    path = write_scene(tmp_path, "book1")
+    args, kw = _wavefront_args(path, 96, 54, 4, 50, cuda)
+    n_rays = -(-96 * 54 // wf.SLOT_TILE) * wf.SLOT_TILE
+    state = wf.init_wavefront_state(n_rays, args[0].tolist(), cuda)
+    for _ in range(3):
+        state = wf.wavefront_step(state, *args, k_bounces=2, **kw)
+    for k in (2, 16):
+        counted = torch.zeros(1, dtype=torch.int64, device=cuda)
+        by_plain = torch.zeros(1, dtype=torch.int64, device=cuda)
+        kern = wf.wavefront_step(state.clone(), *args, k_bounces=k, segments=counted, **kw)
+        bare = wf.wavefront_step(state.clone(), *args, k_bounces=k, **kw)
+        plain = wf.step_plain(state.clone(), *args, k_bounces=k, segments=by_plain, **kw)
+        torch.cuda.synchronize()
+        assert int(counted) > 0 and int(counted) == int(by_plain), k
+        assert torch.equal(kern, bare) and torch.equal(kern, plain), k
+        state = kern
+
+    scene, _ = loader.load_scene(path)
+
+    def render():
+        r = Renderer(scene, 96, 54, num_samples=8, max_depth=50, seed=11, device=cuda)
+        assert r.kernel == "wavefront_step"
+        torch.cuda.synchronize()
+        syncs = tracing.HOST_SYNCS
+        r.update(8)
+        torch.cuda.synchronize()
+        return r.state.accum.cpu(), tracing.HOST_SYNCS - syncs
+
+    image0, syncs0 = render()
+    before = wf.SEGMENTS
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]):
+        image1, syncs1 = render()
+    assert wf.SEGMENTS > before
+    assert syncs1 == syncs0
+    assert torch.equal(image0, image1)
 
 
 def test_record_ceiling_scene_on_card(tmp_path, cuda):
