@@ -22,7 +22,7 @@ int wavefront_profile_counters() { return kNProf; }
 // Launch profiling variant `variant` (0 nosweep, 1 linear, 2 profiled; the
 // others refused) with the production launch's arguments; `prof` takes
 // the profiled variant's kNProf counters (added to, zeroed by the caller).
-int wavefront_profile_launch(int variant, int device, const float* camv, int seed,
+int wavefront_profile_launch(int variant, int device, const float* camv, const int* seed,
                              const float* bg, const float* tables, int n_sph, int n_quad,
                              int n_mat, int n_tex, int n_med, int n_box, int hier_sph,
                              int hier_box, const float* ntab, int n_noise, float* state,

@@ -38,6 +38,11 @@
 // per-lane walk at these blocks was 8 % (K=2) and 12 % (K=16) slower
 // (PERF.md).
 //
+// Seed. The launch reads the batch's seed from a one-int device buffer and
+// not from a by-value argument, so that a CUDA graph holding the launch
+// (ops/kernels/wavefront.py, one replay a pass) takes each batch's seed
+// from that buffer without being captured again.
+//
 // Counter. Given a non-null `segments`, a launch adds the rays it cast (one
 // closest-hit query per step of a slot) to that int64: a warp's sum, one
 // atomic a warp. The driver passes it only while a profiler records
@@ -142,7 +147,8 @@ __device__ __forceinline__ int step_slot(const Tables& T, const Counts& c, const
 // build's PhaseClock); production instances get null.
 template <class K>
 __global__ void __launch_bounds__(kStepThreads)
-wavefront_step(const float* __restrict__ camv_g, int seed, const float* __restrict__ bg_g,
+wavefront_step(const float* __restrict__ camv_g, const int* __restrict__ seed_g,
+               const float* __restrict__ bg_g,
                const float* __restrict__ tables_g, const float* __restrict__ ntab_g, Counts c,
                float* __restrict__ state, int n_slots, int k_bounces, int max_depth,
                int checker_depth, int has_noise, unsigned long long* __restrict__ segments,
@@ -156,6 +162,7 @@ wavefront_step(const float* __restrict__ camv_g, int seed, const float* __restri
   const float* bg = cv + kCamvLen;
 
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
+  const int seed = *seed_g;
   int steps = 0;
   if (lane < n_slots) {
     Tables T = make_tables(smem, c);
@@ -178,7 +185,8 @@ wavefront_step(const float* __restrict__ camv_g, int seed, const float* __restri
 
 // Launch instance K on `stream`; returns the cudaError_t of the launch.
 template <class K>
-int launch_step(int device, const float* camv, int seed, const float* bg, const float* tables,
+int launch_step(int device, const float* camv, const int* seed, const float* bg,
+                const float* tables,
                 const Counts& c, const float* ntab, float* state, int n_slots, int k_bounces,
                 int max_depth, int checker_depth, int has_noise, unsigned long long* segments,
                 unsigned long long* prof, void* stream) {
@@ -226,9 +234,10 @@ int wavefront_step_threads_per_sm(int smem) {
 }
 
 // Advance `state` [17, n_slots] in place on `stream`; returns the cudaError_t
-// of the launch. `ntab` holds n_noise Perlin tables (null for hash noise);
-// `segments` (null for none) gets the launch's closest-hit queries added.
-int wavefront_step_launch(int device, const float* camv, int seed, const float* bg,
+// of the launch. `seed` points at the seed, one int on the device; `ntab`
+// holds n_noise Perlin tables (null for hash noise); `segments` (null for
+// none) gets the launch's closest-hit queries added.
+int wavefront_step_launch(int device, const float* camv, const int* seed, const float* bg,
                           const float* tables, int n_sph, int n_quad, int n_mat, int n_tex,
                           int n_med, int n_box, int hier_sph, int hier_box, const float* ntab,
                           int n_noise, float* state, int n_slots, int k_bounces, int max_depth,

@@ -196,7 +196,7 @@ def _bind_megakernel_v4(lib: ctypes.CDLL) -> None:
 
 def _bind_wavefront_step(lib: ctypes.CDLL) -> None:
     i, p = ctypes.c_int, ctypes.c_void_p
-    lib.wavefront_step_launch.argtypes = [i, p, i, p, p, *_COUNTS[:8], p, i, p, i, i, i, i, i,
+    lib.wavefront_step_launch.argtypes = [i, p, p, p, p, *_COUNTS[:8], p, i, p, i, i, i, i, i,
                                           p, p]
     lib.wavefront_step_launch.restype = i
     lib.wavefront_step_smem_bytes.argtypes = _COUNTS
@@ -413,17 +413,33 @@ def launch_megakernel_v4(camv, seed: int, background, packed, ntab, out, *, n_pi
         raise RuntimeError(f"megakernel_v4 launch failed: {msg} (cudaError {err})")
 
 
-def launch_wavefront_step(camv, seed: int, background, packed, ntab, state, *, n_slots,
+def seed_buffer(seed: int, device, out=None) -> torch.Tensor:
+    """The int32 [1] tensor on ``device`` (``out`` where given) that
+    ``wavefront_step`` reads its seed from: ``seed`` wrapped to int32, as a
+    by-value C int takes it, written by a fill on the stream (no host
+    copy)."""
+    if out is None:
+        out = torch.empty(1, dtype=torch.int32, device=device)
+    return out.fill_((int(seed) + 2**31) % 2**32 - 2**31)
+
+
+def launch_wavefront_step(camv, seed, background, packed, ntab, state, *, n_slots,
                           k_bounces, max_depth, counts, checker_depth, has_noise,
                           segments=None) -> None:
     """Launch ``wavefront_step``, advancing ``state`` [17, n_slots] in place
     by up to ``k_bounces`` steps per slot; raises on a refused launch.
-    ``segments`` (an int64 [1] CUDA tensor, optional) gets the launch's
-    closest-hit queries added."""
+    ``seed`` is an int or the int32 [1] device tensor the launch reads it
+    from (``seed_buffer``: a CUDA graph of the launch keeps the tensor and
+    takes a new seed written into it). ``segments`` (an int64 [1] CUDA
+    tensor, optional) gets the launch's closest-hit queries added."""
     device = _require_cuda(camv=camv, background=background, packed=packed, state=state)
     if segments is not None and (segments.dtype != torch.int64 or segments.device != device
                                  or segments.numel() != 1):
         raise ValueError("segments must be an int64 [1] tensor on the tables' device")
+    if not isinstance(seed, torch.Tensor):
+        seed = seed_buffer(seed, device)
+    elif seed.dtype != torch.int32 or seed.device != device or seed.numel() != 1:
+        raise ValueError("seed must be an int or an int32 [1] tensor on the tables' device")
     lib = load(step_target())
     if state.dim() != 2 or tuple(state.shape) != (lib.wavefront_step_state_cols(), n_slots):
         raise ValueError(f"state must be [{lib.wavefront_step_state_cols()}, n_slots], "
@@ -434,13 +450,24 @@ def launch_wavefront_step(camv, seed: int, background, packed, ntab, state, *, n
     _check_smem(lib.wavefront_step_smem_bytes(*counts))
     stream = torch.cuda.current_stream(device).cuda_stream
     err = lib.wavefront_step_launch(
-        device.index, camv.data_ptr(), int(seed), background.data_ptr(),
+        device.index, camv.data_ptr(), seed.data_ptr(), background.data_ptr(),
         packed.data_ptr(), *counts[:8], nt, n_noise, state.data_ptr(), int(n_slots),
         int(k_bounces), int(max_depth), int(checker_depth), int(bool(has_noise)),
         None if segments is None else segments.data_ptr(), stream)
     if err:
         msg = lib.wavefront_step_error_string(err).decode()
         raise RuntimeError(f"wavefront_step launch failed: {msg} (cudaError {err})")
+
+
+def load_wavefront_step(counts) -> None:
+    """Build and load ``wavefront_step`` and set its shared memory for a
+    scene's ``counts``, as its first launch would: done ahead of a CUDA
+    graph's capture of the launch, so that the capture loads nothing."""
+    lib = load(step_target())
+    smem = lib.wavefront_step_smem_bytes(*counts)
+    _check_smem(smem)
+    if lib.wavefront_step_threads_per_sm(smem) <= 0:
+        raise RuntimeError(f"wavefront_step cannot run a block at {smem} B of shared memory")
 
 
 def launch_wavefront_keys(state, bb_lo, bb_hi, keys, count, *, regen_below) -> None:

@@ -12,7 +12,10 @@ of "regenerate if dead and samples remain, then one bounce". A pass runs
 the same four things on either device: ``count_and_keys`` (on the card one
 launch of ``csrc/wavefront_keys.cu``, on the CPU ``sort_keys`` and
 ``runnable``), the sort by those keys, the step, and the host's read of the
-count, made only once the pass's sort and step are queued. Per-slot
+count, made only once the pass's sort and step are queued. On the card the
+sort, the gather and the step are one replay of a CUDA graph captured at
+the shape's first batch (``_PassGraphs``), so a pass costs the host two
+launches and a read. Per-slot
 arithmetic is v4's (the plain step reuses ``megakernel.regenerate`` and
 ``megakernel.make_bounce``; the kernel shares ``path_common.cuh`` with
 ``megakernel_v4.cu``) and each pixel owns one slot, so the image is bitwise
@@ -33,6 +36,7 @@ reference's Perlin tables (``noise_impl="table"``).
 
 from __future__ import annotations
 
+import collections
 import contextlib
 
 import torch
@@ -64,11 +68,19 @@ _DONE_KEY = 1 << 30
 # Launches of the CUDA step kernel (the plain version does not count), sorts
 # of the slot state (on either device), launches of the keys kernel (the
 # plain keys and count do not count), and steps (on either device) queued on
-# a pass whose own count, read after them, ended its phase.
+# a pass whose own count, read after them, ended its phase. A pass replayed
+# from a CUDA graph counts its sort and its launch.
 LAUNCHES = 0
 SORTS = 0
 KEY_LAUNCHES = 0
 OVERRUN_LAUNCHES = 0
+# Passes replayed from a CUDA graph, and graphs captured (``_PassGraphs``).
+GRAPH_REPLAYS = 0
+GRAPH_CAPTURES = 0
+# The pass graphs of the shapes in use, the most recently used last, at most
+# _GRAPH_SHAPES of them: a process may render many scenes and sizes.
+_GRAPHS: collections.OrderedDict = collections.OrderedDict()
+_GRAPH_SHAPES = 4
 # The steps' closest-hit queries (path segments) while a profiler records,
 # an int64 [1] tensor per device that each step adds to on the device
 # (``tracing.device_counter``), so that counting adds no host sync to a pass.
@@ -158,11 +170,16 @@ def scene_bounds(packed, sizes):
     return bb_lo, bb_hi
 
 
-def init_wavefront_state(n_rays: int, cv, device="cpu") -> torch.Tensor:
+def init_wavefront_state(n_rays: int, cv, device="cpu", out=None) -> torch.Tensor:
     """Fresh slot state [17, n_rays]: slot i holds pixel camv[25] + i (or
     -1 past the last pixel), dead, with s_lane = -1 so that the first step
-    regenerates sample 0. ``cv`` is indexable by camv entry."""
-    state = torch.zeros((len(STATE_KEYS), n_rays), dtype=torch.float32, device=device)
+    regenerates sample 0. ``cv`` is indexable by camv entry. ``out`` (a
+    [17, n_rays] f32 tensor on ``device``, optional) takes the state in
+    place of a new tensor."""
+    if out is None:
+        state = torch.zeros((len(STATE_KEYS), n_rays), dtype=torch.float32, device=device)
+    else:
+        state = out.zero_()
     slot = torch.arange(n_rays, dtype=torch.float32, device=device) + float(cv[25])
     state[COL["pid"]] = torch.where(slot < float(cv[20]), slot, -1.0)
     state[COL["s_lane"]] = -1.0
@@ -292,6 +309,121 @@ def wavefront_step(state, camv, seed, packed, background, *, k_bounces, max_dept
 
 
 # ---------------------------------------------------------------------------
+# A pass's sort, gather and step as one CUDA graph
+# ---------------------------------------------------------------------------
+
+
+class _PassGraphs:
+    """The CUDA graphs of one shape's passes on the card, and the buffers
+    they read and write. The graph of (K, parity p, counter) holds a pass's
+    stable argsort of ``keys``, the gather of ``states[p]`` into
+    ``states[1 - p]`` and the ``wavefront_step`` launch of K bounces on it,
+    adding its closest-hit queries to ``segments`` where the counter is on.
+    The four graphs of a K are captured the first time the shape runs at
+    that K. ``load`` copies a batch's values (``camv``, the seed, the
+    tables, the fresh slot state) into the buffers on the stream, so that a
+    new batch, job, frame or set of tables replays without a capture."""
+
+    def __init__(self, device, n_rays, camv, packed, background, ntab, launch_kw):
+        self.device, self.n_rays, self.launch_kw = device, n_rays, launch_kw
+        self.camv, self.packed, self.background = (torch.empty_like(t, requires_grad=False)
+                                                   for t in (camv, packed, background))
+        self.ntab = None if ntab is None else torch.empty_like(ntab, requires_grad=False)
+        self.seed = torch.empty(1, dtype=torch.int32, device=device)
+        self.segments = torch.zeros(1, dtype=torch.int64, device=device)
+        self.states = [torch.empty((len(STATE_KEYS), n_rays), dtype=torch.float32,
+                                   device=device) for _ in range(2)]
+        self.keys = torch.empty(n_rays, dtype=torch.int32, device=device)
+        self.count = torch.empty(1, dtype=torch.int32, device=device)
+        self.graphs: dict = {}
+        self.pool = torch.cuda.graph_pool_handle()
+        self.stream = torch.cuda.Stream(device)
+
+    def capture(self, k: int) -> None:
+        """Capture the graphs of K = ``k`` bounces, once. Their launches load
+        nothing: the step's library and the sort and gather have run before
+        the first capture, on the capture stream."""
+        global GRAPH_CAPTURES
+        from raytrace2_tpu_torch.ops.kernels import build
+
+        if (k, 0, False) in self.graphs:
+            return
+        main = torch.cuda.current_stream(self.device)
+        self.stream.wait_stream(main)
+        with torch.cuda.stream(self.stream):
+            if not self.graphs:
+                build.load_wavefront_step(self.launch_kw["counts"])
+                torch.index_select(self.states[0], 1, torch.argsort(self.keys, stable=True),
+                                   out=self.states[1])
+            for parity in (0, 1):
+                src, dst = self.states[parity], self.states[1 - parity]
+                for counted in (False, True):
+                    graph = torch.cuda.CUDAGraph()
+                    graph.capture_begin(pool=self.pool, capture_error_mode="thread_local")
+                    try:
+                        torch.index_select(src, 1, torch.argsort(self.keys, stable=True),
+                                           out=dst)
+                        build.launch_wavefront_step(
+                            self.camv, self.seed, self.background, self.packed, self.ntab,
+                            dst, n_slots=self.n_rays, k_bounces=k,
+                            segments=self.segments if counted else None, **self.launch_kw)
+                    finally:
+                        graph.capture_end()
+                    self.graphs[k, parity, counted] = graph
+                    GRAPH_CAPTURES += 1
+        main.wait_stream(self.stream)
+
+    def load(self, camv, seed, packed, background, ntab, cv) -> torch.Tensor:
+        """Copy a batch's values into the buffers on the current stream and
+        return the first pass's state, ``states[0]``, made fresh."""
+        from raytrace2_tpu_torch.ops.kernels import build
+
+        with torch.no_grad():
+            for buf, t in ((self.camv, camv), (self.packed, packed),
+                           (self.background, background), (self.ntab, ntab)):
+                if buf is not None:
+                    buf.copy_(t)
+            build.seed_buffer(seed, self.device, out=self.seed)
+            self.segments.zero_()
+            return init_wavefront_state(self.n_rays, cv, self.device, out=self.states[0])
+
+    def replay(self, state, k: int, counted: bool) -> torch.Tensor:
+        """One pass of K = ``k`` bounces on ``state`` (one of ``states``)
+        after its keys: replays its graph on the current stream and returns
+        the state the step advanced."""
+        global SORTS, LAUNCHES, GRAPH_REPLAYS
+        parity = 0 if state is self.states[0] else 1
+        self.graphs[k, parity, counted].replay()
+        SORTS += 1
+        LAUNCHES += 1
+        GRAPH_REPLAYS += 1
+        return self.states[1 - parity]
+
+
+def _pass_graphs(camv, packed, background, ntab, *, n_rays, max_depth, sizes, has_checker,
+                 has_noise) -> _PassGraphs:
+    """The pass graphs of this shape: the device, ``n_rays``, the step's
+    kernel instance and launch arguments, and the buffers' sizes. Made at
+    the shape's first batch; the least recently used shape beyond
+    ``_GRAPH_SHAPES`` is dropped with its graphs and buffers."""
+    from raytrace2_tpu_torch.ops.kernels import build
+
+    mk.check_inputs(camv, packed, background, n_rays, sizes)
+    mk.check_ntab(ntab, packed)
+    launch_kw = dict(max_depth=int(max_depth), counts=mk.counts(sizes, mk.n_noise_of(ntab)),
+                     checker_depth=int(has_checker), has_noise=bool(has_noise))
+    key = (packed.device, n_rays, build.target_key(build.step_target()),
+           *launch_kw.values(), packed.numel(), None if ntab is None else tuple(ntab.shape))
+    graphs = _GRAPHS.pop(key, None)
+    if graphs is None:
+        graphs = _PassGraphs(packed.device, n_rays, camv, packed, background, ntab, launch_kw)
+    _GRAPHS[key] = graphs
+    while len(_GRAPHS) > _GRAPH_SHAPES:
+        _GRAPHS.popitem(last=False)
+    return graphs
+
+
+# ---------------------------------------------------------------------------
 # Driver
 # ---------------------------------------------------------------------------
 
@@ -315,37 +447,62 @@ def trace_wavefront_batch(camv, seed, packed, background, *, n_rays, max_depth,
     pass steps a state whose count ended the phase (``OVERRUN_LAUNCHES``),
     which changes nothing at a count of 0 and otherwise runs ``k_bounces``
     steps more before the tail. On the card the count is read through a
-    side stream that waits for the keys launch alone.
+    side stream that waits for the keys launch alone, and a pass's sort,
+    gather and step are one replay of a CUDA graph (``_PassGraphs``,
+    captured at a shape's first batch) inside the span ``wavefront.launch``.
 
     ``step`` is the K-bounce step to run, ``wavefront_step`` (the kernel's
-    wrapper) by default; passing ``step_plain`` drives the plain version
-    with a CUDA tensor, to hold the kernel against it on the card. Where a
-    profiler records as the batch starts, every step also gets the device's
-    ``SEGMENTS`` tensor (``segments=``) to add its closest-hit queries to."""
-    step = wavefront_step if step is None else step
+    wrapper) by default; a step passed here runs eagerly, after
+    ``sort_state``, on either device: passing ``step_plain`` drives the
+    plain version with a CUDA tensor, to hold the kernel against it on the
+    card. Where a profiler records as the batch starts, every step also
+    gets the device's ``SEGMENTS`` tensor (``segments=``) to add its
+    closest-hit queries to (a replayed pass: its graph's own counter, added
+    to ``SEGMENTS`` at the batch's end)."""
     if n_rays % SLOT_TILE:
         raise ValueError(f"n_rays={n_rays} must be a multiple of {SLOT_TILE}")
     device = packed.device
+    on_card = device.type == "cuda"
+    kw = dict(max_depth=max_depth, sizes=sizes, has_checker=has_checker,
+              has_noise=has_noise, ntab=ntab)
+    graphs = None
     with tracing.span("wavefront.setup"):
         cv = [float(x) for x in tracing.sync(camv, "camv_values", torch.Tensor.tolist)]
         n_samples = cv[22]
         bb_lo, bb_hi = scene_bounds(packed, sizes)
-        state = init_wavefront_state(n_rays, cv, device)
-        # The outputs of the last count_and_keys, for the state it read.
-        keys = torch.empty(n_rays, dtype=torch.int32, device=device)
-        count = torch.empty(1, dtype=torch.int32, device=device)
+        if on_card and step is None:
+            graphs = _pass_graphs(camv, packed, background, **kw, n_rays=n_rays)
+            for k in (k_bounces, tail_k) if tail_k and tail_frac > 0.0 else (k_bounces,):
+                graphs.capture(k)
+            state = graphs.load(camv, seed, packed, background, ntab, cv)
+            # The outputs of the last count_and_keys, for the state it read.
+            keys, count = graphs.keys, graphs.count
+        else:
+            state = init_wavefront_state(n_rays, cv, device)
+            keys = torch.empty(n_rays, dtype=torch.int32, device=device)
+            count = torch.empty(1, dtype=torch.int32, device=device)
         # On the card, the stream that reads the count, and the event it
         # waits on. torch's pool streams are non-blocking: not even the
         # legacy default stream orders the read behind the step.
-        on_card = device.type == "cuda"
         if on_card:
             side = torch.cuda.Stream(device)
             counted = torch.cuda.Event()
-    kw = dict(max_depth=max_depth, sizes=sizes, has_checker=has_checker,
-              has_noise=has_noise, ntab=ntab)
     segments = tracing.device_counter(_SEGMENTS, device)
-    if segments is not None:
-        kw["segments"] = segments
+
+    if graphs is not None:
+        def sort_and_step(state, k):
+            with tracing.span("wavefront.launch"):
+                return graphs.replay(state, k, counted=segments is not None)
+    else:
+        step = wavefront_step if step is None else step
+        if segments is not None:
+            kw["segments"] = segments
+
+        def sort_and_step(state, k):
+            with tracing.span("wavefront.sort"):
+                state = sort_state(state, n_samples, bb_lo, bb_hi, keys=keys)
+            with tracing.span("wavefront.launch"):
+                return step(state, camv, seed, packed, background, k_bounces=k, **kw)
 
     def launches(state, k, go_on):
         """Passes of ``k`` steps until a count fails ``go_on``: the state
@@ -357,10 +514,7 @@ def trace_wavefront_batch(camv, seed, packed, background, *, n_rays, max_depth,
                 if on_card:
                     counted.record(torch.cuda.current_stream(device))
                     side.wait_event(counted)
-            with tracing.span("wavefront.sort"):
-                state = sort_state(state, n_samples, bb_lo, bb_hi, keys=keys)
-            with tracing.span("wavefront.launch"):
-                state = step(state, camv, seed, packed, background, k_bounces=k, **kw)
+            state = sort_and_step(state, k)
             # The host waits here until the copy is done, so the next
             # count_and_keys, which rewrites ``count``, is queued after it.
             with tracing.span("wavefront.runnable"), (
@@ -381,6 +535,8 @@ def trace_wavefront_batch(camv, seed, packed, background, *, n_rays, max_depth,
     # Un-permute by pixel id: each pixel owns exactly one slot, so the map
     # is a bijection (padding slots go to a spare row that is dropped).
     with tracing.span("wavefront.unpermute"):
+        if graphs is not None and segments is not None:
+            segments += graphs.segments
         pid = state[COL["pid"]]
         tgt = torch.where(pid >= 0.0, pid - cv[25], float(n_rays)).to(torch.int64)
         out = torch.zeros((n_rays + 1, 3), dtype=torch.float32, device=device)

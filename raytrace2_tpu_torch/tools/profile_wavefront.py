@@ -147,9 +147,10 @@ class Profiler:
             raise ValueError("the profiled variant, and only it, takes the counters")
         counts = mk.counts(self.sizes, mk.n_noise_of(self.ntab))
         kw = self.kw
+        seed = build.seed_buffer(0, self.dev)
         err = lib.wavefront_profile_launch(
-            VARIANTS[name], self.dev.index or 0, self.camv.data_ptr(), 0, self.bg.data_ptr(),
-            self.packed.data_ptr(), *counts[:8],
+            VARIANTS[name], self.dev.index or 0, self.camv.data_ptr(), seed.data_ptr(),
+            self.bg.data_ptr(), self.packed.data_ptr(), *counts[:8],
             None if self.ntab is None else self.ntab.data_ptr(), counts[8], state.data_ptr(),
             state.shape[1], k, kw["max_depth"], int(kw["has_checker"]),
             int(bool(kw["has_noise"])), None if prof is None else prof.data_ptr(),

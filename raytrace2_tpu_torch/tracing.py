@@ -41,8 +41,10 @@ Spans (``SPANS``), each at one layer's boundary:
   (``camv``'s values, the scene bounds, the slot state), ``wavefront.runnable``
   (``count_and_keys``: the keys kernel on the card, the plain keys and count
   on the CPU; and the count's read once the pass's sort and step are
-  queued), ``wavefront.sort``,
-  ``wavefront.launch``, ``wavefront.unpermute``;
+  queued), ``wavefront.sort`` (on the CPU, and for a step the caller
+  passes), ``wavefront.launch`` (the step; on the card by default, the
+  pass's sort, gather and step as one CUDA graph replay),
+  ``wavefront.unpermute``;
 * gradient (``grad.py``, ``ops/kernels/megakernel_grad.py``):
   ``grad.value_and_grad`` (a step: its seed), ``grad.params``,
   ``grad.forward``, ``grad.backward`` (``torch.autograd.grad``),

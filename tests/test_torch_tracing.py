@@ -36,7 +36,7 @@ NEW_READERS = ("render.syncs_per_batch", "render.host_busy_ms_per_batch",
                "render.syncs_per_frame", "render.host_busy_ms_per_frame",
                "wavefront.syncs_per_spp", "wavefront.host_busy_ms_per_pass",
                "wavefront.sync_wait_ms_per_pass", "grad.syncs_per_step",
-               "grad.host_busy_ms_per_step")
+               "grad.host_busy_ms_per_step", "wavefront.graph_replay_share")
 # Route -> (scene, backend, size, spp, the spans expected in one batch's
 # trace, each with its parent). Cornell on the wavefront backend makes the
 # driver's spans as book 2 does, at a fraction of the plain step's cost.
@@ -253,6 +253,27 @@ def test_readers_read_nothing_from_a_program_without_spans(monkeypatch):
     assert _spans.syncs_per(run, (), "units") is None
     assert _spans.busy_ms(run, (), ("render.update",)) is None
     assert _spans.wait_ms_per_launch(run, (), "wavefront.runnable") is None
+    # The replay share: nothing without its counters, nor without launches.
+    share = _graph_share_reader()
+    assert share.read(run) is None
+    monkeypatch.setattr(share, "COUNTERS", ())
+    run.trace_summary["counters"] = {f"{share.MODULE}.GRAPH_REPLAYS": 3,
+                                     f"{share.MODULE}.LAUNCHES": 3}
+    assert share.read(run) is None
+
+
+def _graph_share_reader():
+    return harness.load_file_module(harness.PKG / "metrics" / "wavefront.graph_replay_share.py")
+
+
+def test_graph_replay_share_divides_the_window_deltas():
+    share = _graph_share_reader()
+    run = harness.Run(cell={}, cfg={}, traffic={}, seed=1, seconds=1.0, trace=True,
+                      device=torch.device("cpu"),
+                      trace_summary={"counters": {f"{share.MODULE}.GRAPH_REPLAYS": 30,
+                                                  f"{share.MODULE}.LAUNCHES": 40}},
+                      traced_work={"units": 2, "spp": 8})
+    assert share.COUNTERS and share.read(run) == 0.75
 
 
 def test_readers_divide_the_window_deltas():
