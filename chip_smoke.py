@@ -19,7 +19,11 @@ Phases, each printed on its own line:
      |Δmean| < 1e-3 and PSNR ≥ 45 dB, and v4 bitwise: v4 on Cornell 600x600
      4 spp depth 8, the feature scene 256x256 4 spp depth 8, and Cornell at
      its main path's launch shape (600x600, depth 50, the CLI's 6-sample
-     batch), both timed;
+     batch), both timed, and the smoke-and-fog box (v4's quads-and-media
+     instance) at its benchmark cell's batch (600x600, depth 50, 20
+     samples), timed, then launched once with v4's counter: the same image,
+     the plain version's segment and medium-scatter counts, and its bound
+     from those segments;
      the wavefront on Cornell 600x600 4 spp depth 8 (forced) and book 2
      64x64 2 spp depth 4, driven by the kernel and by its plain step; the
      wavefront's step at its main path's launch shapes (book 2 600x600,
@@ -407,6 +411,7 @@ def main() -> None:
     cornell = scene_file("cornell", make_scene.cornell_box_original().to_json())
     book2 = scene_file("book2", make_scene.book2_final(rng_seed=0).to_json())
     feature = scene_file("feature", feature_scene_json())
+    volume = scene_file("cornell_volume", make_scene.cornell_box_volume().to_json())
     v4, v3, b3 = "megakernel_v4", "megakernel_v3", "megakernel_grad"
     masks = {v4: {}, v3: {}, b3: {}}
     for name, path, table, kernels in [
@@ -419,6 +424,8 @@ def main() -> None:
             ("cornell_corpus", scene_file("cornell_corpus",
                                           make_scene.cornell_box_corpus().to_json()), False,
              (v4,)),
+            # The smoke-and-fog box: v4's quads-and-media instance.
+            ("cornell_volume", volume, False, (v4,)),
             ("table_grad (table noise)", scene_file("table_grad", check_table_grad.NOISE_SCENE),
              True, (v4, b3))]:
         host = loader.load_scene(path)[0]
@@ -522,14 +529,19 @@ def main() -> None:
     results = {}
     cases = [("cornell 600x600 4spp depth 8", cornell, 600, 4, 8, 1),
              ("feature 256x256 4spp depth 8", feature, 256, 4, 8, 1),
-             ("cornell 600x600 6spp depth 50 (main-path launch)", cornell, 600, 6, 50, 5)]
+             ("cornell 600x600 6spp depth 50 (main-path launch)", cornell, 600, 6, 50, 5),
+             ("cornell_volume 600x600 20spp depth 50 (volume cell's batch)", volume, 600, 20,
+              50, 5)]
+    kept = {}
     for label, path, size, spp, depth, reps in cases:
         args, kw = prepare(path, size, size, spp, depth)
         kw = with_types(kw, args)
         mk.trace_megakernel_batch(*args, **kw)  # warm-up (and first launch)
         torch.cuda.synchronize()
         kern, ms = timed(lambda: mk.trace_megakernel_batch(*args, **kw), reps)
-        plain, plain_ms = timed(lambda: mk.trace_plain(*args, **kw), 1)
+        by_plain = torch.zeros(2, dtype=torch.int64, device=dev)
+        plain, plain_ms = timed(lambda: mk.trace_plain(*args, tally=by_plain, **kw), 1)
+        kept[label] = (args, kw, spp, plain, by_plain)
         n_bits = int((kern != plain).any(-1).sum())
         k = kern.cpu().numpy() / spp
         p = plain.cpu().numpy() / spp
@@ -548,6 +560,40 @@ def main() -> None:
               f"{label}: kernel disagrees with its plain version")
         check(n_bits == 0, f"{label}: {n_bits} slots differ from the plain version")
         results[label] = dict(max_abs_err=max_err, psnr=psnr, ms=ms, plain_ms=plain_ms)
+
+    def ops_per_bounce(sizes):
+        n_sph, n_quad, _, _, n_med, n_box = sizes
+        return (n_sph * OPS_PER_RECORD["sph"] + n_quad * OPS_PER_RECORD["quad"]
+                + n_box * OPS_PER_RECORD["box"] + n_med * OPS_PER_RECORD["med"] + OPS_SHADE)
+
+    # The volume box's batch once more through the launch wrapper with v4's
+    # counter: the plain version's image and counts; its bound from those
+    # segments.
+    label = cases[3][0]
+    args, kw, spp, plain, by_plain = kept[label]
+    camv, seed, packed, background = args
+    tally = torch.zeros(2, dtype=torch.int64, device=dev)
+    counted_img = torch.empty((kw["n_pix"], 3), dtype=torch.float32, device=dev)
+    build.launch_megakernel_v4(
+        camv, seed, background, packed, None, counted_img, n_pix=kw["n_pix"],
+        max_depth=kw["max_depth"], counts=mk.counts(kw["sizes"]),
+        checker_depth=int(kw["has_checker"]), has_noise=bool(kw["has_noise"]),
+        features=mk.scene_features(packed, kw["sizes"], kw["has_checker"], kw["has_noise"],
+                                   mat_types=kw["mat_types"]), tally=tally)
+    counted = tally.tolist()
+    check(torch.equal(counted_img, plain),
+          f"{label}: the counted launch differs from the plain version")
+    check(counted == by_plain.tolist(),
+          f"{label}: v4 counted {counted} (segments, medium scatters), the plain version "
+          f"{by_plain.tolist()}")
+    vol_ops = counted[0] * ops_per_bounce(kw["sizes"])
+    vol_bytes = 12 * kw["n_pix"] + args[2].numel() * 4
+    results[label]["bound_ms"] = max(vol_ops / PEAK_F32_OPS, vol_bytes / PEAK_BYTES) * 1e3
+    say(f"phase 4 v4 counter, {label}: {counted[0]} segments "
+        f"({counted[0] / (kw['n_pix'] * spp):.4f} per path), {counted[1]} medium scatters "
+        f"(share {counted[1] / counted[0]:.4f}), equal to the plain version's, image bitwise; "
+        f"bound {ops_per_bounce(kw['sizes'])} f32 ops a segment = {vol_ops:.4g} ops -> "
+        f"{results[label]['bound_ms']:.4f} ms against {results[label]['ms']:.3f} ms ({card})")
 
     def n_rays_of(n_pix):
         return -(-n_pix // wf.SLOT_TILE) * wf.SLOT_TILE
@@ -582,11 +628,6 @@ def main() -> None:
         say(f"phase 4 wavefront kernel vs plain step, {label}: |dmean| {d_mean:.3g}, "
             f"PSNR {psnr:.2f} dB, max abs err {max_err:.3g}; whole batch with the kernel "
             f"{ms:.1f} ms, with the plain step {plain_ms:.1f} ms ({card})")
-
-    def ops_per_bounce(sizes):
-        n_sph, n_quad, _, _, n_med, n_box = sizes
-        return (n_sph * OPS_PER_RECORD["sph"] + n_quad * OPS_PER_RECORD["quad"]
-                + n_box * OPS_PER_RECORD["box"] + n_med * OPS_PER_RECORD["med"] + OPS_SHADE)
 
     # B1's bound at its main-path launch shape: bounces counted by the plain
     # version (single steps of the same per-slot semantics).

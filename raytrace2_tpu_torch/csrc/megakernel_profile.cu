@@ -30,7 +30,7 @@ int megakernel_v4_profile_launch(int device, const float* camv, int seed, const 
       device, camv, seed, bg, tables,
       Counts{n_sph, n_quad, n_mat, n_tex, n_med, n_box, hier_sph, hier_box, n_noise}, ntab,
       n_slots, block_layout, wave_frac, max_depth, checker_depth, has_noise, next_slot, out,
-      prof, stream);
+      nullptr, prof, stream);
 }
 
 // megakernel_v3_launch's arguments; `prof` as above.

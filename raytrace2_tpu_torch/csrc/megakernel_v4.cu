@@ -65,6 +65,18 @@
 //     faster there) and every feature: book 2's mask instance of it
 //     spilled and ran 1-10 % slower than the parent's in turns.
 //
+// Counter. Given a non-null `tally` (two uint64), a launch adds its path
+// segments (closest-hit queries: one a bounce of a lane) to tally[0] and
+// its medium scatters (segments whose closest hit was a medium) to
+// tally[1]. In the persistent kernel each lane sums its own in registers
+// across the launch and adds them at its exit, where the pointer is
+// non-null: a warp's sums, one atomic a warp. It adds a path's segments
+// once, as its bounce count when the lane takes its next path, and counts
+// medium scatters only in an instance that holds media, so a launch
+// without a counter pays one add a path. The renderer passes it only while a
+// profiler records (megakernel.SEGMENTS, megakernel.MEDIUM_SCATTERS). The
+// image is the same either way.
+//
 // The device code it shares with wavefront_step.cu (tables, RNG, noise, the
 // sweep, one bounce, the camera ray) is in path_common.cuh.
 //
@@ -130,6 +142,18 @@ __device__ __forceinline__ Pixel slot_pixel(int slot, const float* cv, int block
   return px;
 }
 
+// Add a lane's segments and medium scatters to tally[0] and tally[1]: a
+// warp's sums, one atomic each a warp. Every lane of the warp calls it.
+__device__ __forceinline__ void add_tally(unsigned long long* tally, unsigned segs,
+                                          unsigned meds) {
+  const unsigned warp_segs = __reduce_add_sync(0xffffffffu, segs);
+  const unsigned warp_meds = __reduce_add_sync(0xffffffffu, meds);
+  if ((threadIdx.x & 31) == 0) {
+    if (warp_segs) atomicAdd(tally, (unsigned long long)warp_segs);
+    if (warp_meds) atomicAdd(tally + 1, (unsigned long long)warp_meds);
+  }
+}
+
 // The next slot for each lane that calls it together: one atomicAdd per
 // group of coalesced lanes, each taking the group's base plus its rank.
 __device__ __forceinline__ int fetch_slot(int* counter) {
@@ -140,15 +164,16 @@ __device__ __forceinline__ int fetch_slot(int* counter) {
 }
 
 // Instant regeneration on persistent blocks of kThreads. `next_slot` is the
-// zeroed fetch counter. Clock: the profiling build's phase clock
-// (megakernel_profile.cu), whose sums go to `prof`; NoClock here.
+// zeroed fetch counter; `tally` (or null) gets the counts added. Clock:
+// the profiling build's phase clock (megakernel_profile.cu), whose sums go
+// to `prof`; NoClock here.
 template <uint32_t F, class Clock>
 __global__ void __launch_bounds__(kThreads, kPersistentMinBlocks)
 megakernel_v4(const float* __restrict__ camv_g, int seed, const float* __restrict__ bg_g,
               const float* __restrict__ tables_g, const float* __restrict__ ntab_g, Counts c,
               int n_slots, int block_layout, int max_depth, int checker_depth, int has_noise,
               int* __restrict__ next_slot, float* __restrict__ out,
-              unsigned long long* __restrict__ prof) {
+              unsigned long long* __restrict__ tally, unsigned long long* __restrict__ prof) {
   using K = Cfg<false, Sweep::kLane, F, Clock>;
   Clock clk;
   const long long t_all = tick<Clock>();
@@ -166,6 +191,8 @@ megakernel_v4(const float* __restrict__ camv_g, int seed, const float* __restric
   Path s{0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
   float s_lane = -1.0f, tm = 0.0f;
   uint32_t key = 0u;
+  unsigned segs = 0u;
+  [[maybe_unused]] unsigned meds = 0u;
   if constexpr (Clock::kOn) clk.begin();
   while (slot < n_slots) {
     if (s.alive <= 0.0f) {
@@ -183,15 +210,20 @@ megakernel_v4(const float* __restrict__ camv_g, int seed, const float* __restric
         continue;
       }
       const long long t0 = tick<Clock>();
+      segs += (unsigned)s.bn;  // the lane's last path (0 before its first)
       s_lane += 1.0f;
       const float sg = s0 + s_lane;
       key = sample_key(seed, px.pid, (int)sg);
       camera_ray(s, tm, cv, key, px.xx, px.yy, sg, sqrt_spp);
       tock(&clk, kPhCamera, t0);
     }
-    bounce<K>(s, T, c, bg, key, tm, max_depth, checker_depth, has_noise != 0, nullptr, &clk);
+    [[maybe_unused]] const bool med =
+        bounce<K>(s, T, c, bg, key, tm, max_depth, checker_depth, has_noise != 0, nullptr, &clk);
+    if constexpr ((F & kFMed) != 0) meds += med ? 1u : 0u;
     if constexpr (Clock::kOn) clk.mark();
   }
+  // Every thread of the block gets here, its last path not yet counted.
+  if (tally) add_tally(tally, segs + (unsigned)s.bn, meds);
   if constexpr (Clock::kOn) {
     clk.lanes_done();
     tock(&clk, kPhTotal, t_all);
@@ -202,13 +234,16 @@ megakernel_v4(const float* __restrict__ camv_g, int seed, const float* __restric
 // Wave regeneration (wave_frac < 1): the block's threads in lockstep (a
 // block is a tile: kBlockTile threads on the block layout, kThreads on the
 // linear one), every feature held. The minimum of 3 resident blocks holds
-// it at 80 registers a thread without a spill.
+// it at 80 registers a thread without a spill. `tally` as above, summed for
+// the block in shared memory only where it is non-null, so that counting
+// holds no register across the loop (sums in registers spilled 8 B more).
 template <class Clock>
 __global__ void __launch_bounds__(kBlockTile, 3)
 megakernel_v4_wave(const float* __restrict__ camv_g, int seed, const float* __restrict__ bg_g,
                    const float* __restrict__ tables_g, const float* __restrict__ ntab_g,
                    Counts c, int n_slots, int block_layout, float wave_frac, int max_depth,
                    int checker_depth, int has_noise, float* __restrict__ out,
+                   unsigned long long* __restrict__ tally,
                    unsigned long long* __restrict__ prof) {
   using K = Cfg<false, Sweep::kLane, kFAll, Clock>;
   Clock clk;
@@ -226,6 +261,8 @@ megakernel_v4_wave(const float* __restrict__ camv_g, int seed, const float* __re
   Path s{0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
   float s_lane = -1.0f, tm = 0.0f;
   uint32_t key = 0u;
+  __shared__ unsigned block_segs, block_meds;
+  if (tally && threadIdx.x == 0) block_segs = block_meds = 0u;
   if constexpr (Clock::kOn) clk.begin();
   // Every thread takes part in every count.
   const float n_img = (float)__syncthreads_count(px.in_grid);
@@ -239,6 +276,7 @@ megakernel_v4_wave(const float* __restrict__ camv_g, int seed, const float* __re
     if (s.alive <= 0.0f && s_lane < n_samples - 1.0f && px.in_grid &&
         live <= wave_frac * n_img) {
       t0 = tick<Clock>();
+      if (tally) atomicAdd(&block_segs, (unsigned)s.bn);  // the lane's last path
       s_lane += 1.0f;
       const float sg = s0 + s_lane;
       key = sample_key(seed, px.pid, (int)sg);
@@ -246,8 +284,18 @@ megakernel_v4_wave(const float* __restrict__ camv_g, int seed, const float* __re
       tock(&clk, kPhCamera, t0);
     }
     if (s.alive > 0.0f) {
-      bounce<K>(s, T, c, bg, key, tm, max_depth, checker_depth, has_noise != 0, nullptr, &clk);
+      const bool med = bounce<K>(s, T, c, bg, key, tm, max_depth, checker_depth,
+                                 has_noise != 0, nullptr, &clk);
+      if (tally && med) atomicAdd(&block_meds, 1u);
       if constexpr (Clock::kOn) clk.mark();
+    }
+  }
+  if (tally) {  // every thread of the block, its last path not yet counted
+    atomicAdd(&block_segs, (unsigned)s.bn);
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      atomicAdd(tally, (unsigned long long)block_segs);
+      atomicAdd(tally + 1, (unsigned long long)block_meds);
     }
   }
   const long long t0 = tick<Clock>();
@@ -279,12 +327,14 @@ int persistent_blocks_per_sm(int smem) {
 
 // Launch instance <F, Clock> on `stream`; returns the cudaError_t of the
 // launch. `next_slot` (one int of the caller's) is the persistent kernel's
-// fetch counter, zeroed here on the stream.
+// fetch counter, zeroed here on the stream; `tally` (or null) gets the
+// launch's segments and medium scatters added.
 template <uint32_t F, class Clock>
 int launch_v4(int device, const float* camv, int seed, const float* bg, const float* tables,
               const Counts& c, const float* ntab, int n_slots, int block_layout,
               float wave_frac, int max_depth, int checker_depth, int has_noise,
-              int* next_slot, float* out, unsigned long long* prof, void* stream) {
+              int* next_slot, float* out, unsigned long long* tally,
+              unsigned long long* prof, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (n_slots <= 0) return (int)cudaSuccess;
@@ -292,15 +342,14 @@ int launch_v4(int device, const float* camv, int seed, const float* bg, const fl
   const int smem = block_smem_bytes(c);
   cudaStream_t s = (cudaStream_t)stream;
   if (wave_frac < 1.0f) {
-    if (smem > 48 * 1024) {
-      err = cudaFuncSetAttribute(megakernel_v4_wave<Clock>,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-      if (err != cudaSuccess) return (int)err;
-    }
+    // Always: its static counts take from the 48 KB that need no opt-in.
+    err = cudaFuncSetAttribute(megakernel_v4_wave<Clock>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
     const int threads = block_layout ? kBlockTile : kThreads;
     megakernel_v4_wave<Clock><<<(n_slots + threads - 1) / threads, threads, smem, s>>>(
         camv, seed, bg, tables, ntab, c, n_slots, block_layout, wave_frac, max_depth,
-        checker_depth, has_noise, out, prof);
+        checker_depth, has_noise, out, tally, prof);
     return (int)cudaGetLastError();
   }
   int sms = 0;
@@ -314,7 +363,7 @@ int launch_v4(int device, const float* camv, int seed, const float* bg, const fl
   if (err != cudaSuccess) return (int)err;
   megakernel_v4<F, Clock><<<blocks, kThreads, smem, s>>>(
       camv, seed, bg, tables, ntab, c, n_slots, block_layout, max_depth, checker_depth,
-      has_noise, next_slot, out, prof);
+      has_noise, next_slot, out, tally, prof);
   return (int)cudaGetLastError();
 }
 
@@ -343,18 +392,20 @@ int megakernel_v4_threads_per_sm(int smem) {
 // Launch on `stream`; returns the cudaError_t of the launch. `ntab` holds
 // n_noise Perlin tables ([6, n_noise * 256]; null for hash noise);
 // `block_layout` selects the block-tiled layout (n_slots a multiple of 256),
-// `wave_frac` < 1 wave regeneration; `next_slot` is one int of scratch.
+// `wave_frac` < 1 wave regeneration; `next_slot` is one int of scratch;
+// `tally` (null for none) gets the launch's segments and medium scatters
+// added, two uint64.
 int megakernel_v4_launch(int device, const float* camv, int seed, const float* bg,
                          const float* tables, int n_sph, int n_quad, int n_mat, int n_tex,
                          int n_med, int n_box, int hier_sph, int hier_box, const float* ntab,
                          int n_noise, int n_slots, int block_layout, float wave_frac,
                          int max_depth, int checker_depth, int has_noise, int* next_slot,
-                         float* out, void* stream) {
+                         float* out, unsigned long long* tally, void* stream) {
   return launch_v4<kV4Feat, NoClock>(
       device, camv, seed, bg, tables,
       Counts{n_sph, n_quad, n_mat, n_tex, n_med, n_box, hier_sph, hier_box, n_noise}, ntab,
       n_slots, block_layout, wave_frac, max_depth, checker_depth, has_noise, next_slot, out,
-      nullptr, stream);
+      tally, nullptr, stream);
 }
 
 const char* megakernel_v4_error_string(int err) {

@@ -798,9 +798,10 @@ __device__ __forceinline__ float texture_noise(const Tables& T, int ti, float le
 }
 
 // One bounce of a live path (the kernel only calls it with alive > 0). With
-// K::kTrack the sweep's winner is written to *win.
+// K::kTrack the sweep's winner is written to *win. Returns whether the
+// closest hit was a medium (a medium scatter), which v4's counter sums.
 template <class K = Cfg<>>
-__device__ void bounce(Path& s, const Tables& T, const Counts& c, const float* bg,
+__device__ bool bounce(Path& s, const Tables& T, const Counts& c, const float* bg,
                        uint32_t key, float tm, int max_depth, int checker_depth,
                        bool has_noise, Winner* win = nullptr,
                        typename K::Clock* clk = nullptr) {
@@ -948,6 +949,7 @@ __device__ void bounce(Path& s, const Tables& T, const Counts& c, const float* b
   s.bn = s.bn + 1.0f;
   s.alive = (scatter_live && s.bn < (float)max_depth) ? 1.0f : 0.0f;
   tock(clk, kPhShade, t_shade);
+  return is_med;
 }
 
 // Camera ray of sample `sg` through pixel (xx, yy) (camera_ray,

@@ -182,7 +182,7 @@ _COUNTS = [ctypes.c_int] * 9
 def _bind_megakernel_v4(lib: ctypes.CDLL) -> None:
     i, p, f = ctypes.c_int, ctypes.c_void_p, ctypes.c_float
     lib.megakernel_v4_launch.argtypes = [i, p, i, p, p, *_COUNTS[:8], p, i, i, i, f, i, i, i,
-                                         p, p, p]
+                                         p, p, p, p]
     lib.megakernel_v4_launch.restype = i
     lib.megakernel_v4_smem_bytes.argtypes = _COUNTS
     lib.megakernel_v4_smem_bytes.restype = i
@@ -253,7 +253,8 @@ def _bind_megakernel_profile(lib: ctypes.CDLL) -> None:
     _bind_megakernel_v4(lib)
     _bind_megakernel_v3(lib)
     p = ctypes.c_void_p
-    lib.megakernel_v4_profile_launch.argtypes = [*lib.megakernel_v4_launch.argtypes[:-1], p, p]
+    # v4's production arguments without its counter and stream.
+    lib.megakernel_v4_profile_launch.argtypes = [*lib.megakernel_v4_launch.argtypes[:-2], p, p]
     lib.megakernel_v3_profile_launch.argtypes = [*lib.megakernel_v3_launch.argtypes[:-1], p, p]
     for name in ("megakernel_v4_profile_launch", "megakernel_v3_profile_launch",
                  "megakernel_profile_counters"):
@@ -386,13 +387,17 @@ def step_target(name: str = "wavefront_step"):
 
 def launch_megakernel_v4(camv, seed: int, background, packed, ntab, out, *, n_pix,
                          max_depth, counts, checker_depth, has_noise, features, block=False,
-                         wave_frac=1.0) -> None:
+                         wave_frac=1.0, tally=None) -> None:
     """Launch ``megakernel_v4``'s instance for the feature mask ``features``
     (built at first use), writing ``out`` [n_pix, 3] (one row per slot of
     the linear or, with ``block``, the block-tiled layout); ``counts`` is
     ``megakernel.counts`` of the scene, whose n_noise must match ``ntab``;
-    raises on a refused launch."""
+    raises on a refused launch. ``tally`` (an int64 [2] CUDA tensor,
+    optional) gets the launch's path segments and medium scatters added."""
     device = _require_cuda(camv=camv, background=background, packed=packed, out=out)
+    if tally is not None and (tally.dtype != torch.int64 or tally.device != device
+                              or tally.numel() != 2 or not tally.is_contiguous()):
+        raise ValueError("tally must be a contiguous int64 [2] tensor on the tables' device")
     if out.numel() != 3 * n_pix:
         raise ValueError("out must hold n_pix x 3 floats")
     nt, n_noise = _ntab_args(ntab, device)
@@ -407,7 +412,8 @@ def launch_megakernel_v4(camv, seed: int, background, packed, ntab, out, *, n_pi
         device.index, camv.data_ptr(), int(seed), background.data_ptr(),
         packed.data_ptr(), *counts[:8], nt, n_noise, int(n_pix), int(bool(block)),
         float(wave_frac), int(max_depth), int(checker_depth), int(bool(has_noise)),
-        next_slot.data_ptr(), out.data_ptr(), stream)
+        next_slot.data_ptr(), out.data_ptr(), None if tally is None else tally.data_ptr(),
+        stream)
     if err:
         msg = lib.megakernel_v4_error_string(err).decode()
         raise RuntimeError(f"megakernel_v4 launch failed: {msg} (cudaError {err})")

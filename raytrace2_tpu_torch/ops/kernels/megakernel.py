@@ -114,6 +114,21 @@ BLOCK = camera.PIXEL_BLOCK
 
 # Launches of the CUDA kernel (the plain version does not count).
 LAUNCHES = 0
+# v4's path segments (closest-hit queries: one a bounce of a lane) and
+# medium scatters (segments whose closest hit was a medium) while a
+# profiler records: an int64 [2] tensor per device that each batch adds
+# to on the device (``tracing.device_counter``), so that counting adds no
+# host sync. ``SEGMENTS`` and ``MEDIUM_SCATTERS`` read their sums, waiting
+# for the devices.
+_TALLY: dict = {}
+
+
+def __getattr__(attr: str) -> int:
+    if attr == "SEGMENTS":
+        return tracing.device_count(_TALLY, 0)
+    if attr == "MEDIUM_SCATTERS":
+        return tracing.device_count(_TALLY, 1)
+    raise AttributeError(f"module {__name__!r} has no attribute {attr!r}")
 
 # Feature bits of the kernels' instances (csrc/path_common.cuh kF*): v4, B4
 # (megakernel_v3) and B3 (megakernel_grad) are each built once per scene
@@ -1246,7 +1261,7 @@ def pixel_slots(width: int, height: int, block: bool = False):
 
 def trace_plain(camv, seed, packed, background, *, n_pix, max_depth, sizes,
                 has_checker, has_noise, ntab=None, block=False, wave_frac=1.0, stats=None,
-                mat_types=None):
+                mat_types=None, tally=None):
     """Plain PyTorch version of the v4 kernel: radiance summed over
     ``camv[22]`` samples for each of ``n_pix`` slots, [n_pix, 3] (on the
     block-tiled layout, ``block``, n_pix is ``pixel_slots``' n_slots).
@@ -1257,7 +1272,9 @@ def trace_plain(camv, seed, packed, background, *, n_pix, max_depth, sizes,
     bounces the live lanes; the loop ends when no lane can run. A tile is
     one CUDA block of the kernel: ``BLOCK_TILE`` lanes on the block layout,
     ``TILE`` on the linear one. ``mat_types``, which picks the kernel's
-    instance, changes nothing here."""
+    instance, changes nothing here. ``tally`` (an int64 [2] tensor, optional)
+    gets the bounces (path segments) and the medium scatters added, as the
+    kernel's counter counts them."""
     device = packed.device
     cv = [float(x) for x in camv.tolist()]
     bounce = make_bounce(packed, background, max_depth=max_depth, sizes=sizes,
@@ -1286,7 +1303,13 @@ def trace_plain(camv, seed, packed, background, *, n_pix, max_depth, sizes,
         s_lane, key, tm, carry = regenerate(cv, seed, pix, s_lane, tm, carry, in_grid, allow)
         # A bounce changes nothing on a dead lane: bounce the live ones only.
         idx = torch.nonzero(carry[1] > 0.0).squeeze(1)
-        out = bounce(key[idx], tm[idx], tuple(c[idx] for c in carry))
+        lanes = (key[idx], tm[idx], tuple(c[idx] for c in carry))
+        if tally is None:
+            out = bounce(*lanes)
+        else:
+            out, (_, _, famid) = bounce(*lanes, track=True)
+            tally[0] += idx.numel()
+            tally[1] += (famid == FAMID["med"]).sum()
         carry = tuple(c.index_copy(0, idx, v) for c, v in zip(carry, out))
     return torch.stack(carry[11:14], dim=-1)[:n_pix]
 
@@ -1342,7 +1365,9 @@ def trace_megakernel_batch(camv, seed, packed, background, *, n_pix, max_depth,
     CUDA tensor it launches the Hopper kernel's instance for the scene's
     feature mask (``scene_features``; built at first use) or raises.
     ``mat_types`` (``scene_material_types``; None: read from ``packed``)
-    are the material type ids the scene holds."""
+    are the material type ids the scene holds. While a profiler records as
+    the batch starts, the batch adds its segments and medium scatters to
+    ``SEGMENTS`` and ``MEDIUM_SCATTERS`` on the device."""
     global LAUNCHES
     check_inputs(camv, packed, background, n_pix, sizes)
     check_ntab(ntab, packed)
@@ -1351,10 +1376,11 @@ def trace_megakernel_batch(camv, seed, packed, background, *, n_pix, max_depth,
                          "block-tiled layout")
     kw = dict(n_pix=n_pix, max_depth=max_depth, sizes=sizes, has_checker=has_checker,
               has_noise=has_noise, ntab=ntab, block=block, wave_frac=wave_frac)
-    if packed.device.type == "cpu":
-        return trace_plain(camv, seed, packed, background, **kw)
-    if packed.device.type != "cuda":
+    if packed.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {packed.device}")
+    tally = tracing.device_counter(_TALLY, packed.device, 2)
+    if packed.device.type == "cpu":
+        return trace_plain(camv, seed, packed, background, tally=tally, **kw)
     from raytrace2_tpu_torch.ops.kernels import build
 
     out = torch.empty((n_pix, 3), dtype=torch.float32, device=packed.device)
@@ -1363,6 +1389,6 @@ def trace_megakernel_batch(camv, seed, packed, background, *, n_pix, max_depth,
         max_depth=max_depth, counts=counts(sizes, n_noise_of(ntab)),
         checker_depth=int(has_checker), has_noise=bool(has_noise),
         features=scene_features(packed, sizes, has_checker, has_noise, ntab, mat_types),
-        block=bool(block), wave_frac=float(wave_frac))
+        block=bool(block), wave_frac=float(wave_frac), tally=tally)
     LAUNCHES += 1
     return out

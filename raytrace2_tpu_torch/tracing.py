@@ -181,22 +181,23 @@ def sync(t: torch.Tensor, site: str, read=None, *, device="cpu"):
         return _do(t, read, device, site)
 
 
-def device_counter(counts: dict, device) -> torch.Tensor | None:
-    """Where a profiler records, the int64 [1] tensor of ``counts`` for
-    ``device`` (made at first use) that a kernel adds a count to on the
-    device, so that counting adds no host sync; else None: nothing counts."""
+def device_counter(counts: dict, device, n: int = 1) -> torch.Tensor | None:
+    """Where a profiler records, the int64 [n] tensor of ``counts`` for
+    ``device`` (made at first use) that a kernel adds its ``n`` counts to on
+    the device, so that counting adds no host sync; else None: nothing
+    counts."""
     if not recording():
         return None
     t = counts.get(device)
     if t is None:
-        t = counts[device] = torch.zeros(1, dtype=torch.int64, device=device)
+        t = counts[device] = torch.zeros(n, dtype=torch.int64, device=device)
     return t
 
 
-def device_count(counts: dict) -> int:
-    """The sum of ``device_counter``'s tensors in ``counts``: waits for
-    their devices."""
-    return sum(int(t) for t in counts.values())
+def device_count(counts: dict, i: int = 0) -> int:
+    """The sum of entry ``i`` of ``device_counter``'s tensors in ``counts``:
+    waits for their devices."""
+    return sum(int(t[i]) for t in counts.values())
 
 
 def __getattr__(attr: str) -> int:

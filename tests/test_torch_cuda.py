@@ -207,6 +207,77 @@ def test_wavefront_segments_match_plain_on_book1(tmp_path, cuda):
     assert torch.equal(image0, image1)
 
 
+def test_v4_counts_match_plain_on_the_volume_box(tmp_path, cuda, monkeypatch):
+    """v4's counts (path segments, medium scatters) equal the plain
+    version's on the smoke-and-fog Cornell box, persistent and with wave
+    regeneration on the block layout, and a launch gives the same image with
+    the counter and without it. Through the Renderer the launched instance
+    is the quads-and-media one; a traced batch gets the counter, gives the
+    untraced batch's image, makes the same host syncs, and moves
+    ``SEGMENTS`` and ``MEDIUM_SCATTERS``; an untraced one gets none."""
+    from raytrace2_tpu_torch.ops.kernels import build
+
+    path = write_scene(tmp_path, "cornell_volume")
+    scene, _ = loader.load_scene(path)
+    feats = scene.features()
+    sizes = tuple(feats["mega_sizes"])
+    dev = schema.to_device(scene, cuda)
+    packed = mk.pack_buffer(dev, sizes)
+    mask = mk.scene_features(packed, sizes, feats["has_checker"], feats["has_noise"])
+    assert mask == mk.F_QUAD | mk.F_MED
+    w = h = 64
+    for block, wave_frac in ((False, 1.0), (True, 0.5)):
+        camv = camera.make_camv(scene.camera, w, h, 0, 4, 2, 0,
+                                **({"block": mk.BLOCK} if block else {})).to(cuda)
+        n_pix = mk.pixel_slots(w, h, block)[0]
+        kw = dict(n_pix=n_pix, max_depth=50, sizes=sizes, has_checker=feats["has_checker"],
+                  has_noise=feats["has_noise"], block=block, wave_frac=wave_frac)
+        by_plain = torch.zeros(2, dtype=torch.int64, device=cuda)
+        plain = mk.trace_plain(camv, 7, packed, dev.background, tally=by_plain, **kw)
+        runs = []
+        for tally in (torch.zeros(2, dtype=torch.int64, device=cuda), None):
+            out = torch.empty((n_pix, 3), dtype=torch.float32, device=cuda)
+            build.launch_megakernel_v4(
+                camv, 7, dev.background, packed, None, out, n_pix=n_pix, max_depth=50,
+                counts=mk.counts(sizes), checker_depth=int(feats["has_checker"]),
+                has_noise=bool(feats["has_noise"]), features=mask, block=block,
+                wave_frac=wave_frac, tally=tally)
+            runs.append((out, tally))
+        torch.cuda.synchronize()
+        (counted_img, counted), (bare, _) = runs
+        assert int(counted[1]) > 0 and torch.equal(counted, by_plain), (block, counted, by_plain)
+        assert torch.equal(counted_img, bare) and torch.equal(counted_img, plain), block
+
+    seen = []
+    orig = build.launch_megakernel_v4
+
+    def spy(*a, **k):
+        seen.append((k["features"], k.get("tally")))
+        return orig(*a, **k)
+    monkeypatch.setattr(build, "launch_megakernel_v4", spy)
+
+    def render():
+        r = Renderer(scene, 96, 96, num_samples=8, max_depth=50, seed=11, device=cuda)
+        assert r.kernel == "megakernel_v4"
+        torch.cuda.synchronize()
+        syncs = tracing.HOST_SYNCS
+        r.update(8)
+        torch.cuda.synchronize()
+        return r.state.accum.cpu(), tracing.HOST_SYNCS - syncs
+
+    image0, syncs0 = render()
+    assert seen and all(f == mask and t is None for f, t in seen)
+    seen.clear()
+    before = (mk.SEGMENTS, mk.MEDIUM_SCATTERS)
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]):
+        image1, syncs1 = render()
+    assert seen and all(f == mask and t is not None for f, t in seen)
+    assert mk.SEGMENTS > before[0] and mk.MEDIUM_SCATTERS > before[1]
+    assert syncs1 == syncs0
+    assert torch.equal(image0, image1)
+
+
 def test_record_ceiling_scene_on_card(tmp_path, cuda):
     """4,096 spheres, the most records the kernel path takes: its tables
     (147 KB of shared memory) launch through the wavefront kernel."""
